@@ -13,6 +13,15 @@ takes its plain PyTorch version; on a CUDA tensor it launches the kernel or
 raises.
 """
 
-from pytorch_generative_tpu_torch import convert, models, nn, ops  # noqa: F401
+from pytorch_generative_tpu_torch import (  # noqa: F401
+    convert,
+    datasets,
+    models,
+    nn,
+    ops,
+    optim,
+    trainer,
+    utils,
+)
 
 __version__ = "0.1.0"

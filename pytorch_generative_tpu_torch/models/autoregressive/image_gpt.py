@@ -27,8 +27,9 @@ REPRODUCE_CONFIG = dict(
     n_attention_heads=2, n_embedding_channels=64, in_shape=(28, 28, 1))
 
 
-def reproduce_loss(x, preds):
-    """``reproduce()``'s loss: sigmoid BCE summed per image, batch mean (nats)."""
+def reproduce_loss(x, _, preds):
+    """``reproduce()``'s loss, with the Trainer's ``loss_fn(x, y, preds)``
+    signature: sigmoid BCE summed per image, batch mean (nats)."""
     n = x.shape[0]
     loss = F.binary_cross_entropy_with_logits(
         preds.reshape(n, -1), x.reshape(n, -1), reduction="none")
@@ -60,13 +61,18 @@ class ImageGPT(base.AutoregressiveModel):
     def __init__(self, in_channels: int = 1, out_channels: int = 1,
                  in_size: int = 28, n_transformer_blocks: int = 8,
                  n_attention_heads: int = 4, n_embedding_channels: int = 16,
-                 in_shape=None, sample_fn=None, generator=None):
-        """Builds the model on the CPU; move it with ``.to(device)``.
+                 in_shape=None, sample_fn=None, generator=None, device=None):
+        """Builds the model and places it on ``device``.
 
         Args:
-            generator: ``torch.Generator`` that drives the weight init.
+            generator: CPU ``torch.Generator`` that drives the weight init, so
+                a seed gives the same weights on every device.
+            device: Where the model runs; ``None`` means CUDA, and the
+                constructor raises if CUDA is not available. Pass ``"cpu"``
+                to run on the CPU.
             Others: as in the JAX package's ImageGPT.
         """
+        device = base.resolve_device(device)
         in_shape = tuple(in_shape) if in_shape else (in_size, in_size, in_channels)
         super().__init__(in_shape=in_shape, sample_fn=sample_fn)
         h, w, c = in_shape
@@ -81,6 +87,7 @@ class ImageGPT(base.AutoregressiveModel):
         self.ln = ChannelLayerNorm(n_embedding_channels)
         self.out_conv = Conv2d(n_embedding_channels, out_channels, 1,
                                generator=generator)
+        self.to(device)
 
     def forward(self, x):
         x = self.input_conv(x + self.pos)
@@ -103,3 +110,27 @@ class ImageGPT(base.AutoregressiveModel):
         """The generic full-forward-per-pixel raster sampler (base class)."""
         return super().sample(n_samples, conditioned_on, generator=generator,
                               uniforms=uniforms)
+
+
+def reproduce(n_epochs=457, batch_size=64, log_dir="/tmp/run",
+              debug_loader=None, device=None):
+    """Training script with the reference defaults (the JAX package's
+    ``image_gpt.reproduce``): the reproduce() config, Adam at 5e-3 decayed by
+    0.999977 per applied step, ``reproduce_loss``, dynamically binarized
+    MNIST (or ``debug_loader`` for both train and eval). ``device=None``
+    means CUDA. Returns the Trainer."""
+    from pytorch_generative_tpu_torch import datasets, optim, trainer
+
+    train_loader, test_loader = debug_loader, debug_loader
+    if train_loader is None:
+        train_loader, test_loader = datasets.get_mnist_loaders(
+            batch_size, dynamically_binarize=True)
+    model = ImageGPT(**REPRODUCE_CONFIG,
+                     generator=torch.Generator().manual_seed(0), device=device)
+    model_trainer = trainer.Trainer(
+        model=model, loss_fn=reproduce_loss,
+        optimizer=optim.adam_multiplicative(5e-3, 0.999977),
+        train_loader=train_loader, eval_loader=test_loader, log_dir=log_dir,
+        device=device)
+    model_trainer.interleaved_train_and_eval(n_epochs)
+    return model_trainer

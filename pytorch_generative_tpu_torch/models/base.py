@@ -13,6 +13,19 @@ import torch
 from torch import nn
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``None`` means CUDA. Raises when
+    CUDA is asked for and not available; the CPU is used only when asked
+    for by name."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} (the default) is not available: "
+            "torch.cuda.is_available() is false; pass device='cpu' to run on "
+            "the CPU")
+    return device
+
+
 def _default_sample_fn(u, logits):
     """Bernoulli(sigmoid(logits)) from uniforms: ``u < sigmoid(logits)``, which
     is how ``jax.random.bernoulli`` draws in the JAX package."""

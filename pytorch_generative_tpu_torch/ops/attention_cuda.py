@@ -1,10 +1,12 @@
-"""Packed causal flash attention: the CUDA kernel ``csrc/flash_fwd.cu``, its
-plain PyTorch version and its launch count (counterpart of
-``pytorch_generative_tpu/ops/attention_pallas.py``, forward only).
+"""Packed causal flash attention: the CUDA kernels ``csrc/flash_fwd.cu`` and
+``csrc/flash_bwd.cu``, their plain PyTorch versions, their launch counts and
+the autograd Function that joins them (counterpart of
+``pytorch_generative_tpu/ops/attention_pallas.py``).
 
 A CUDA tensor launches the kernel, or the wrapper raises; a CPU tensor takes
-the plain version. The backward (the TPU package's ``_bwd_fused_kernel``) is
-not ported yet, so serving runs this under ``torch.no_grad()``.
+the plain version. ``causal_attention_packed`` is one autograd Function on
+both devices: its forward saves q, k, v, out and lse, as the JAX package's
+``_vjp_fwd`` does, and its backward is the flash backward.
 """
 
 from __future__ import annotations
@@ -15,12 +17,17 @@ import torch
 
 from pytorch_generative_tpu_torch.ops import _build
 from pytorch_generative_tpu_torch.ops.attention import causal_attention_with_lse
+from pytorch_generative_tpu_torch.ops.masks import causal_attention_mask
 
 KERNEL = "flash_fwd"
+BWD_KERNEL = "flash_bwd"
 HEAD_DIMS = (16, 32, 64)
 
-# Kernel launches since the last reset; only _flash_forward_cuda adds to it.
+# Kernel launches since the last reset; only _flash_forward_cuda adds to
+# `launches`, only _flash_backward_cuda to `bwd_launches` (one per call,
+# which runs the dq pass and then the dk/dv pass).
 launches = 0
+bwd_launches = 0
 
 
 def _pack(t):
@@ -41,19 +48,35 @@ def flash_forward_plain(q, k, v, mask_center: bool, n_heads: int):
     return _pack(out), lse
 
 
-def _lib():
-    lib = _build.load(KERNEL)
-    fn = lib.flash_fwd_f32
+def flash_backward_plain(q, k, v, out, lse, dout, mask_center: bool,
+                         n_heads: int):
+    """The backward kernel's plain version, on a materialised p:
+    (dq, dk, dv), each (B, L, H*d)."""
+    q, k, v, out, dout = (_unpack(t, n_heads) for t in (q, k, v, out, dout))
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    mask = causal_attention_mask(q.shape[-2], mask_center, device=q.device)
+    lse = lse[..., None]
+    live = mask & torch.isfinite(lse)  # fully-masked rows get p = 0
+    logits = torch.einsum("nhqd,nhkd->nhqk", q, k) * scale
+    p = torch.where(live, torch.exp(logits - torch.where(live, lse, 0.0)), 0.0)
+    delta = (dout * out).sum(dim=-1, keepdim=True)
+    dv = torch.einsum("nhqk,nhqd->nhkd", p, dout)
+    ds = p * (torch.einsum("nhqd,nhkd->nhqk", dout, v) - delta)
+    dq = torch.einsum("nhqk,nhkd->nhqd", ds, k) * scale
+    dk = torch.einsum("nhqk,nhqd->nhkd", ds, q) * scale
+    return _pack(dq), _pack(dk), _pack(dv)
+
+
+def _declare(fn, argtypes):
     if fn.argtypes is None:  # 64-bit pointers need declared argtypes
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                       + [ctypes.c_int64] * 6 + [ctypes.c_int, ctypes.c_void_p])
-    return lib
+        fn.argtypes = argtypes
+    return fn
 
 
 def _check_operand(name, t, b, l):
     if t.dtype != torch.float32:
-        raise TypeError(f"{name}: the flash kernel takes float32, got {t.dtype}")
+        raise TypeError(f"{name}: the flash kernels take float32, got {t.dtype}")
     if t.dim() != 3 or t.shape[0] != b or t.shape[1] != l:
         raise ValueError(f"{name}: expected (B={b}, L={l}, H*d), got {tuple(t.shape)}")
     if t.stride(2) != 1 or t.stride(0) != l * t.stride(1):
@@ -61,57 +84,108 @@ def _check_operand(name, t, b, l):
                          f"one batch stride apart, got strides {t.stride()}")
 
 
-def _flash_forward_cuda(q, k, v, mask_center: bool, n_heads: int):
-    global launches
+def _check_operands(n_heads, **operands):
+    """Checks packed (B, L, H*d) operands on one device; returns the head dim."""
+    q = operands["q"]
     b, l, ck = q.shape
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in operands.items():
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         _check_operand(name, t, b, l)
-    if k.shape[2] != ck or v.shape[2] != ck or ck % n_heads:
-        raise ValueError(f"q/k/v widths {ck}/{k.shape[2]}/{v.shape[2]} must be "
-                         f"equal and divisible by n_heads={n_heads}")
-    d = ck // n_heads
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+        if t.shape[2] != ck:
+            raise ValueError(f"{name} width {t.shape[2]} != q width {ck}")
+    if ck % n_heads or ck // n_heads not in HEAD_DIMS:
+        raise ValueError(f"width {ck} over {n_heads} heads: head dim not in "
+                         f"{HEAD_DIMS}")
+    return ck // n_heads
+
+
+def _strides(*tensors):
+    return [s for t in tensors for s in (t.stride(0), t.stride(1))]
+
+
+def _flash_forward_cuda(q, k, v, mask_center: bool, n_heads: int):
+    global launches
+    d = _check_operands(n_heads, q=q, k=k, v=v)
+    b, l, ck = q.shape
     out = torch.empty((b, l, ck), device=q.device, dtype=torch.float32)
     lse = torch.empty((b, n_heads, l), device=q.device, dtype=torch.float32)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    fn = _declare(_build.load(KERNEL).flash_fwd_f32,
+                  [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                  + [ctypes.c_int64] * 6 + [ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(q.device):
-        err = _lib().flash_fwd_f32(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, l, n_heads, d, q.stride(0), q.stride(1),
-            k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-            int(mask_center), stream)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 lse.data_ptr(), b, l, n_heads, d, *_strides(q, k, v),
+                 int(mask_center), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_fwd_f32")
     launches += 1
     return out, lse
 
 
+def _flash_backward_cuda(q, k, v, out, lse, dout, mask_center: bool,
+                         n_heads: int):
+    global bwd_launches
+    dout = dout.contiguous()
+    d = _check_operands(n_heads, q=q, k=k, v=v, out=out, dout=dout)
+    b, l, ck = q.shape
+    if lse.shape != (b, n_heads, l) or not lse.is_contiguous() \
+            or lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(f"lse must be contiguous float32 ({b}, {n_heads}, {l}) "
+                         f"on {q.device}")
+    dq, dk, dv = (torch.empty((b, l, ck), device=q.device) for _ in range(3))
+    delta = torch.empty((b, n_heads, l), device=q.device)
+    fn = _declare(_build.load(BWD_KERNEL).flash_bwd_f32,
+                  [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+                  + [ctypes.c_int64] * 10 + [ctypes.c_int, ctypes.c_void_p])
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), delta.data_ptr(), b, l, n_heads, d,
+                 *_strides(q, k, v, out, dout), int(mask_center),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_bwd_f32")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+def _dispatch(cuda_fn, plain_fn, *args):
+    t = args[0]
+    if t.is_cuda:
+        return cuda_fn(*args)
+    if t.device.type != "cpu":
+        raise ValueError(f"no kernel for device {t.device}")
+    return plain_fn(*args)
+
+
 def flash_forward(q, k, v, mask_center: bool, n_heads: int):
     """Forward over packed q/k/v (B, L, H*d): returns (out, lse (B, H, L))."""
-    if q.is_cuda:
-        return _flash_forward_cuda(q, k, v, mask_center, n_heads)
-    if q.device.type != "cpu":
-        raise ValueError(f"no kernel for device {q.device}")
-    return flash_forward_plain(q, k, v, mask_center, n_heads)
+    return _dispatch(_flash_forward_cuda, flash_forward_plain, q, k, v,
+                     mask_center, n_heads)
+
+
+def flash_backward(q, k, v, out, lse, dout, mask_center: bool, n_heads: int):
+    """Backward over packed tensors, from the forward's out and lse:
+    returns (dq, dk, dv), each (B, L, H*d)."""
+    return _dispatch(_flash_backward_cuda, flash_backward_plain, q, k, v, out,
+                     lse, dout, mask_center, n_heads)
 
 
 class _CausalAttentionPacked(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, mask_center, n_heads):
-        return flash_forward(q, k, v, mask_center, n_heads)[0]
+        out, lse = flash_forward(q, k, v, mask_center, n_heads)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask_center, ctx.n_heads = mask_center, n_heads
+        return out
 
     @staticmethod
-    def backward(ctx, grad_out):
-        raise NotImplementedError(
-            "the flash attention backward (attention_pallas.py::"
-            "_bwd_fused_kernel) is not ported yet; run under torch.no_grad()")
+    def backward(ctx, dout):
+        dq, dk, dv = flash_backward(*ctx.saved_tensors, dout, ctx.mask_center,
+                                    ctx.n_heads)
+        return dq, dk, dv, None, None
 
 
 def causal_attention_packed(q, k, v, mask_center: bool, n_heads: int):
-    """Causal attention over packed (B, L, heads*d) tensors, head-major
-    features; returns (B, L, heads*d_v)."""
-    if q.is_cuda:
-        return _CausalAttentionPacked.apply(q, k, v, mask_center, n_heads)
-    return flash_forward(q, k, v, mask_center, n_heads)[0]
+    """Differentiable causal attention over packed (B, L, heads*d) tensors,
+    head-major features; returns (B, L, heads*d_v)."""
+    return _CausalAttentionPacked.apply(q, k, v, mask_center, n_heads)

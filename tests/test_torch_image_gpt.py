@@ -40,7 +40,7 @@ def _jax_model(config, seed=0, pos_seed=42):
 def _port(jmodel, config):
     leaves, _ = jax.tree_util.tree_flatten_with_path(jmodel)
     flat = {jax.tree_util.keystr(p): np.asarray(v) for p, v in leaves}
-    model = ImageGPT(**config)
+    model = ImageGPT(**config, device="cpu")
     model.load_state_dict(convert.from_jax_params(flat))
     return model.eval()
 
@@ -64,7 +64,7 @@ def test_forward_matches_jax_at_reproduce_widths():
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
     jloss = optax.sigmoid_binary_cross_entropy(
         want.reshape(2, -1), x.reshape(2, -1)).sum(axis=1).mean()
-    tloss = timage_gpt.reproduce_loss(torch.from_numpy(x), got)
+    tloss = timage_gpt.reproduce_loss(torch.from_numpy(x), None, got)
     np.testing.assert_allclose(float(tloss), float(jloss), atol=1e-3)
 
 
@@ -155,8 +155,8 @@ def test_model_from_generator_is_seeded():
     """A model built from a torch.Generator seed is reproducible, and samples
     drawn from a generator are binary of the expected shape."""
     config = dict(TINY, n_transformer_blocks=1)
-    a = ImageGPT(**config, generator=torch.Generator().manual_seed(5))
-    b = ImageGPT(**config, generator=torch.Generator().manual_seed(5))
+    a = ImageGPT(**config, generator=torch.Generator().manual_seed(5), device="cpu")
+    b = ImageGPT(**config, generator=torch.Generator().manual_seed(5), device="cpu")
     for (ka, va), (kb, vb) in zip(a.state_dict().items(), b.state_dict().items()):
         assert ka == kb and torch.equal(va, vb)
     s = a.sample(n_samples=2, generator=torch.Generator().manual_seed(1))
