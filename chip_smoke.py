@@ -21,10 +21,17 @@ MLP, a composition of calls) that computes the same function
 (``library_ms``) and its bound; the train step's time and a
 ``torch.profiler`` breakdown of it; then the same at C = 512: forward at
 batch 64, three train steps, gradients and a 3-step trajectory against the
-CPU at batch 2, times and the profiled train step. The line before the last
-is the per-kernel JSON summary; the last line is ``{"ok": true, "device":
-{...}}``. Any failure exits non-zero before that line; without a CUDA
-device it fails at once.
+CPU at batch 2, times and the profiled train step. Then sampling on the
+per-position step route: the decode step kernel against its plain version
+at C = 512, n = 16 (f32 and bf16 K/V cache, NaN in the stale cache
+positions); ``ImageGPT(**LARGE_CONFIG).sample`` of 16 images, free and
+inpainted, f32 and bf16 cache, against the plain step route (784 step
+launches a call, no whole loop); at C = 64 the step route for n = 4 and for
+a model with a custom ``sample_fn``; the times of the C = 512 sample call,
+of the step at i = 391 and of its plain version, with bounds, and a
+profile of one sample call. The line before the last is the per-kernel JSON
+summary; the last line is ``{"ok": true, "device": {...}}``. Any failure
+exits non-zero before that line; without a CUDA device it fails at once.
 """
 
 import concurrent.futures
@@ -67,6 +74,15 @@ TRAJ_BATCH = 8
 LN_RTOL = 1e-5
 MLP_RTOL = 1e-4
 TRAIN_STEPS_LARGE = 3
+# The decode step kernel against its plain version, as a share of the
+# largest |act|: f32 sums over 512, 2048 and up to 784 terms in another
+# order (kv_new in bf16 may also round to the neighbouring bf16 value).
+STEP_RTOL = 1e-4
+STEP_POSITIONS = (0, 1, 391, 783)
+TIMED_POSITION = 391
+# Uniforms within this distance of the plain route's own probability are
+# moved twice as far away before two sampler routes are compared.
+NUDGE = 1e-3
 # Bounds: NVIDIA's H100 SXM data sheet, at its 700 W limit.
 F32_FLOPS = 67e12   # f32 on the CUDA cores, FMA = 2 operations
 HBM_BYTES = 3.35e12  # HBM3 bytes/s
@@ -140,10 +156,52 @@ def nudged_uniforms(model, canvas_sample, u, cond):
     between two samplers cannot flip a pixel."""
     with torch.no_grad():
         p = torch.sigmoid(model(canvas_sample)).reshape(u.shape[1], -1).T[..., None]
+    return nudge_around(u, p, cond, NUDGE)
+
+
+def nudge_around(u, p, cond, delta):
+    """Moves every uniform of a sampled pixel within ``delta`` of ``p`` (the
+    probability the reference route drew with) to 2 ``delta`` from it, on
+    the side it was on: the reference's pixels stay, and a route whose
+    probabilities differ by less than ``delta`` draws the same pixels."""
     d = u - p
-    near = (d.abs() < 1e-3) & (cond.reshape(u.shape[1], -1).T[..., None] < 0)
+    near = (d.abs() < delta) & (cond.reshape(u.shape[1], -1).T[..., None] < 0)
     side = torch.where(d >= 0, 1.0, -1.0)
-    return torch.where(near, (p + 2e-3 * side).clamp(0.0, 1.0), u), int(near.sum())
+    return torch.where(near, (p + 2 * delta * side).clamp(0.0, 1.0), u), int(near.sum())
+
+
+def plain_step_route(model, cond, u, cache_dtype):
+    """The step-route sampler with the step kernel's plain version, on the
+    card: (images, the probability of every draw (L, N, 1))."""
+    from pytorch_generative_tpu_torch.ops import decode_cuda, sampling
+
+    acts = []
+
+    def step(i, x, kv_cache, weights, n_heads):
+        act, kv_new = decode_cuda.decode_step_plain(i, x, kv_cache, weights, n_heads)
+        acts.append(act)
+        return act, kv_new
+
+    with torch.no_grad():
+        images = sampling._image_gpt_decode_step(model, cond, u, cache_dtype, step=step)
+        p = torch.sigmoid(torch.stack(acts) @ model.out_conv.weight + model.out_conv.bias)
+    return images, p
+
+
+def step_work(weights, n, i, cache_bytes):
+    """(FLOPs, bytes) of one decode step at position i for n rows: per row
+    and block the four products (2 (C F + c_v C + 2 C M)) and attention over
+    i + 1 keys (2 (i + 1) (c_k + c_v)); every weight read once, the cache's i
+    positions read, x read, act and kv_new (one position) written."""
+    from pytorch_generative_tpu_torch.ops import decode_cuda
+
+    n_blocks, c, f_qkv = weights["qkv_w"].shape
+    c_v, m = weights["out_w"].shape[1], weights["mlp1_w"].shape[2]
+    f = f_qkv - (f_qkv - c_v) // 2  # c_k + c_v
+    flops = n * n_blocks * (2 * (c * f_qkv + c_v * c + 2 * c * m) + 2 * (i + 1) * f)
+    nbytes = (4 * sum(weights[k].numel() for k in decode_cuda.STEP_WEIGHT_ORDER)
+              + n_blocks * n * (i + 1) * f * cache_bytes + 2 * 4 * n * c)
+    return flops, nbytes
 
 
 def read_losses(log_dir):
@@ -260,12 +318,13 @@ def flash_times(q, k, v, dout, n_heads):
     return times
 
 
-def profile_steps(step, n_steps, step_ms, batch, label, smi, focus):
-    """torch.profiler over n_steps calls of ``step``: kernel time per step
-    by kernel (user annotations dropped: Optimizer.step also carries a
-    device range and would count its kernels twice), the device's idle
-    share of the unprofiled step, and the share of the kernels whose
-    names hold one of ``focus``."""
+def profile_steps(step, n_steps, step_ms, what, per_call, label, smi, focus, host=False):
+    """torch.profiler over n_steps calls of ``step`` (``what``, of
+    ``per_call`` = (count, unit) items): kernel time per call by kernel
+    (user annotations dropped: Optimizer.step also carries a device range
+    and would count its kernels twice), the device's idle share of the
+    unprofiled call, the share of the kernels whose names hold one of
+    ``focus`` and, with ``host``, the PyTorch ops' self CPU time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -276,25 +335,34 @@ def profile_steps(step, n_steps, step_ms, batch, label, smi, focus):
             step()
         torch.cuda.synchronize()
     window_ms = (time.perf_counter() - wall0) * 1e3
-    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-                   and not getattr(e, "is_user_annotation", False)),
+    events = [e for e in prof.key_averages() if not getattr(e, "is_user_annotation", False)]
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in events
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
                   key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows) / n_steps
     shares = ", ".join(
-        f"{name} {sum(r[1] for r in rows if name in r[0]) / n_steps:.3f} ms/step "
+        f"{name} {sum(r[1] for r in rows if name in r[0]) / n_steps:.3f} ms/call "
         f"({100 * sum(r[1] for r in rows if name in r[0]) / n_steps / device_ms:.1f}%)"
         for name in focus)
+    count, unit = per_call
     # The profiler slows the host, so the idle share is taken against the
-    # unprofiled step time.
-    print(f"phase step{label} [{smi}]: train step batch {batch} {step_ms:.3f} ms "
-          f"({batch * 1000 / step_ms:.1f} samples/s); profiled ({n_steps} steps, "
-          f"{window_ms / n_steps:.3f} ms/step under the profiler): kernel time {device_ms:.3f} "
-          f"ms/step, device idle {100 * (1 - device_ms / step_ms):.1f}% of the unprofiled "
-          f"step; {shares} of kernel time", flush=True)
+    # unprofiled call time.
+    print(f"phase {label} [{smi}]: {what} {step_ms:.3f} ms "
+          f"({count * 1000 / step_ms:.2f} {unit}/s); profiled ({n_steps} calls, "
+          f"{window_ms / n_steps:.3f} ms/call under the profiler): kernel time {device_ms:.3f} "
+          f"ms/call, device idle {100 * (1 - device_ms / step_ms):.1f}% of the unprofiled "
+          f"call; {shares} of kernel time", flush=True)
     for key, ms, count in rows[:15]:
-        print(f"phase step{label}:   {ms / n_steps:9.4f} ms/step {count // n_steps:4d} "
-              f"launches/step  {key[:110]}", flush=True)
+        print(f"phase {label}:   {ms / n_steps:9.4f} ms/call {count // n_steps:6d} "
+              f"launches/call  {key[:110]}", flush=True)
+    if host:
+        ops = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count) for e in events
+                      if e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0),
+                     key=lambda r: -r[1])
+        print(f"phase {label}: host, PyTorch ops' self CPU time under the profiler "
+              f"{sum(r[1] for r in ops) / n_steps:.3f} ms/call; top: " + ", ".join(
+                  f"{key} {ms / n_steps:.3f} ms/{count // n_steps}" for key, ms, count in ops[:8]),
+              flush=True)
 
 
 def main():
@@ -328,7 +396,8 @@ def main():
     # Phase 2: build every kernel of the paths from the checkout's sources,
     # one nvcc per source, all started together.
     names = (attention_cuda.KERNEL, attention_cuda.BWD_KERNEL, decode_cuda.KERNEL,
-             ln_cuda.KERNEL, ln_cuda.BWD_KERNEL, mlp_cuda.KERNEL, mlp_cuda.BWD_KERNEL)
+             decode_cuda.DECODE_STEP_KERNEL, ln_cuda.KERNEL, ln_cuda.BWD_KERNEL,
+             mlp_cuda.KERNEL, mlp_cuda.BWD_KERNEL)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         paths = dict(zip(names, pool.map(_build.build, names)))
@@ -416,10 +485,11 @@ def main():
     def reset_counts():
         for mod in pairs:
             mod.launches = mod.bwd_launches = 0
-        decode_cuda.launches = 0
+        decode_cuda.launches = decode_cuda.step_launches = 0
 
     def read_counts():
-        counts = {decode_cuda.KERNEL: decode_cuda.launches}
+        counts = {decode_cuda.KERNEL: decode_cuda.launches,
+                  decode_cuda.DECODE_STEP_KERNEL: decode_cuda.step_launches}
         for mod in pairs:
             counts[mod.KERNEL], counts[mod.BWD_KERNEL] = mod.launches, mod.bwd_launches
         return counts
@@ -449,6 +519,9 @@ def main():
     check(serve_counts[attention_cuda.KERNEL] > 0 and serve_counts[decode_cuda.KERNEL] > 0,
           f"a kernel of the serving path never launched: {serve_counts}")
     check(all(serve_counts[k] == 0 for k in fused), "a fused kernel launched at C = 64")
+    check(serve_counts[decode_cuda.DECODE_STEP_KERNEL] == 0
+          and sampling.sample_route(model, N_SAMPLES) == sampling.LOOP_ROUTE,
+          "n = 16 at C = 64 did not take the whole-loop route")
     # The kernel path agrees with the same model's plain path on the CPU.
     cpu_model = ImageGPT(**cfg, device="cpu")
     cpu_model.load_state_dict({k: t.cpu() for k, t in model.state_dict().items()})
@@ -549,7 +622,8 @@ def main():
         log_dir=tempfile.mkdtemp(prefix="chip_smoke_step_"), use_tensorboard=False, device=dev)
     xb = (torch.rand((BATCH, h, w, 1), generator=gen) < 0.13).float().numpy()
     step_ms = time_ms(lambda: step_trainer.train_one_step(xb, None), 10, 3)
-    profile_steps(lambda: step_trainer.train_one_step(xb, None), 3, step_ms, BATCH, "", smi,
+    profile_steps(lambda: step_trainer.train_one_step(xb, None), 3, step_ms,
+                  f"train step batch {BATCH}", (BATCH, "samples"), "step", smi,
                   ("flash_bwd",))
     shutil.rmtree(step_trainer.log_dir, ignore_errors=True)
 
@@ -776,11 +850,191 @@ def main():
     xb = (torch.rand((BATCH, h, w, 1), generator=gen) < 0.13).float().numpy()
     big_step = lambda: big_trainer.train_one_step(xb, None)
     big_step_ms = time_ms(big_step, 5, 2)
-    profile_steps(big_step, 2, big_step_ms, BATCH, f" C={cb}", smi,
+    profile_steps(big_step, 2, big_step_ms, f"train step batch {BATCH}", (BATCH, "samples"),
+                  f"step C={cb}", smi,
                   ("gemm_kernel", "flash_bwd", "flash_fwd", "ln_bwd_rows", "ln_fwd"))
     shutil.rmtree(big_trainer.log_dir, ignore_errors=True)
+    del big_trainer
 
-    all_counts = (serve_counts, train_counts, big_serve_counts, big_train_counts)
+    # ---- Sampling on the per-position step route. ----
+    # Phase 19: the decode step kernel against its plain version at
+    # LARGE_CONFIG, n = 16, f32 and bf16 cache, NaN in the cache's stale
+    # positions >= i (reading one would poison the result).
+    sbig = ImageGPT(**big_cfg, generator=gen, device=dev)
+    with torch.no_grad():
+        sbig.pos.copy_(0.1 * torch.randn(sbig.pos.shape, generator=gen))
+    sbig.eval()
+    sweights = decode_cuda.stack_image_gpt_weights(sbig)
+    f_kv = 2 * cb
+    x_step = torch.randn((N_SAMPLES, cb), generator=gen).to(dev)
+    cache_f32 = torch.randn((nb, N_SAMPLES, h * w, f_kv), generator=gen).to(dev)
+    cache_dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    step_err, logit_diff = 0.0, {}
+    for dname, dtype in cache_dtypes.items():
+        logit_diff[dname] = 0.0
+        for i in STEP_POSITIONS:
+            cache = cache_f32.clone()
+            cache[:, :, i:] = float("nan")
+            cache = cache.to(dtype)
+            # Each on its own cache: the step writes its k|v there at i.
+            act, kv_new = decode_cuda.fused_decode_step(i, x_step, cache.clone(), sweights, hb)
+            ref_act, ref_kv = decode_cuda.decode_step_plain(i, x_step, cache, sweights, hb)
+            torch.cuda.synchronize()
+            scale = float(ref_act.abs().max())
+            e_act = float((act - ref_act).abs().max())
+            e_kv = float((kv_new.float() - ref_kv.float()).abs().max())
+            kv_ulps = int(((kv_new.float() - ref_kv.float()).abs()
+                           > STEP_RTOL * scale).sum())
+            d_logit = float(((act - ref_act) @ sbig.out_conv.weight.detach()).abs().max())
+            logit_diff[dname] = max(logit_diff[dname], d_logit)
+            step_err = max(step_err, e_act)
+            print(f"phase decode step C={cb} {dname} cache: i={i} n={N_SAMPLES} max_abs_err "
+                  f"act={e_act:.3e} kv_new={e_kv:.3e} (max |act| {scale:.3e}, tol {STEP_RTOL} x "
+                  f"max |act|; kv_new entries past it {kv_ulps}) logit diff {d_logit:.3e}",
+                  flush=True)
+            check(bool(torch.isfinite(act).all()) and bool(torch.isfinite(kv_new.float()).all()),
+                  f"the step kernel read a stale cache position ({dname}, i={i})")
+            check(e_act <= STEP_RTOL * scale, f"decode step act disagrees ({dname}, i={i})")
+            # bf16: an entry may round to the neighbouring bf16 value, one
+            # unit in the last place (2^-7 relative at most).
+            ulp = 0.0 if dtype == torch.float32 else 2.0 ** -7
+            check(bool(((kv_new.float() - ref_kv.float()).abs()
+                        <= STEP_RTOL * scale + ulp * ref_kv.float().abs()).all()),
+                  f"decode step kv_new disagrees ({dname}, i={i})")
+    del cache
+
+    # Phase 20: ImageGPT(**LARGE_CONFIG).sample of 16 images through the
+    # entry point, free and inpainted (top half kept), f32 and bf16 cache:
+    # 784 step launches, no whole loop; pixel-equal to the plain step route
+    # on uniforms moved off its own decision boundary. Nudging leaves the
+    # plain route's pixels as they were, so it is not run again.
+    check(sampling.sample_route(sbig, N_SAMPLES) == sampling.STEP_ROUTE,
+          "LARGE_CONFIG n = 16 does not take the step route")
+    big_sample_counts = []
+    for dname, dtype in cache_dtypes.items():
+        delta = max(NUDGE, 10 * logit_diff[dname])
+        for mode in ("free", "inpaint"):
+            cond = -torch.ones((N_SAMPLES, h, w, 1), device=dev)
+            if mode == "inpaint":
+                cond[:, : h // 2] = (torch.rand((N_SAMPLES, h // 2, w, 1), generator=gen)
+                                     < 0.3).float().to(dev)
+            u = torch.rand((h * w, N_SAMPLES, 1), generator=gen).to(dev)
+            plain, p = plain_step_route(sbig, cond, u, dtype)
+            u, n_nudged = nudge_around(u, p, cond, delta)
+            kw = dict(n_samples=N_SAMPLES) if mode == "free" else dict(conditioned_on=cond)
+            reset_counts()
+            got = sbig.sample(uniforms=u, cache_dtype=dtype, **kw)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            big_sample_counts.append(counts)
+            mismatched = int((got != plain).sum())
+            kept = bool((got[:, : h // 2] == cond[:, : h // 2]).all()) if mode == "inpaint" else True
+            binary = bool(((got == 0) | (got == 1)).all())
+            print(f"phase sample C={cb} {dname} cache: {mode} n={N_SAMPLES} nudge margin "
+                  f"{delta:.3e} (10 x the step's logit diff {logit_diff[dname]:.3e}, at least "
+                  f"{NUDGE}) nudged={n_nudged} mismatched_pixels={mismatched} "
+                  f"kept_pixels_ok={kept} binary={binary} mean={float(got.mean()):.4f}; "
+                  f"launches={counts}", flush=True)
+            check(got.shape == (N_SAMPLES, h, w, 1) and binary, "bad C = 512 samples")
+            check(mismatched == 0 and kept,
+                  f"C = 512 step route disagrees with its plain version ({dname}, {mode})")
+            want_counts = {k: 0 for k in counts}
+            want_counts[decode_cuda.DECODE_STEP_KERNEL] = h * w
+            check(counts == want_counts, f"C = 512 sample launches {counts}, expected {want_counts}")
+
+    # Phase 21: routes at C = 64. n = 4 takes the step route (the JAX tile
+    # is 4 < 8), and so does a model with a custom sample_fn, which the
+    # whole loop does not cover; both pixel-equal to the plain step route.
+    custom = ImageGPT(**cfg, generator=gen, device=dev)
+    with torch.no_grad():
+        custom.pos.copy_(0.1 * torch.randn(custom.pos.shape, generator=gen))
+    custom.eval()
+    custom.sample_fn = lambda uu, logits: (uu < torch.sigmoid(logits)).float()
+    route_counts = []
+    for label, net, n in (("n=4", model, 4), ("custom sample_fn n=16", custom, N_SAMPLES)):
+        cond = -torch.ones((n, h, w, 1), device=dev)
+        u = torch.rand((h * w, n, 1), generator=gen).to(dev)
+        plain, p = plain_step_route(net, cond, u, torch.float32)
+        u, n_nudged = nudge_around(u, p, cond, NUDGE)
+        reset_counts()
+        got = net.sample(uniforms=u, n_samples=n)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        route_counts.append(counts)
+        mismatched = int((got != plain).sum())
+        route = sampling.sample_route(net, n)
+        print(f"phase route C={c}: {label} route={route} nudged={n_nudged} "
+              f"mismatched_pixels={mismatched}; launches={counts}", flush=True)
+        want_counts = {k: 0 for k in counts}
+        want_counts[decode_cuda.DECODE_STEP_KERNEL] = h * w
+        check(route == sampling.STEP_ROUTE and counts == want_counts,
+              f"{label} at C = 64 did not take the step route: {counts}")
+        check(mismatched == 0, f"{label} at C = 64 disagrees with the plain step route")
+
+    # Phase 22: times at C = 512, n = 16: the sample call (f32 and bf16
+    # cache), the step kernel at i = 391 and its plain version, their
+    # bounds; then a profile of one f32 sample call.
+    u16_big = torch.rand((h * w, N_SAMPLES, 1), generator=gen).to(dev)
+    cache = cache_f32.clone()
+    cache[:, :, TIMED_POSITION:] = 0.0
+    step_times = {}
+    for dname, dtype in cache_dtypes.items():
+        cache_d = cache.to(dtype)
+        step_times[dname] = time_ms(lambda: decode_cuda.fused_decode_step(
+            TIMED_POSITION, x_step, cache_d, sweights, hb), 20, 3)
+        step_times[dname + "_plain"] = time_ms(lambda: decode_cuda.decode_step_plain(
+            TIMED_POSITION, x_step, cache_d, sweights, hb), 5, 1)
+        step_times[dname + "_2"] = time_ms(lambda: decode_cuda.fused_decode_step(
+            TIMED_POSITION, x_step, cache_d, sweights, hb), 20, 3)
+    del cache, cache_d
+    sample_times = {dname: time_ms(lambda: sbig.sample(
+        n_samples=N_SAMPLES, generator=torch.Generator().manual_seed(SEED), cache_dtype=dtype), 2, 1)
+        for dname, dtype in cache_dtypes.items()}
+    step_bounds = {dname: bound(*step_work(sweights, N_SAMPLES, TIMED_POSITION, dtype.itemsize))
+                   for dname, dtype in cache_dtypes.items()}
+    call_bounds = {}
+    for dname, dtype in cache_dtypes.items():
+        works = [step_work(sweights, N_SAMPLES, i, dtype.itemsize) for i in range(h * w)]
+        call_bounds[dname] = bound(sum(wk[0] for wk in works), sum(wk[1] for wk in works))
+    for dname in cache_dtypes:
+        print(f"phase times sample C={cb} {dname} cache [{smi}]: sample n={N_SAMPLES} "
+              f"{sample_times[dname]:.2f} ms ({N_SAMPLES * 1000 / sample_times[dname]:.2f} img/s), "
+              f"bound {call_bounds[dname][0]:.2f} ms ({call_bounds[dname][1]}); decode_step at "
+              f"i={TIMED_POSITION} kernel {step_times[dname]:.4f}/{step_times[dname + '_2']:.4f} ms, "
+              f"plain {step_times[dname + '_plain']:.4f} ms, bound {step_bounds[dname][0]:.4f} ms "
+              f"({step_bounds[dname][1]}), library none", flush=True)
+    profile_steps(lambda: sbig.sample(n_samples=N_SAMPLES, generator=torch.Generator().manual_seed(
+        SEED)), 1, sample_times["f32"], f"sample call n={N_SAMPLES}", (N_SAMPLES, "images"),
+        f"profile sample C={cb} f32 cache", smi, ("decode_gemv", "decode_attn", "decode_rows"),
+        host=True)
+    # The host's share of a position: the step route with the step replaced
+    # by a stub that returns one step's outputs (what remains is the
+    # PyTorch ops around it: conv taps, head, draw, merge), and
+    # the host time to issue one step call (no synchronisation inside).
+    stub = decode_cuda.fused_decode_step(TIMED_POSITION, x_step, cache_f32, sweights, hb)
+    ops_ms = time_ms(lambda: sampling._image_gpt_decode_step(
+        sbig, free, u16_big, torch.float32, step=lambda *_: stub), 2, 1) / (h * w)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(8):
+        decode_cuda.fused_decode_step(TIMED_POSITION, x_step, cache_f32, sweights, hb)
+    issue_ms = (time.perf_counter() - t0) * 1e3 / 8
+    torch.cuda.synchronize()
+    print(f"phase host sample C={cb} [{smi}]: per position, the PyTorch ops around the step "
+          f"{ops_ms:.4f} ms (the step stubbed), issuing one step call {issue_ms:.4f} ms of host "
+          f"time (57 launches); the whole call {sample_times['f32'] / (h * w):.4f} ms a position",
+          flush=True)
+    # The two routes at C = 64, n = 16, where the whole loop serves: the
+    # step route on the same model and uniforms, beside the whole loop.
+    u16 = torch.rand((h * w, N_SAMPLES, 1), generator=gen).to(dev)
+    route_times = {
+        "step": time_ms(lambda: sampling._image_gpt_decode_step(model, free, u16, torch.float32), 2, 1),
+        "loop": time_ms(lambda: sampling._image_gpt_sample_loop(model, free, u16), 2, 1)}
+    print(f"phase times routes C={c} [{smi}]: n={N_SAMPLES} whole loop {route_times['loop']:.2f} ms, "
+          f"step route {route_times['step']:.2f} ms", flush=True)
+
+    all_counts = (serve_counts, train_counts, big_serve_counts, big_train_counts,
+                  *big_sample_counts, *route_counts)
     print(json.dumps({"kernels": [
         {"name": attention_cuda.KERNEL, "route": "cuda",
          "source": "pytorch_generative_tpu_torch/csrc/flash_fwd.cu",
@@ -800,6 +1054,13 @@ def main():
          "launches": sum(cs[decode_cuda.KERNEL] for cs in all_counts),
          "max_abs_err": sample_err, "ms": times["sample"], "plain_ms": times["sample_plain"],
          "bound_ms": sample_bound[0], "bound_by": sample_bound[1], "library_ms": None},
+        {"name": decode_cuda.DECODE_STEP_KERNEL, "route": "cuda",
+         "source": "pytorch_generative_tpu_torch/csrc/decode_step.cu",
+         "replaces": "pytorch_generative_tpu/ops/decode_pallas.py:69",
+         "launches": sum(cs[decode_cuda.DECODE_STEP_KERNEL] for cs in all_counts),
+         "max_abs_err": step_err, "ms": step_times["f32"], "plain_ms": step_times["f32_plain"],
+         "bound_ms": step_bounds["f32"][0], "bound_by": step_bounds["f32"][1],
+         "library_ms": None},
         *({"name": kern, "route": "cuda",
            "source": f"pytorch_generative_tpu_torch/csrc/{kern}.cu", "replaces": replaces,
            "launches": sum(cs[kern] for cs in all_counts), "max_abs_err": err,

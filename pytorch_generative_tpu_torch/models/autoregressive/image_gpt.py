@@ -122,12 +122,17 @@ class ImageGPT(base.AutoregressiveModel):
         return self.out_conv(self.ln(x.reshape(n, h, w, c)))
 
     def sample(self, n_samples=None, conditioned_on=None, *, generator=None,
-               uniforms=None):
-        """KV-cache incremental decoding (see ops/sampling.py)."""
+               uniforms=None, cache_dtype=torch.float32):
+        """KV-cache incremental decoding (``ops/sampling.py``): the
+        whole-loop kernel where the JAX package takes it (1 channel, default
+        ``sample_fn``, float32 cache, batch tile >= 8), else one step kernel
+        per position. ``cache_dtype`` (float32 or bfloat16) is the K/V
+        cache's type."""
         from pytorch_generative_tpu_torch.ops.sampling import image_gpt_sample_fast
 
         return image_gpt_sample_fast(self, n_samples, conditioned_on,
-                                     generator=generator, uniforms=uniforms)
+                                     generator=generator, uniforms=uniforms,
+                                     cache_dtype=cache_dtype)
 
     def sample_naive(self, n_samples=None, conditioned_on=None, *,
                      generator=None, uniforms=None):

@@ -82,22 +82,22 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what} failed to launch: cudaError {err}")
 
 
-def declare(fn, argtypes):
-    """Sets a C entry point's argument types before its first call (64-bit
-    pointers otherwise pass as 32-bit ints); returns ``fn``."""
+def declare(fn, argtypes, restype=ctypes.c_int):
+    """Sets a C entry point's argument and result types before its first
+    call (64-bit pointers otherwise pass as 32-bit ints); returns ``fn``."""
     if fn.argtypes is None:
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         fn.argtypes = argtypes
     return fn
 
 
-def check_tensor(name, t, shape, device, kernel):
-    """Raises unless ``t`` is a contiguous float32 tensor of ``shape`` on
-    ``device``: what the kernels take."""
+def check_tensor(name, t, shape, device, kernel, dtype=torch.float32):
+    """Raises unless ``t`` is a contiguous tensor of ``dtype`` (float32 by
+    default) and ``shape`` on ``device``: what the kernels take."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: {kernel} takes float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: {kernel} takes {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
@@ -106,8 +106,9 @@ def check_tensor(name, t, shape, device, kernel):
 
 def dispatch(cuda_fn, plain_fn, *args):
     """The kernel for a CUDA tensor, the plain version for a CPU tensor
-    (by the device of the first argument); raises for any other device."""
-    t = args[0]
+    (by the device of the first tensor argument); raises for any other
+    device."""
+    t = next(a for a in args if isinstance(a, torch.Tensor))
     if t.is_cuda:
         return cuda_fn(*args)
     if t.device.type != "cpu":

@@ -1,14 +1,20 @@
-"""The whole-raster-scan ImageGPT sampler: the CUDA kernel
-``csrc/sample_loop.cu``, its plain PyTorch version (the KV-cache decoder)
-and its launch count (counterpart of
-``pytorch_generative_tpu/ops/decode_pallas.py::fused_sample_loop``).
+"""The ImageGPT decode kernels, each with its plain PyTorch version and its
+launch count:
+
+- ``csrc/sample_loop.cu``: the whole raster scan in one launch
+  (``fused_sample_loop``, counterpart of
+  ``pytorch_generative_tpu/ops/decode_pallas.py::fused_sample_loop``);
+- ``csrc/decode_step.cu``: one raster position through the whole block
+  stack (``fused_decode_step``, counterpart of
+  ``decode_pallas.py::fused_decode_step``), float32 or bfloat16 K/V cache.
 
 Layouts follow the JAX package: the canvas is the zero-padded image
 flattened to (position, batch), ``(Hp*Wp, N)``, with raw values (markers
 < 0 are sampled, pixels >= 0 kept); ``pos_pad`` is the padded positional
-embedding ``(Hp*Wp, 1)``; ``uniforms`` are ``(H*W, N, 1)``. A CUDA tensor
-launches the kernel, or the wrapper raises; a CPU tensor takes the plain
-version.
+embedding ``(Hp*Wp, 1)``; ``uniforms`` are ``(H*W, N, 1)``; the step's K/V
+cache is packed ``(n_blocks, N, L, c_k + c_v)``, K and V side by side. A
+CUDA tensor launches the kernel, or the wrapper raises; a CPU tensor takes
+the plain version.
 """
 
 from __future__ import annotations
@@ -22,12 +28,18 @@ from pytorch_generative_tpu_torch.nn.convolution import channel_layer_norm
 from pytorch_generative_tpu_torch.ops import _build
 
 KERNEL = "sample_loop"
+DECODE_STEP_KERNEL = "decode_step"
 WEIGHT_ORDER = ("in_w4", "in_b", "head_w", "head_b", "ln1_w", "ln1_b",
                 "qkv_w", "qkv_b", "out_w", "out_b", "ln2_w", "ln2_b",
                 "mlp1_w", "mlp1_b", "mlp2_w", "mlp2_b", "lnf_w", "lnf_b")
+STEP_WEIGHT_ORDER = WEIGHT_ORDER[4:]
+# The K/V cache types the step kernel takes (its template instances).
+CACHE_DTYPES = (torch.float32, torch.bfloat16)
 
-# Kernel launches since the last reset; only _sample_loop_cuda adds to it.
+# Kernel launches since the last reset: only _sample_loop_cuda adds to
+# ``launches``, only _decode_step_cuda to ``step_launches``.
 launches = 0
+step_launches = 0
 
 
 def stack_image_gpt_weights(model):
@@ -73,6 +85,23 @@ def _dims(weights, n_heads):
     c_k = (f - c_v) // 2
     m = weights["mlp1_w"].shape[2]
     return n_blocks, c, c_k, c_v, m
+
+
+def _weight_shapes(weights, n_heads):
+    """The stacked weights' shapes, as the kernels take them."""
+    n_blocks, c, c_k, c_v, m = _dims(weights, n_heads)
+    if c_k % n_heads or c_v % n_heads:
+        raise ValueError(f"widths {c_k}/{c_v} not divisible by {n_heads} heads")
+    return {
+        "in_w4": (4, c), "in_b": (c,), "head_w": (c,), "head_b": (1,),
+        "ln1_w": (n_blocks, c), "ln1_b": (n_blocks, c),
+        "qkv_w": (n_blocks, c, 2 * c_k + c_v), "qkv_b": (n_blocks, 2 * c_k + c_v),
+        "out_w": (n_blocks, c_v, c), "out_b": (n_blocks, c),
+        "ln2_w": (n_blocks, c), "ln2_b": (n_blocks, c),
+        "mlp1_w": (n_blocks, c, m), "mlp1_b": (n_blocks, m),
+        "mlp2_w": (n_blocks, m, c), "mlp2_b": (n_blocks, c),
+        "lnf_w": (c,), "lnf_b": (c,),
+    }
 
 
 def sample_loop_plain(canvas0, pos_pad, uniforms, weights, n_heads, h, w):
@@ -124,20 +153,9 @@ def _sample_loop_cuda(canvas0, pos_pad, uniforms, weights, n_heads, h, w):
     global launches
     lp, n = canvas0.shape
     seq_len = h * w
+    expected = _weight_shapes(weights, n_heads)
     n_blocks, c, c_k, c_v, m = _dims(weights, n_heads)
-    if c_k % n_heads or c_v % n_heads:
-        raise ValueError(f"widths {c_k}/{c_v} not divisible by {n_heads} heads")
     dev = canvas0.device
-    expected = {
-        "in_w4": (4, c), "in_b": (c,), "head_w": (c,), "head_b": (1,),
-        "ln1_w": (n_blocks, c), "ln1_b": (n_blocks, c),
-        "qkv_w": (n_blocks, c, 2 * c_k + c_v), "qkv_b": (n_blocks, 2 * c_k + c_v),
-        "out_w": (n_blocks, c_v, c), "out_b": (n_blocks, c),
-        "ln2_w": (n_blocks, c), "ln2_b": (n_blocks, c),
-        "mlp1_w": (n_blocks, c, m), "mlp1_b": (n_blocks, m),
-        "mlp2_w": (n_blocks, m, c), "mlp2_b": (n_blocks, c),
-        "lnf_w": (c,), "lnf_b": (c,),
-    }
     expected.update(canvas0=((h + 2) * (w + 2), n), pos_pad=(lp, 1),
                     uniforms=(seq_len, n, 1))
     operands = dict(weights, canvas0=canvas0, pos_pad=pos_pad, uniforms=uniforms)
@@ -163,3 +181,108 @@ def fused_sample_loop(canvas0, pos_pad, uniforms, weights, n_heads, h, w):
     """Runs the whole raster scan; returns the final (Hp*Wp, N) canvas."""
     return _build.dispatch(_sample_loop_cuda, sample_loop_plain, canvas0, pos_pad,
                            uniforms, weights, n_heads, h, w)
+
+
+def decode_step_plain(i, x, kv_cache, weights, n_heads):
+    """The step kernel's plain version (the JAX package's ``_step_kernel``):
+    one raster position ``i`` through every block for (N, C) ``x``.
+
+    Attention reads the cache's positions < i and takes this position's own
+    k and v, unrounded, as one more column; positions >= i are never read.
+    This position's k|v is written into ``kv_cache[:, :, i]`` in the
+    cache's dtype. Returns ``act`` (N, C), the final LayerNorm of x, and
+    ``kv_new`` (n_blocks, N, c_k + c_v), a view of that cache position.
+    """
+    n_blocks, _, c_k, c_v, _ = _dims(weights, n_heads)
+    n = x.shape[0]
+    d_k, d_v = c_k // n_heads, c_v // n_heads
+    wt = weights
+    ln = channel_layer_norm
+    for b in range(n_blocks):
+        qkv = ln(x, wt["ln1_w"][b], wt["ln1_b"][b]) @ wt["qkv_w"][b] + wt["qkv_b"][b]
+        q = (qkv[:, :c_k] * (1.0 / d_k ** 0.5)).reshape(n, n_heads, d_k)
+        k_i = qkv[:, c_k:2 * c_k].reshape(n, n_heads, d_k)
+        v_i = qkv[:, 2 * c_k:].reshape(n, n_heads, d_v)
+        kv_cache[b, :, i] = qkv[:, c_k:]
+        past = kv_cache[b, :, :i].float()
+        k_p = past[..., :c_k].reshape(n, i, n_heads, d_k)
+        v_p = past[..., c_k:].reshape(n, i, n_heads, d_v)
+        scores = torch.cat([torch.einsum("nhd,nlhd->nhl", q, k_p),
+                            (q * k_i).sum(-1, keepdim=True)], dim=-1)
+        e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+        denom = e[..., :i].sum(-1) + e[..., i]
+        num = torch.einsum("nhl,nlhd->nhd", e[..., :i], v_p) + e[..., i:] * v_i
+        attn = (num / denom[..., None]).reshape(n, c_v)
+        x1 = x + (attn @ wt["out_w"][b] + wt["out_b"][b])
+        hmid = F.gelu(ln(x1, wt["ln2_w"][b], wt["ln2_b"][b]) @ wt["mlp1_w"][b]
+                      + wt["mlp1_b"][b])
+        # Block residual + the model-level extra skip.
+        x = x + (x1 + (hmid @ wt["mlp2_w"][b] + wt["mlp2_b"][b]))
+    return ln(x, wt["lnf_w"], wt["lnf_b"]), kv_cache[:, :, i]
+
+
+def _step_lib():
+    lib = _build.load(DECODE_STEP_KERNEL)
+    _build.declare(lib.decode_step_scratch_floats, [ctypes.c_int] * 6, ctypes.c_longlong)
+    args = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_void_p] * 14
+            + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    for fn in (lib.decode_step_f32, lib.decode_step_bf16):
+        _build.declare(fn, args)
+    return lib
+
+
+def _decode_step_cuda(i, x, kv_cache, weights, n_heads):
+    global step_launches
+    expected = _weight_shapes(weights, n_heads)
+    n_blocks, c, c_k, c_v, m = _dims(weights, n_heads)
+    if kv_cache.dtype not in CACHE_DTYPES:
+        raise TypeError(f"kv_cache: {DECODE_STEP_KERNEL} takes a cache of "
+                        f"{CACHE_DTYPES}, got {kv_cache.dtype}")
+    if kv_cache.dim() != 4:
+        raise ValueError(f"kv_cache must be (n_blocks, N, L, c_k + c_v), got "
+                         f"{tuple(kv_cache.shape)}")
+    n, l = x.shape[0], kv_cache.shape[2]
+    if not 0 <= i < l:
+        raise ValueError(f"position {i} outside the cache's {l} positions")
+    dev = x.device
+    _build.check_tensor("x", x, (n, c), dev, DECODE_STEP_KERNEL)
+    _build.check_tensor("kv_cache", kv_cache, (n_blocks, n, l, c_k + c_v), dev,
+                        DECODE_STEP_KERNEL, kv_cache.dtype)
+    for k in STEP_WEIGHT_ORDER:
+        _build.check_tensor(k, weights[k], expected[k], dev, DECODE_STEP_KERNEL)
+    d_k, d_v = c_k // n_heads, c_v // n_heads
+    lib = _step_lib()
+    act = torch.empty((n, c), device=dev)
+    scratch = torch.empty(lib.decode_step_scratch_floats(n, c, n_heads, d_k, d_v, m),
+                          device=dev)
+    entry = lib.decode_step_f32 if kv_cache.dtype == torch.float32 else lib.decode_step_bf16
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = entry(i, x.data_ptr(), kv_cache.data_ptr(), act.data_ptr(), scratch.data_ptr(),
+                    *[weights[k].data_ptr() for k in STEP_WEIGHT_ORDER],
+                    n, l, n_blocks, c, n_heads, d_k, d_v, m, stream)
+    _build.check(err, entry.__name__)
+    step_launches += 1
+    return act, kv_cache[:, :, i]
+
+
+def fused_decode_step(i, x, kv_cache, weights, n_heads):
+    """Runs the whole block stack for raster position ``i``.
+
+    Args:
+        i: the global position (a Python int).
+        x: (N, C) float32, the masked input conv plus the positional
+            embedding at position i.
+        kv_cache: (n_blocks, N, L, c_k + c_v) packed K|V cache, float32 or
+            bfloat16; positions < i are read, and this position's k|v is
+            written at i in place (as the JAX package's caller writes the
+            step's kv_new with ``dynamic_update_slice``).
+        weights: ``stack_image_gpt_weights(model)``.
+        n_heads: attention heads.
+    Returns:
+        act: (N, C) float32 activations after the model's final LayerNorm.
+        kv_new: (n_blocks, N, c_k + c_v) this position's k|v per block in the
+            cache's dtype: a view of ``kv_cache[:, :, i]``.
+    """
+    return _build.dispatch(_decode_step_cuda, decode_step_plain, i, x, kv_cache,
+                           weights, n_heads)

@@ -2,11 +2,20 @@
 ``pytorch_generative_tpu/ops/sampling.py``).
 
 Per raster position only the new position's activations are computed: the
-masked input conv on its 4 live taps, attention over cached K/V, the MLP and
-LayerNorms on one position. The whole scan is one call of
-``decode_cuda.fused_sample_loop``: the CUDA kernel on the card, its plain
-KV-cache decoder (the JAX package's ``_image_gpt_decode``) on the CPU.
-Uniforms are (H*W, N, 1), so the port can be fed the JAX package's draws.
+masked input conv on its patch, attention over cached K/V, the MLP and
+LayerNorms on one position. Two routes, chosen as the JAX package chooses
+on its accelerator (``sample_route``):
+
+- the whole loop, ``decode_cuda.fused_sample_loop``: the entire scan in one
+  kernel, for 1-channel models with the default ``sample_fn``, a float32
+  cache and a JAX batch tile of at least 8 (``_sample_loop_tile``);
+- otherwise the step route: per position one ``decode_cuda.
+  fused_decode_step`` (the whole block stack, float32 or bfloat16 K/V
+  cache, which it writes at the position) between a few PyTorch ops (conv
+  taps, head, draw, inpainting merge), for any model and any n.
+
+On the card each route runs its kernel; on the CPU its plain version.
+Uniforms are (H*W, N, C), so the port can be fed the JAX package's draws.
 """
 
 from __future__ import annotations
@@ -15,6 +24,9 @@ import torch
 import torch.nn.functional as F
 
 from pytorch_generative_tpu_torch.ops import decode_cuda
+
+LOOP_ROUTE = "loop"
+STEP_ROUTE = "step"
 
 
 def _whole_loop_eligible(model) -> bool:
@@ -30,6 +42,47 @@ def _whole_loop_eligible(model) -> bool:
             and model.sample_fn is _default_sample_fn
             and tuple(conv.weight.shape[1:]) == (1, 3, 3)
             and conv.padding == (1, 1))
+
+
+def _sample_loop_tile(model, n, cache_dtype):
+    """The JAX package's batch tile for its whole-loop kernel: the largest
+    divisor-by-halving of n whose working set stays under 56 MB, or None.
+
+    The 56 MB is the TPU kernel's VMEM budget: the K/V cache (linear in the
+    tile), the MXU selector masks (quadratic in the tile) and the tiled
+    output projection. The card has no such budget; the rule is kept so
+    that both packages take the same route for the same (model, n, cache
+    dtype).
+    """
+    h, w, _ = model.in_shape
+    attn = model.blocks[0].attn
+    c_k, c_v = attn.embed_channels, attn.out_channels
+    n_heads = attn.n_heads
+    n_blocks = len(model.blocks)
+    per_row = n_blocks * h * w * (c_k + c_v) * cache_dtype.itemsize
+
+    def working_set(tile):
+        sel = tile * tile * (c_k + 2 * c_v + c_k * n_heads + n_heads * c_v) * 4
+        return tile * per_row + sel + n_blocks * tile * c_v * c_v * 4
+
+    budget = 56 * 1024 * 1024
+    tile = n
+    while tile > 1 and (working_set(tile) > budget or n % tile != 0):
+        tile //= 2
+    return tile if working_set(tile) <= budget and n % tile == 0 else None
+
+
+def sample_route(model, n, cache_dtype=torch.float32) -> str:
+    """``LOOP_ROUTE`` where the JAX package runs its whole-loop kernel (an
+    eligible model, a float32 cache, a tile >= 8), else ``STEP_ROUTE``."""
+    if cache_dtype not in decode_cuda.CACHE_DTYPES:
+        raise ValueError(f"cache_dtype must be one of {decode_cuda.CACHE_DTYPES}, "
+                         f"got {cache_dtype}")
+    if cache_dtype == torch.float32 and _whole_loop_eligible(model):
+        tile = _sample_loop_tile(model, n, cache_dtype)
+        if tile is not None and tile >= 8:
+            return LOOP_ROUTE
+    return STEP_ROUTE
 
 
 def sample_loop_inputs(model, conditioned_on, uniforms):
@@ -59,31 +112,93 @@ def _image_gpt_sample_loop(model, conditioned_on, uniforms):
     return canvas_to_images(out, h, w)
 
 
+def _masked_conv_at(padded_x, padded_pos, weight, bias, row, col):
+    """A masked conv of ``padded_x + padded_pos`` at one output position;
+    only the kernel's patch is added.
+
+    Args:
+        padded_x: (N, H + 2p, W + 2p, Cin) input, already zero-padded.
+        padded_pos: (1, H + 2p, W + 2p, Cin) positional embedding, as
+            zero-padded.
+        weight: (kh, kw, Cin, Cout) kernel, already masked, the JAX
+            package's layout; bias: (Cout,).
+        row/col: the output position.
+    Returns:
+        (N, Cout) activations.
+    """
+    kh, kw, cin, cout = weight.shape
+    window = (slice(None), slice(row, row + kh), slice(col, col + kw))
+    patch = (padded_x[window] + padded_pos[window]).reshape(-1, kh * kw * cin)
+    return torch.addmm(bias, patch, weight.reshape(kh * kw * cin, cout))
+
+
+def _image_gpt_decode_step(model, conditioned_on, uniforms, cache_dtype,
+                           step=decode_cuda.fused_decode_step):
+    """KV-cache decoding with one ``step`` call per position (the JAX
+    package's ``_image_gpt_decode_fused``) for (N, H, W, C)
+    ``conditioned_on`` and (H*W, N, C) uniforms.
+
+    Per position: the masked input conv plus the positional embedding on
+    its patch, ``step`` (the block stack; it writes its k|v into the cache
+    at i), the ``out_conv`` head, ``model.sample_fn`` and the inpainting
+    merge (pixels >= 0 kept). ``step`` is ``decode_cuda.fused_decode_step``,
+    or its plain version to compare with.
+    """
+    n, h, w, c = conditioned_on.shape
+    conv = model.input_conv
+    ph, pw = conv.padding
+    pad = (0, 0, pw, pw, ph, ph)
+    canvas = F.pad(conditioned_on, pad)
+    pos = F.pad(model.pos.detach(), pad)
+    # Masked once, in the (kh, kw, Cin, Cout) layout, not at every position.
+    conv_w = (conv.weight * conv.mask).detach().permute(2, 3, 1, 0).contiguous()
+    conv_b = conv.bias.detach()
+    head_w, head_b = model.out_conv.weight.detach(), model.out_conv.bias.detach()
+    weights = decode_cuda.stack_image_gpt_weights(model)
+    attn = model.blocks[0].attn
+    kv_cache = torch.zeros(
+        (len(model.blocks), n, h * w, attn.embed_channels + attn.out_channels),
+        dtype=cache_dtype, device=canvas.device)
+    for i in range(h * w):
+        row, col = divmod(i, w)
+        x = _masked_conv_at(canvas, pos, conv_w, conv_b, row, col)
+        act, _ = step(i, x, kv_cache, weights, attn.n_heads)
+        logits = act @ head_w + head_b
+        sampled = model.sample_fn(uniforms[i], logits).reshape(n, c)
+        current = canvas[:, row + ph, col + pw]
+        canvas[:, row + ph, col + pw] = torch.where(current < 0, sampled, current)
+    return canvas[:, ph:ph + h, pw:pw + w]
+
+
 @torch.no_grad()
 def image_gpt_sample_fast(model, n_samples=None, conditioned_on=None, *,
-                          generator=None, uniforms=None):
+                          generator=None, uniforms=None,
+                          cache_dtype=torch.float32):
     """Incremental-decoding sampler for ImageGPT; exact inpainting semantics.
+
+    The route is the JAX package's (``sample_route``): the whole-loop kernel
+    for a 1-channel model with the default ``sample_fn``, a float32 cache
+    and a batch tile of at least 8 (n = 16 at the reproduce() config);
+    otherwise one step kernel per position (any n at C = 512, small n, a
+    bfloat16 cache, multi-channel models, a custom ``sample_fn``). On the
+    card each route launches its kernel; on the CPU it takes the kernel's
+    plain version.
 
     Args:
         model: An ImageGPT.
         n_samples / conditioned_on: As in ``AutoregressiveModel.sample``.
         generator: ``torch.Generator`` for the uniforms, when not given.
-        uniforms: (H*W, N, 1) uniforms in [0, 1).
+        uniforms: (H*W, N, C) uniforms in [0, 1).
+        cache_dtype: ``torch.float32`` or ``torch.bfloat16``, the K/V cache's
+            type (the JAX package's ``PGT_DECODE_CACHE_DTYPE``); bfloat16
+            takes the step route.
     Returns:
-        (N, H, W, 1) samples.
-    Raises:
-        NotImplementedError: on CUDA, for a model the sampler kernel does not
-            cover (multi-channel input or a custom ``sample_fn``). On the CPU
-            such a model takes the generic raster sampler.
+        (N, H, W, C) samples.
     """
     conditioned_on = model._get_conditioned_on(n_samples, conditioned_on)
     n, h, w, c = conditioned_on.shape
-    if not _whole_loop_eligible(model):
-        if conditioned_on.is_cuda:
-            raise NotImplementedError(
-                "the CUDA ImageGPT sampler covers 1-channel images with the "
-                "default sample_fn only")
-        return model.sample_naive(conditioned_on=conditioned_on,
-                                  generator=generator, uniforms=uniforms)
+    route = sample_route(model, n, cache_dtype)
     uniforms = model._get_uniforms((h * w, n, c), generator, uniforms)
-    return _image_gpt_sample_loop(model, conditioned_on.float(), uniforms)
+    if route == LOOP_ROUTE:
+        return _image_gpt_sample_loop(model, conditioned_on.float(), uniforms)
+    return _image_gpt_decode_step(model, conditioned_on.float(), uniforms, cache_dtype)

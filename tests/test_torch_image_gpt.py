@@ -91,15 +91,18 @@ def _jax_uniforms(rng, n, seq_len):
         jax.random.split(rng, seq_len)))  # a writable copy
 
 
-@pytest.mark.parametrize("inpaint", [False, True])
-def test_sampler_matches_jax_pixel_for_pixel(inpaint):
-    """The port's sampler (its plain KV-cache decoder on the CPU) fed the JAX
-    uniforms gives the same pixels as the JAX XLA decoder and the JAX
-    whole-loop Pallas kernel (interpret mode), free and inpainted."""
+@pytest.mark.parametrize("inpaint,n", [(False, 4), (True, 4), (False, 8), (True, 8)],
+                         ids=["False", "True", "n8-False", "n8-True"])
+def test_sampler_matches_jax_pixel_for_pixel(inpaint, n):
+    """Both routes on TINY, each on the CPU through its kernel's plain
+    version: n = 4 takes the step route (the JAX tile is 4 < 8), n = 8 the
+    whole loop (tile 8). Fed the JAX uniforms, the port's sampler gives the
+    same pixels as the JAX XLA decoder and the JAX whole-loop Pallas kernel
+    (interpret mode), free and inpainted; the step route (free) also those
+    of the JAX per-position Pallas decoder (interpret mode)."""
     jm = _jax_model(TINY)
     tm = _port(jm, TINY)
     rng = jax.random.PRNGKey(7)
-    n = 4
     if inpaint:
         cond = -np.ones((n, 8, 8, 1), np.float32)
         cond[:, :4] = _images(n, 8, seed=3)[:, :4]
@@ -123,11 +126,17 @@ def test_sampler_matches_jax_pixel_for_pixel(inpaint):
     margin = np.abs(u[:, :, 0].T - probs.reshape(n, -1))[sampled]
     assert margin.min() > 1e-4
 
-    before = decode_cuda.launches
+    route = sampling.STEP_ROUTE if n == 4 else sampling.LOOP_ROUTE
+    assert sampling.sample_route(tm, n) == route
+    before = (decode_cuda.launches, decode_cuda.step_launches)
     got = tm.sample(uniforms=torch.from_numpy(u), **tkw).numpy()
-    assert decode_cuda.launches == before  # CPU tensors never launch
+    # CPU tensors launch neither the step nor the whole-loop kernel.
+    assert (decode_cuda.launches, decode_cuda.step_launches) == before
     np.testing.assert_array_equal(got, xla)
     np.testing.assert_array_equal(got, loop)
+    if route == sampling.STEP_ROUTE and not inpaint:
+        fused = np.asarray(jsampling._image_gpt_decode_fused(jm, rng, n, None, interpret=True))
+        np.testing.assert_array_equal(got, fused)
     assert set(np.unique(got)) <= {0.0, 1.0}
     if inpaint:
         np.testing.assert_array_equal(got[:, :4], cond[:, :4])
@@ -135,11 +144,13 @@ def test_sampler_matches_jax_pixel_for_pixel(inpaint):
 
 def test_naive_sampler_and_fallbacks_agree():
     """The generic raster sampler (one forward per pixel) equals the KV-cache
-    sampler on the same uniforms; a model the whole-loop sampler does not
-    cover (custom sample_fn) takes the generic sampler on the CPU."""
+    sampler on the same uniforms (n = 3: the step route); a model the
+    whole-loop sampler does not cover (custom sample_fn) takes the step
+    route too, on the CPU through the step kernel's plain version."""
     config = dict(TINY, n_transformer_blocks=2)
     tm = _port(_jax_model(config), config)
     u = torch.rand((64, 3, 1), generator=torch.Generator().manual_seed(0))
+    assert sampling.sample_route(tm, 3) == sampling.STEP_ROUTE
     fast = tm.sample(n_samples=3, uniforms=u)
     naive = tm.sample_naive(n_samples=3, uniforms=u)
     torch.testing.assert_close(fast, naive, rtol=0, atol=0)
@@ -147,6 +158,7 @@ def test_naive_sampler_and_fallbacks_agree():
     assert sampling._whole_loop_eligible(tm)
     tm.sample_fn = lambda uu, logits: (uu < torch.sigmoid(logits)).float()
     assert not sampling._whole_loop_eligible(tm)
+    assert sampling.sample_route(tm, 16) == sampling.STEP_ROUTE
     torch.testing.assert_close(tm.sample(n_samples=3, uniforms=u), fast,
                                rtol=0, atol=0)
 

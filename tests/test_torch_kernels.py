@@ -121,12 +121,20 @@ def test_model_on_cuda_runs_the_kernels(dev):
     model = _model(dev, blocks=2, size=12)
     x = (_rand((2, 12, 12, 1), 5, dev) > 0).float()
     attention_cuda.launches = 0
-    decode_cuda.launches = 0
+    decode_cuda.launches = decode_cuda.step_launches = 0
     with torch.no_grad():
         logits = model(x)
         samples = model.sample(n_samples=3, generator=torch.Generator().manual_seed(6))
     torch.cuda.synchronize()
-    assert attention_cuda.launches == 2 and decode_cuda.launches == 1
+    # n = 3 takes the step route: one step launch per position, no whole loop.
+    assert sampling.sample_route(model, 3) == sampling.STEP_ROUTE
+    assert attention_cuda.launches == 2
+    assert (decode_cuda.launches, decode_cuda.step_launches) == (0, 12 * 12)
+    decode_cuda.launches = 0
+    with torch.no_grad():
+        model.sample(n_samples=8, generator=torch.Generator().manual_seed(6))
+    torch.cuda.synchronize()
+    assert decode_cuda.launches == 1  # n = 8: the whole-loop route
     assert samples.shape == (3, 12, 12, 1)
     assert bool(((samples == 0) | (samples == 1)).all())
     cpu = ImageGPT(in_channels=1, out_channels=1, in_size=12, n_transformer_blocks=2,
@@ -136,13 +144,119 @@ def test_model_on_cuda_runs_the_kernels(dev):
         torch.testing.assert_close(logits.cpu(), cpu(x.cpu()), rtol=0, atol=1e-4)
 
 
-def test_ineligible_model_raises_on_cuda(dev):
-    """The CUDA sampler does not silently take the plain decoder."""
+def test_ineligible_model_takes_the_step_kernel_on_cuda(dev):
+    """A model the whole loop does not cover (custom sample_fn) samples on
+    the card through the step kernel, never the plain decoder, and gives
+    the plain step route's pixels on uniforms off the decision boundary."""
     model = _model(dev)
     model.sample_fn = lambda u, logits: (u < torch.sigmoid(logits)).float()
     assert not sampling._whole_loop_eligible(model)
-    with pytest.raises(NotImplementedError):
-        model.sample(n_samples=2)
+    n, h, w = 4, 8, 8
+    cond = -torch.ones((n, h, w, 1), device=dev)
+    u = torch.rand((h * w, n, 1), generator=torch.Generator().manual_seed(4)).to(dev)
+    plain = sampling._image_gpt_decode_step(model, cond, u, torch.float32,
+                                            step=decode_cuda.decode_step_plain)
+    with torch.no_grad():
+        p = torch.sigmoid(model(plain)).reshape(n, -1).T[..., None]
+    d = u - p
+    u = torch.where(d.abs() < 1e-3, (p + 2e-3 * torch.where(d >= 0, 1.0, -1.0)).clamp(0, 1), u)
+    plain = sampling._image_gpt_decode_step(model, cond, u, torch.float32,
+                                            step=decode_cuda.decode_step_plain)
+    decode_cuda.launches = decode_cuda.step_launches = 0
+    got = model.sample(uniforms=u, conditioned_on=cond)
+    torch.cuda.synchronize()
+    assert (decode_cuda.launches, decode_cuda.step_launches) == (0, h * w)
+    torch.testing.assert_close(got, plain, rtol=0, atol=0)
+
+
+# The step kernel against its plain version: f32 sums over C, 4C and up to
+# L terms in another order, as a share of the largest |act|.
+STEP_RTOL = 1e-4
+
+
+def _step_case(dev, config, n, i, cache_dtype, seed=0):
+    """Stacked weights of a seeded model, x (n, C) and a cache whose
+    positions >= i hold NaN: reading one would poison the result."""
+    model = ImageGPT(**config, generator=torch.Generator().manual_seed(seed), device=dev)
+    weights = decode_cuda.stack_image_gpt_weights(model)
+    attn = model.blocks[0].attn
+    h, w, _ = model.in_shape
+    x = _rand((n, attn.embed_channels), seed + 1, dev)
+    cache = _rand((len(model.blocks), n, h * w, attn.embed_channels + attn.out_channels),
+                  seed + 2, dev)
+    cache[:, :, i:] = float("nan")
+    return x, cache.to(cache_dtype), weights, attn.n_heads
+
+
+def _assert_step_close(got, want):
+    (act, kv), (ref_act, ref_kv) = got, want
+    scale = float(ref_act.abs().max())
+    assert bool(torch.isfinite(act).all()) and bool(torch.isfinite(kv.float()).all())
+    assert float((act - ref_act).abs().max()) <= STEP_RTOL * scale
+    # kv_new: the same tolerance plus, in bf16, one unit in the last place
+    # where the two f32 sums round to neighbouring bf16 values.
+    ulp = 0.0 if kv.dtype == torch.float32 else 2.0 ** -7
+    diff = (kv.float() - ref_kv.float()).abs()
+    assert bool((diff <= STEP_RTOL * scale + ulp * ref_kv.float().abs()).all())
+
+
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("i", [0, 1, 37, 63])
+def test_decode_step_kernel_matches_plain(dev, i, cache_dtype):
+    """Tiny shape (3 blocks, C 32, 2 heads, 8x8), n = 4: act and kv_new
+    within STEP_RTOL of the plain version; NaN in cache positions >= i.
+    The kernel writes kv_new into its cache at i, and nowhere else."""
+    config = dict(in_channels=1, out_channels=1, in_size=8, n_transformer_blocks=3,
+                  n_attention_heads=2, n_embedding_channels=32)
+    x, cache, weights, n_heads = _step_case(dev, config, 4, i, cache_dtype)
+    before = decode_cuda.step_launches
+    written = cache.clone()
+    got = decode_cuda.fused_decode_step(i, x, written, weights, n_heads)
+    torch.cuda.synchronize()
+    assert decode_cuda.step_launches == before + 1
+    assert got[1].dtype == cache_dtype
+    assert torch.equal(got[1], written[:, :, i])
+    assert torch.equal(written[:, :, :i], cache[:, :, :i])
+    assert bool(written[:, :, i + 1:].float().isnan().all())
+    _assert_step_close(got, decode_cuda.decode_step_plain(i, x, cache, weights, n_heads))
+
+
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16])
+def test_decode_step_kernel_matches_plain_at_large_config(dev, cache_dtype):
+    """LARGE_CONFIG (C 512, 8 heads of 64, 8 blocks), n = 16, at i = 0, 391
+    and 783; two runs give bit-equal outputs (no atomics)."""
+    for i in (0, 391, 783):
+        x, cache, weights, n_heads = _step_case(dev, image_gpt.LARGE_CONFIG, 16, i,
+                                                cache_dtype)
+        # Each call on its own cache: the step writes its k|v there at i.
+        got = decode_cuda.fused_decode_step(i, x, cache.clone(), weights, n_heads)
+        again = decode_cuda.fused_decode_step(i, x, cache.clone(), weights, n_heads)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+        _assert_step_close(got, decode_cuda.decode_step_plain(i, x, cache, weights, n_heads))
+
+
+def test_decode_step_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    config = dict(in_channels=1, out_channels=1, in_size=8, n_transformer_blocks=2,
+                  n_attention_heads=2, n_embedding_channels=32)
+    x, cache, weights, n_heads = _step_case(dev, config, 4, 5, torch.float32)
+    step = decode_cuda.fused_decode_step
+    with pytest.raises(TypeError):
+        step(5, x, cache.half(), weights, n_heads)
+    with pytest.raises(TypeError):
+        step(5, x.double(), cache, weights, n_heads)
+    with pytest.raises(ValueError):
+        step(5, x, cache.cpu(), weights, n_heads)
+    with pytest.raises(ValueError):
+        step(5, x[:, :16].contiguous(), cache, weights, n_heads)
+    with pytest.raises(ValueError):
+        step(5, x, cache[:, :3].contiguous(), weights, n_heads)
+    with pytest.raises(ValueError):
+        step(5, x, cache.transpose(2, 3).contiguous().transpose(2, 3), weights, n_heads)
+    with pytest.raises(ValueError):
+        step(64, x, cache, weights, n_heads)
+    with pytest.raises(ValueError):
+        step(5, x, cache, dict(weights, qkv_w=weights["qkv_w"].cpu()), n_heads)
 
 
 # Backward tolerance: f32, each gradient a sum over up to 784 rows or keys
