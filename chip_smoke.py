@@ -2,7 +2,7 @@
 """Drives the PyTorch port's ImageGPT serving and training paths once on one
 CUDA card, at the reproduce() config (C = 64) and at ``LARGE_CONFIG``
 (C = 512, 8 heads of 64, where every block takes the fused LayerNorm and
-MLP kernels).
+MLP kernels), then PixelSNAIL's at its reproduce() config.
 
     python3 chip_smoke.py
 
@@ -29,9 +29,19 @@ inpainted, f32 and bf16 cache, against the plain step route (784 step
 launches a call, no whole loop); at C = 64 the step route for n = 4 and for
 a model with a custom ``sample_fn``; the times of the C = 512 sample call,
 of the step at i = 391 and of its plain version, with bounds, and a
-profile of one sample call. The line before the last is the per-kernel JSON
-summary; the last line is ``{"ok": true, "device": {...}}``. Any failure
-exits non-zero before that line; without a CUDA device it fails at once.
+profile of one sample call. Then PixelSNAIL (``pixel_snail_phases``: 8
+blocks of 2 residual blocks, C = 64, attention d_k 4 / d_v 32 with
+mask_center): the flash kernels at (B 128, L 784, H 1, 4, 32) against their
+plain versions; ``PixelSNAIL.forward`` at batch 128 (8 flash launches)
+against the CPU; ``PixelSNAIL.sample`` at n = 16 and 64, free and
+inpainted, against the whole-loop kernel's plain version (1 ``snail_loop``
+launch a call); a Trainer epoch at batch 128 with eval and a sample grid;
+gradients and 3 Adam steps against the CPU; times (the flash kernels
+beside masked SDPA, the train step with a profile, the sample call and
+kernel at n = 16 and 64 with bounds and a latency floor, a profiled sample
+call). The line before the last is the per-kernel JSON summary; the last
+line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
+before that line; without a CUDA device it fails at once.
 """
 
 import concurrent.futures
@@ -44,6 +54,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -74,6 +85,11 @@ TRAJ_BATCH = 8
 LN_RTOL = 1e-5
 MLP_RTOL = 1e-4
 TRAIN_STEPS_LARGE = 3
+# PixelSNAIL: reproduce()'s batch, the n of bench.py's two sampler cells,
+# and the steps of its one training epoch.
+SNAIL_BATCH = 128
+SNAIL_N = (16, 64)
+SNAIL_TRAIN_STEPS = 3
 # The decode step kernel against its plain version, as a share of the
 # largest |act|: f32 sums over 512, 2048 and up to 784 terms in another
 # order (kv_new in bf16 may also round to the neighbouring bf16 value).
@@ -126,10 +142,22 @@ def bound(flops, nbytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def flash_work(b, l, n_heads, d, mask_center, n_products):
-    """FLOPs of n_products (L x L x d) products over the causal pairs."""
+def flash_work(b, l, n_heads, d_k, d_v, mask_center, backward=False):
+    """FLOPs over the causal (query, key) pairs: per pair and head 2 (d_k +
+    d_v) forward (q.k and p.v), 2 (3 d_k + 2 d_v) backward (q.k, dO.v,
+    p^T dO, ds k and ds^T q)."""
     pairs = l * (l - 1) // 2 if mask_center else l * (l + 1) // 2
-    return 2 * n_products * d * pairs * b * n_heads
+    per_pair = 2 * (3 * d_k + 2 * d_v) if backward else 2 * (d_k + d_v)
+    return per_pair * pairs * b * n_heads
+
+
+def flash_bytes(b, l, n_heads, d_k, d_v, backward=False):
+    """Bytes each read once or written once: forward q, k, v in, out and lse
+    out; backward q, k, v, out, dout and lse in, dq, dk and dv out."""
+    ck, cv = n_heads * d_k, n_heads * d_v
+    if backward:
+        return 4 * b * l * (2 * ck + 3 * cv + n_heads + 2 * ck + cv)
+    return 4 * b * l * (2 * ck + 2 * cv + n_heads)
 
 
 def sampler_flops(n, h, w, n_blocks, c):
@@ -148,6 +176,31 @@ def sampler_latency_floor_ms(h, w, n_blocks):
     PV, the out proj, two MLP matvecs), each at least one L2 round trip and
     one CTA barrier, taken as 0.3 us at the card's ~1.7 GHz."""
     return h * w * n_blocks * 13 * 0.3e-3
+
+
+def snail_work(n, h, w, n_blocks, n_rb, c, d_k, d_v):
+    """FLOPs (2 per multiply-add) of the PixelSNAIL raster scan: per
+    position the 4 input conv taps and the head (C x C/2, C/2 x 1); per
+    block the residual blocks' 2x2 convs (4C x C and 4C x 2C, 24 C^2 each),
+    q (C + 2 x d_k), out_proj (d_v x d_v), residual_out, attention_out,
+    out and kv (C + 3 x d_k + d_v), and attention over the i cached
+    positions (2 i (d_k + d_v)). Activations are not counted."""
+    seq, c2 = h * w, c // 2
+    per_block = n_rb * 24 * c * c + 2 * ((c + 2) * d_k + d_v * d_v + 2 * c * c + d_v * c
+                                         + (c + 3) * (d_k + d_v))
+    attention = 2 * (d_k + d_v) * seq * (seq - 1) // 2  # i keys at position i
+    per_position = 2 * 4 * c + 2 * (c * c2 + c2)
+    return n * (seq * (n_blocks * per_block + per_position) + n_blocks * attention)
+
+
+def snail_latency_floor_ms(h, w, n_blocks, n_rb):
+    """A rough floor from the PixelSNAIL sampler's dependency chain, not a
+    measurement: per position and block 2 dependent convs per residual
+    block, then q, the scores, the softmax's max and sum, PV, out_proj,
+    residual_out beside attention_out, and out; per position the two head
+    products, the draw and the K/V append; each phase at least one L2
+    round trip and one CTA barrier, taken as 0.3 us."""
+    return h * w * (n_blocks * (2 * n_rb + 8) + 4) * 0.3e-3
 
 
 def nudged_uniforms(model, canvas_sample, u, cond):
@@ -217,10 +270,15 @@ def read_losses(log_dir):
 
 
 def param_group(name):
-    """pos, input_conv, attn, ln (every LayerNorm), mlp or out_conv."""
+    """ImageGPT: pos, input_conv, attn, ln (every LayerNorm), mlp or
+    out_conv; PixelSNAIL: input_conv, residual_blocks, attention,
+    branch_out (residual_out, attention_out, out), output_conv1 or
+    output_conv2."""
     parts = name.split(".")
-    part = parts[2] if parts[0] == "blocks" else parts[0]
-    return {"ln1": "ln", "ln2": "ln", "mlp_conv1": "mlp", "mlp_conv2": "mlp"}.get(part, part)
+    part = parts[2] if parts[0] in ("blocks", "pixel_snail_blocks") else parts[0]
+    return {"ln1": "ln", "ln2": "ln", "mlp_conv1": "mlp", "mlp_conv2": "mlp",
+            "residual_out": "branch_out", "attention_out": "branch_out",
+            "out": "branch_out"}.get(part, part)
 
 
 def rel_err(got, want):
@@ -269,16 +327,17 @@ def grads_vs_cpu(model, cpu_model, xg, label):
           f"card gradients disagree with the CPU plain path{label}")
 
 
-def trajectory(model, cpu_model, dev, batches, label):
-    """Adam steps (reproduce()'s optimizer) on the card and on the CPU from
-    the same weights and batches; the losses agree within TRAJ_RTOL."""
+def trajectory(model, cpu_model, dev, batches, label, lr=5e-3):
+    """Adam steps (reproduce()'s optimizer, ImageGPT's learning rate by
+    default) on the card and on the CPU from the same weights and batches;
+    the losses agree within TRAJ_RTOL."""
     from pytorch_generative_tpu_torch import optim, trainer
     from pytorch_generative_tpu_torch.models.autoregressive import image_gpt
 
     traj = {}
     for (where, net), key in zip(((dev, model), ("cpu", cpu_model)), ("card", "cpu")):
         t = trainer.Trainer(net, image_gpt.reproduce_loss,
-                            optim.adam_multiplicative(5e-3, 0.999977), [], [],
+                            optim.adam_multiplicative(lr, 0.999977), [], [],
                             log_dir=tempfile.mkdtemp(prefix="chip_smoke_traj_"),
                             use_tensorboard=False, device=where)
         traj[key] = [float(t.train_one_step(xb, None)[0]["loss"]) for xb in batches]
@@ -289,25 +348,31 @@ def trajectory(model, cpu_model, dev, batches, label):
     check(traj_err <= TRAJ_RTOL, f"{len(batches)}-step trajectory disagrees with the CPU{label}")
 
 
-def flash_times(q, k, v, dout, n_heads):
-    """CUDA-event ms of the flash kernels, their plain versions and causal
-    SDPA (forward; autograd.grad through it for the backward)."""
+def flash_times(q, k, v, dout, n_heads, mask_center=False):
+    """CUDA-event ms of the flash kernels, their plain versions and SDPA
+    (forward; autograd.grad through it for the backward): causal SDPA, or
+    with ``mask_center`` SDPA with an explicit boolean mask of the keys
+    strictly before each query (row 0 has none and gives NaN there; it is
+    only timed)."""
     from pytorch_generative_tpu_torch.ops import attention_cuda
 
-    out, lse = attention_cuda.flash_forward(q, k, v, False, n_heads)
+    out, lse = attention_cuda.flash_forward(q, k, v, mask_center, n_heads)
     q4, k4, v4 = (attention_cuda._unpack(t, n_heads).contiguous().requires_grad_()
                   for t in (q, k, v))
-    sdpa_out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    l = q.shape[1]
+    sdpa_kw = (dict(attn_mask=torch.ones((l, l), dtype=torch.bool, device=q.device).tril(-1))
+               if mask_center else dict(is_causal=True))
+    sdpa_out = F.scaled_dot_product_attention(q4, k4, v4, **sdpa_kw)
     dout4 = attention_cuda._unpack(dout, n_heads).contiguous()
-    fwd = lambda: attention_cuda.flash_forward(q, k, v, False, n_heads)
-    fwd_plain = lambda: attention_cuda.flash_forward_plain(q, k, v, False, n_heads)
+    fwd = lambda: attention_cuda.flash_forward(q, k, v, mask_center, n_heads)
+    fwd_plain = lambda: attention_cuda.flash_forward_plain(q, k, v, mask_center, n_heads)
 
     def fwd_lib():
         with torch.no_grad():
-            return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+            return F.scaled_dot_product_attention(q4, k4, v4, **sdpa_kw)
 
-    bwd = lambda: attention_cuda.flash_backward(q, k, v, out, lse, dout, False, n_heads)
-    bwd_plain = lambda: attention_cuda.flash_backward_plain(q, k, v, out, lse, dout, False,
+    bwd = lambda: attention_cuda.flash_backward(q, k, v, out, lse, dout, mask_center, n_heads)
+    bwd_plain = lambda: attention_cuda.flash_backward_plain(q, k, v, out, lse, dout, mask_center,
                                                             n_heads)
     bwd_lib = lambda: torch.autograd.grad(sdpa_out, (q4, k4, v4), dout4, retain_graph=True)
     times = {}
@@ -365,6 +430,274 @@ def profile_steps(step, n_steps, step_ms, what, per_call, label, smi, focus, hos
               flush=True)
 
 
+def pixel_snail_phases(dev, gen, smi, reset_counts, read_counts):
+    """PixelSNAIL at its reproduce() config: 28x28x1, C = 64, 8 blocks of 2
+    residual blocks, one attention head with d_k 4, d_v 32 and mask_center,
+    batch 128, adam_multiplicative(1e-3, 0.999977). Returns the flash
+    kernels' largest errors here, the launch counts of the runs of its main
+    path, and the snail_loop kernel's entry of the per-kernel summary."""
+    from pytorch_generative_tpu_torch import datasets, optim, trainer
+    from pytorch_generative_tpu_torch.models import PixelSNAIL
+    from pytorch_generative_tpu_torch.models.autoregressive import pixel_snail
+    from pytorch_generative_tpu_torch.ops import attention_cuda, sampling, snail_decode_cuda
+
+    scfg = pixel_snail.REPRODUCE_CONFIG
+    h, w, _ = scfg["in_shape"]
+    s_blocks, s_rb, s_c = (scfg["n_pixel_snail_blocks"], scfg["n_residual_blocks"],
+                           scfg["n_channels"])
+    s_dk, s_dv = scfg["attention_key_channels"], scfg["attention_value_channels"]
+    l = h * w
+
+    # Phase 23: the flash kernels at PixelSNAIL's shape (B 128, L 784, H 1,
+    # d_k 4, d_v 32, mask_center), k and v column slices of one (B, L, 36)
+    # kv tensor as the layer passes them; row 0 gives out 0 and dq 0.
+    q = torch.randn((SNAIL_BATCH, l, s_dk), generator=gen).to(dev)
+    kv = torch.randn((SNAIL_BATCH, l, s_dk + s_dv), generator=gen).to(dev)
+    dout = torch.randn((SNAIL_BATCH, l, s_dv), generator=gen).to(dev)
+    k, v = kv[..., :s_dk], kv[..., s_dk:]
+    out, lse = attention_cuda.flash_forward(q, k, v, True, 1)
+    ref_out, ref_lse = attention_cuda.flash_forward_plain(q, k, v, True, 1)
+    grads = attention_cuda.flash_backward(q, k, v, out, lse, dout, True, 1)
+    e_grads = [max_err(g, r) for g, r in zip(grads, attention_cuda.flash_backward_plain(
+        q, k, v, out, lse, dout, True, 1))]
+    torch.cuda.synchronize()
+    e_out, e_lse = max_err(out, ref_out), max_err(lse, ref_lse)
+    print(f"phase flash PixelSNAIL: B={SNAIL_BATCH} L={l} H=1 d_k={s_dk} d_v={s_dv} "
+          f"mask_center=True max_abs_err out={e_out:.3e} lse={e_lse:.3e} (tol {FLASH_TOL}); "
+          f"backward dq={e_grads[0]:.3e} dk={e_grads[1]:.3e} dv={e_grads[2]:.3e} "
+          f"(tol {FLASH_BWD_TOL}); row 0 out==0 {bool((out[:, 0] == 0).all())} "
+          f"dq==0 {bool((grads[0][:, 0] == 0).all())}", flush=True)
+    check(e_out <= FLASH_TOL and e_lse <= FLASH_TOL, "flash forward disagrees at d_k 4, d_v 32")
+    check(max(e_grads) <= FLASH_BWD_TOL, "flash backward disagrees at d_k 4, d_v 32")
+    check(bool((out[:, 0] == 0).all()) and bool(torch.isneginf(lse[:, :, 0]).all())
+          and bool((grads[0][:, 0] == 0).all()),
+          "row 0 under mask_center is not out 0, lse -inf, dq 0 at d_k 4, d_v 32")
+    snail_flash_times = flash_times(q, k, v, dout, 1, mask_center=True)
+    del q, kv, dout, k, v, out, lse, ref_out, ref_lse, grads
+
+    # Phase 24: serving: PixelSNAIL(**REPRODUCE_CONFIG).forward at batch 128
+    # with the reproduce loss through the entry point (8 flash forwards,
+    # nothing else), then the same weights on the CPU's plain path.
+    snail = PixelSNAIL(**scfg, generator=gen, device=dev).eval()
+    xs = (torch.rand((SNAIL_BATCH, h, w, 1), generator=gen) < 0.3).float().to(dev)
+    reset_counts()
+    with torch.no_grad():
+        logits = snail(xs)
+        loss = pixel_snail.reproduce_loss(xs, None, logits)
+    torch.cuda.synchronize()
+    snail_serve_counts = read_counts()
+    print(f"phase serve PixelSNAIL: forward logits {tuple(logits.shape)} nll={float(loss):.4f} "
+          f"nats/image; launches={snail_serve_counts}", flush=True)
+    check(logits.shape == (SNAIL_BATCH, h, w, 1) and bool(torch.isfinite(logits).all()),
+          "bad PixelSNAIL logits")
+    want_counts = {k_: 0 for k_ in snail_serve_counts}
+    want_counts[attention_cuda.KERNEL] = s_blocks
+    check(snail_serve_counts == want_counts,
+          f"PixelSNAIL forward launches {snail_serve_counts}, expected {want_counts}")
+    cpu_snail = PixelSNAIL(**scfg, device="cpu").eval()
+    cpu_snail.load_state_dict({k_: t.cpu() for k_, t in snail.state_dict().items()})
+    with torch.no_grad():
+        ref = cpu_snail(xs.cpu())
+    s_fwd_err = float((logits.cpu() - ref).abs().max())
+    s_scale = max(1.0, float(ref.abs().max()))
+    print(f"phase serve PixelSNAIL: forward vs plain CPU forward (batch {SNAIL_BATCH}) "
+          f"max_abs_err={s_fwd_err:.3e} (tol {FORWARD_TOL} x max(1, max |logit|) = "
+          f"{FORWARD_TOL * s_scale:.3e})", flush=True)
+    check(s_fwd_err <= FORWARD_TOL * s_scale, "PixelSNAIL forward disagrees with the CPU")
+    del logits, loss, ref
+
+    # Phase 25: PixelSNAIL.sample through the entry point at n = 16 and 64,
+    # free and with the top half kept: 1 snail_loop launch a call and no
+    # plain decode; pixel-equal to the kernel's plain version on uniforms
+    # moved off its decision boundary. The plain version runs once per n,
+    # over the free and the inpainted batch side by side, and records the
+    # probability of every draw: nudging the uniforms away from those
+    # leaves its pixels as they were, so it is not run again.
+    sdc = snail_decode_cuda
+    plain_decode = sdc.snail_decode
+    decode_calls = [0]
+
+    def counted_decode(*args):
+        decode_calls[0] += 1
+        return plain_decode(*args)
+
+    snail_sample_counts, snail_err = [], 0.0
+    for n in SNAIL_N:
+        check(sampling.pixel_snail_sample_route(snail, n) == sampling.LOOP_ROUTE,
+              f"n = {n} does not take the whole-loop route")
+        conds = {"free": -torch.ones((n, h, w, 1), device=dev)}
+        conds["inpaint"] = conds["free"].clone()
+        conds["inpaint"][:, : h // 2] = (torch.rand((n, h // 2, w, 1), generator=gen)
+                                         < 0.3).float().to(dev)
+        cond = torch.cat([conds["free"], conds["inpaint"]])
+        u = torch.rand((h * w, 2 * n, 1), generator=gen).to(dev)
+        probs = []
+
+        def draw(uu, logits):
+            """The kernel's draw rule, u < sigmoid(logit), recorded."""
+            p = torch.sigmoid(logits)
+            probs.append(p)
+            return (uu < p).to(logits.dtype)
+
+        # snail_sample_loop_plain is snail_decode with that draw rule.
+        with torch.no_grad():
+            plain = plain_decode(F.pad(cond, (0, 0, 1, 1, 1, 1)), u,
+                                 sdc.stack_pixel_snail_weights(snail), h, w, draw)[:, 1:-1, 1:-1]
+        u, n_nudged = nudge_around(u, torch.stack(probs), cond, NUDGE)
+        # Both the kernel's plain version and the incremental sampler decode
+        # through snail_decode: count its calls.
+        sdc.snail_decode = counted_decode
+        for m, mode in enumerate(("free", "inpaint")):
+            kw = dict(n_samples=n) if mode == "free" else dict(conditioned_on=conds[mode])
+            reset_counts()
+            decode_calls[0] = 0
+            got = snail.sample(uniforms=u[:, m * n:(m + 1) * n].contiguous(), **kw)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            snail_sample_counts.append(counts)
+            want = plain[m * n:(m + 1) * n]
+            mismatched = int((got != want).sum())
+            snail_err = max(snail_err, float((got - want).abs().max()))
+            kept = (bool((got[:, : h // 2] == conds[mode][:, : h // 2]).all())
+                    if mode == "inpaint" else True)
+            binary = bool(((got == 0) | (got == 1)).all())
+            print(f"phase sample PixelSNAIL: {mode} n={n} nudged={n_nudged} (both modes) "
+                  f"mismatched_pixels={mismatched} kept_pixels_ok={kept} binary={binary} "
+                  f"mean={float(got.mean()):.4f}; launches={counts} plain decodes="
+                  f"{decode_calls[0]}", flush=True)
+            check(got.shape == (n, h, w, 1) and binary, "bad PixelSNAIL samples")
+            check(mismatched == 0 and kept,
+                  f"snail_loop disagrees with its plain version ({mode}, n = {n})")
+            want_counts = {k_: 0 for k_ in counts}
+            want_counts[sdc.KERNEL] = 1
+            check(counts == want_counts and decode_calls[0] == 0,
+                  f"PixelSNAIL sample launches {counts}, plain decodes {decode_calls[0]}")
+        sdc.snail_decode = plain_decode
+
+    # Phase 26: training through the Trainer: reproduce()'s model, optimizer
+    # and loss on seeded synthetic MNIST at batch 128, one epoch of
+    # SNAIL_TRAIN_STEPS steps, eval on one batch and a 16-image sample grid
+    # (the Trainer prints a sampling failure and goes on, so only the
+    # snail_loop count shows that the grid was drawn by the kernel).
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_snail_")
+    try:
+        train_loader, test_loader = datasets.get_synthetic_mnist_loaders(
+            SNAIL_BATCH, n_train=SNAIL_TRAIN_STEPS * SNAIL_BATCH, n_test=SNAIL_BATCH,
+            image_size=h, seed=0)
+        snail_trainer = trainer.Trainer(
+            PixelSNAIL(**scfg, generator=torch.Generator().manual_seed(SEED), device=dev),
+            pixel_snail.reproduce_loss, optim.adam_multiplicative(1e-3, 0.999977),
+            train_loader, test_loader, log_dir=log_dir, sample_epochs=1,
+            use_tensorboard=False, device=dev)
+        reset_counts()
+        snail_trainer.interleaved_train_and_eval(1)
+        torch.cuda.synchronize()
+        snail_train_counts = read_counts()
+        losses, _ = read_losses(log_dir)
+        files = sorted(os.listdir(log_dir))
+        grid_file = f"sample_{SNAIL_TRAIN_STEPS}.npy"
+        print(f"phase train PixelSNAIL: {snail_trainer._step} steps at batch {SNAIL_BATCH}, "
+              f"losses {[round(losses[s], 3) for s in sorted(losses)]}; files {files}; "
+              f"launches={snail_train_counts}", flush=True)
+        want_counts = {k_: 0 for k_ in snail_train_counts}
+        want_counts.update({attention_cuda.KERNEL: (SNAIL_TRAIN_STEPS + 1) * s_blocks,
+                            attention_cuda.BWD_KERNEL: SNAIL_TRAIN_STEPS * s_blocks,
+                            sdc.KERNEL: 1})
+        check(snail_train_counts == want_counts,
+              f"PixelSNAIL train launches {snail_train_counts}, expected {want_counts}")
+        check(sorted(losses) == list(range(SNAIL_TRAIN_STEPS))
+              and all(math.isfinite(v_) for v_ in losses.values()), "bad PixelSNAIL losses")
+        check(grid_file in files, f"{grid_file} was not written")
+        grid = torch.from_numpy(np.load(os.path.join(log_dir, grid_file)))
+        check(grid.shape == (16, h, w, 1) and bool(((grid == 0) | (grid == 1)).all()),
+              "the sample grid is not 16 binary images")
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+
+    # Phases 27 and 28: gradients at batch 2 and 3 Adam steps (reproduce()'s
+    # learning rate 1e-3) at batch TRAJ_BATCH, card against the CPU's plain
+    # path; the key half of each kv_proj.bias has an exact gradient of 0 on
+    # both and counts against its group's largest gradient.
+    grads_vs_cpu(snail, cpu_snail, xs[:2], " PixelSNAIL")
+    trajectory(snail, cpu_snail, dev,
+               [(torch.rand((TRAJ_BATCH, h, w, 1), generator=gen) < 0.13).float().numpy()
+                for _ in range(3)], " PixelSNAIL", lr=1e-3)
+    del cpu_snail
+
+    # Phase 29: times. The flash kernels at PixelSNAIL's shape beside their
+    # plain versions, bounds and masked SDPA; the train step at batch 128
+    # and a profile of it; the forward at batch 128; the sample call, the
+    # kernel and its plain version (one call each, ~7 s) at n = 16 and 64
+    # beside the bound and the latency floor; a profile of one n = 16
+    # sample call.
+    st = snail_flash_times
+    s_fwd_bound = bound(flash_work(SNAIL_BATCH, l, 1, s_dk, s_dv, True),
+                        flash_bytes(SNAIL_BATCH, l, 1, s_dk, s_dv))
+    s_bwd_bound = bound(flash_work(SNAIL_BATCH, l, 1, s_dk, s_dv, True, backward=True),
+                        flash_bytes(SNAIL_BATCH, l, 1, s_dk, s_dv, backward=True))
+    print(f"phase times PixelSNAIL [{smi}]: flash_fwd (B={SNAIL_BATCH}, L={l}, H=1, d_k={s_dk}, "
+          f"d_v={s_dv}, mask_center) kernel {st['fwd']:.4f}/{st['fwd2']:.4f} ms, plain "
+          f"{st['fwd_plain']:.4f} ms, masked SDPA {st['fwd_lib']:.4f} ms, bound "
+          f"{s_fwd_bound[0]:.4f} ms ({s_fwd_bound[1]}); flash_bwd kernel {st['bwd']:.4f}/"
+          f"{st['bwd2']:.4f} ms, plain {st['bwd_plain']:.4f} ms, SDPA autograd.grad "
+          f"{st['bwd_lib']:.4f} ms, bound {s_bwd_bound[0]:.4f} ms ({s_bwd_bound[1]})", flush=True)
+    def s_forward():
+        with torch.no_grad():
+            return snail(xs)
+
+    s_forward_ms = time_ms(s_forward, 5, 2)
+    print(f"phase times PixelSNAIL [{smi}]: forward batch {SNAIL_BATCH} {s_forward_ms:.3f} ms "
+          f"({SNAIL_BATCH * 1000 / s_forward_ms:.2f} images/s)", flush=True)
+    xb = (torch.rand((SNAIL_BATCH, h, w, 1), generator=gen) < 0.13).float().numpy()
+    s_step = lambda: snail_trainer.train_one_step(xb, None)
+    s_step_ms = time_ms(s_step, 5, 2)
+    # cuDNN's convolutions show as xmma GEMMs, FFTs, filter flips and
+    # layout transforms; the rest is PyTorch's elementwise and reductions.
+    profile_steps(s_step, 2, s_step_ms, f"train step batch {SNAIL_BATCH}",
+                  (SNAIL_BATCH, "samples"), "step PixelSNAIL", smi,
+                  ("flash_bwd", "flash_fwd", "xmma", "fft", "flip_filter", "cudnn",
+                   "elementwise", "reduce_kernel"))
+    del snail_trainer
+    s_weights = sdc.stack_pixel_snail_weights(snail)
+    s_weight_bytes = 4 * sum(t.numel() for t in s_weights.values())
+    snail_times, snail_bounds = {}, {}
+    sample_gen = lambda: torch.Generator().manual_seed(SEED)
+    for n in SNAIL_N:
+        inputs = sampling.snail_loop_inputs(
+            snail, -torch.ones((n, h, w, 1), device=dev),
+            torch.rand((h * w, n, 1), generator=gen).to(dev))
+        snail_times[n] = {
+            "sample": time_ms(lambda: snail.sample(n_samples=n, generator=sample_gen()), 2, 1),
+            "kernel": time_ms(lambda: sdc.fused_snail_sample_loop(*inputs), 2, 0)}
+        with torch.no_grad():
+            snail_times[n]["plain"] = time_ms(lambda: sdc.snail_sample_loop_plain(*inputs), 1, 0)
+        snail_bounds[n] = bound(
+            snail_work(n, h, w, s_blocks, s_rb, s_c, s_dk, s_dv),
+            s_weight_bytes + 4 * (2 * inputs[0].numel() + inputs[1].numel()))
+        t_ = snail_times[n]
+        print(f"phase times sample PixelSNAIL [{smi}]: n={n} sample call {t_['sample']:.2f} ms "
+              f"({n * 1000 / t_['sample']:.2f} img/s); snail_loop kernel {t_['kernel']:.2f} ms, "
+              f"plain {t_['plain']:.2f} ms, bound {snail_bounds[n][0]:.4f} ms "
+              f"({snail_bounds[n][1]}), latency floor estimate "
+              f"{snail_latency_floor_ms(h, w, s_blocks, s_rb):.1f} ms, library none", flush=True)
+    profile_steps(lambda: snail.sample(n_samples=SNAIL_N[0], generator=sample_gen()), 1,
+                  snail_times[SNAIL_N[0]]["sample"], f"sample call n={SNAIL_N[0]}",
+                  (SNAIL_N[0], "images"), "profile sample PixelSNAIL", smi, ("snail_loop",),
+                  host=True)
+
+    return {
+        "flash_err": e_out, "bwd_err": max(e_grads),
+        "counts": [snail_serve_counts, *snail_sample_counts, snail_train_counts],
+        "kernel": {"name": sdc.KERNEL, "route": "cuda",
+                   "source": "pytorch_generative_tpu_torch/csrc/snail_loop.cu",
+                   "replaces": "pytorch_generative_tpu/ops/snail_decode_pallas.py:71",
+                   "max_abs_err": snail_err, "ms": snail_times[SNAIL_N[0]]["kernel"],
+                   "plain_ms": snail_times[SNAIL_N[0]]["plain"],
+                   "bound_ms": snail_bounds[SNAIL_N[0]][0],
+                   "bound_by": snail_bounds[SNAIL_N[0]][1], "library_ms": None},
+    }
+
+
 def main():
     # Phase 1: device.
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
@@ -379,6 +712,7 @@ def main():
         ln_cuda,
         mlp_cuda,
         sampling,
+        snail_decode_cuda,
     )
 
     dev = torch.device(DEVICE)
@@ -397,7 +731,7 @@ def main():
     # one nvcc per source, all started together.
     names = (attention_cuda.KERNEL, attention_cuda.BWD_KERNEL, decode_cuda.KERNEL,
              decode_cuda.DECODE_STEP_KERNEL, ln_cuda.KERNEL, ln_cuda.BWD_KERNEL,
-             mlp_cuda.KERNEL, mlp_cuda.BWD_KERNEL)
+             mlp_cuda.KERNEL, mlp_cuda.BWD_KERNEL, snail_decode_cuda.KERNEL)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         paths = dict(zip(names, pool.map(_build.build, names)))
@@ -486,10 +820,12 @@ def main():
         for mod in pairs:
             mod.launches = mod.bwd_launches = 0
         decode_cuda.launches = decode_cuda.step_launches = 0
+        snail_decode_cuda.launches = 0
 
     def read_counts():
         counts = {decode_cuda.KERNEL: decode_cuda.launches,
-                  decode_cuda.DECODE_STEP_KERNEL: decode_cuda.step_launches}
+                  decode_cuda.DECODE_STEP_KERNEL: decode_cuda.step_launches,
+                  snail_decode_cuda.KERNEL: snail_decode_cuda.launches}
         for mod in pairs:
             counts[mod.KERNEL], counts[mod.BWD_KERNEL] = mod.launches, mod.bwd_launches
         return counts
@@ -595,10 +931,10 @@ def main():
     times["sample"] = time_ms(lambda: decode_cuda.fused_sample_loop(*inputs), 3, 1)
     times["sample_plain"] = time_ms(lambda: decode_cuda.sample_loop_plain(*inputs), 1, 1)
 
-    fwd_bound = bound(flash_work(BATCH, l, n_heads, d, False, 2),
-                      4 * (4 * BATCH * l * c + BATCH * n_heads * l))
-    bwd_bound = bound(flash_work(BATCH, l, n_heads, d, False, 5),
-                      4 * (8 * BATCH * l * c + BATCH * n_heads * l))
+    fwd_bound = bound(flash_work(BATCH, l, n_heads, d, d, False),
+                      flash_bytes(BATCH, l, n_heads, d, d))
+    bwd_bound = bound(flash_work(BATCH, l, n_heads, d, d, False, backward=True),
+                      flash_bytes(BATCH, l, n_heads, d, d, backward=True))
     weight_bytes = 4 * sum(t.numel() for t in inputs[3].values())
     sample_bound = bound(sampler_flops(N_SAMPLES, h, w, n_blocks, c),
                          weight_bytes + 4 * (2 * inputs[0].numel() + inputs[2].numel()))
@@ -834,10 +1170,10 @@ def main():
     kv = torch.randn((BATCH, h * w, 2 * cb), generator=gen).to(dev)
     dout = torch.randn((BATCH, h * w, cb), generator=gen).to(dev)
     times64 = flash_times(q, kv[..., :cb], kv[..., cb:], dout, hb)
-    fwd64 = bound(flash_work(BATCH, h * w, hb, db, False, 2),
-                  4 * (4 * BATCH * h * w * cb + BATCH * hb * h * w))
-    bwd64 = bound(flash_work(BATCH, h * w, hb, db, False, 5),
-                  4 * (8 * BATCH * h * w * cb + BATCH * hb * h * w))
+    fwd64 = bound(flash_work(BATCH, h * w, hb, db, db, False),
+                  flash_bytes(BATCH, h * w, hb, db, db))
+    bwd64 = bound(flash_work(BATCH, h * w, hb, db, db, False, backward=True),
+                  flash_bytes(BATCH, h * w, hb, db, db, backward=True))
     print(f"phase times C={cb} [{smi}]: flash_fwd (B={BATCH}, L={h * w}, H={hb}, d={db}) "
           f"kernel {times64['fwd']:.4f}/{times64['fwd2']:.4f} ms, plain "
           f"{times64['fwd_plain']:.4f} ms, causal SDPA {times64['fwd_lib']:.4f} ms, bound "
@@ -1033,8 +1369,13 @@ def main():
     print(f"phase times routes C={c} [{smi}]: n={N_SAMPLES} whole loop {route_times['loop']:.2f} ms, "
           f"step route {route_times['step']:.2f} ms", flush=True)
 
+    # ---- PixelSNAIL (pixel_snail_phases). ----
+    snail = pixel_snail_phases(dev, gen, smi, reset_counts, read_counts)
+    flash_err = max(flash_err, snail["flash_err"])
+    bwd_err = max(bwd_err, snail["bwd_err"])
+
     all_counts = (serve_counts, train_counts, big_serve_counts, big_train_counts,
-                  *big_sample_counts, *route_counts)
+                  *big_sample_counts, *route_counts, *snail["counts"])
     print(json.dumps({"kernels": [
         {"name": attention_cuda.KERNEL, "route": "cuda",
          "source": "pytorch_generative_tpu_torch/csrc/flash_fwd.cu",
@@ -1072,6 +1413,7 @@ def main():
               (ln_cuda.BWD_KERNEL, "pytorch_generative_tpu/ops/ln_pallas.py:48", ln_bwd_err),
               (mlp_cuda.KERNEL, "pytorch_generative_tpu/ops/mlp_pallas.py:81", mlp_err),
               (mlp_cuda.BWD_KERNEL, "pytorch_generative_tpu/ops/mlp_pallas.py:102", mlp_bwd_err))),
+        dict(snail["kernel"], launches=sum(cs[snail_decode_cuda.KERNEL] for cs in all_counts)),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-// Causal flash-attention backward over packed (B, L, H*d) float32 tensors.
+// Causal flash-attention backward over packed float32 tensors: q, k, dq and
+// dk (B, L, H*d_k), v, out, dout and dv (B, L, H*d_v).
 //
 // Replaces pytorch_generative_tpu/ops/attention_pallas.py::_bwd_fused_kernel
 // (launched by _flash_backward, the custom_vjp backward of
@@ -43,8 +44,9 @@ constexpr int kHalf = kBlock / 2;       // columns per thread per tile
 constexpr int kPStride = kBlock + 2;    // p/ds rows: stride 2 mod 32 banks
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Copies rows [row0, row0 + kBlock) of one head of a packed operand into a
-// (kBlock, D + 1) shared tile, times `mul`; rows past L read as 0.
+// Copies rows [row0, row0 + kBlock) of one head (D features wide) of a
+// packed operand into a (kBlock, D + 1) shared tile, times `mul`; rows past
+// L read as 0.
 template <int D>
 __device__ void stage_tile(float* dst, const float* src, int64_t bs, int64_t rs,
                            int b, int h, int row0, int L, float mul) {
@@ -59,7 +61,7 @@ __device__ void stage_tile(float* dst, const float* src, int64_t bs, int64_t rs,
 // dq pass: one CTA per (q-tile, head, batch). Thread (r, half) owns query row
 // r, computes p and ds for the keys c = 2j + half of each k-tile, and sums
 // dq over the half of the features it owns.
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ out,
@@ -69,11 +71,12 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     int64_t q_rs, int64_t k_bs, int64_t k_rs, int64_t v_bs,
                     int64_t v_rs, int64_t o_bs, int64_t o_rs, int64_t do_bs,
                     int64_t do_rs, float scale, int offset) {
-  constexpr int DH = D / 2;  // dq features per thread
+  static_assert(DV + 1 <= kPStride, "O is staged through the ds tile");
+  constexpr int DH = DK / 2;  // dq features per thread
   extern __shared__ float smem[];
-  float* ks = smem;                        // kBlock x (D + 1)
-  float* vs = ks + kBlock * (D + 1);       // kBlock x (D + 1)
-  float* dss = vs + kBlock * (D + 1);      // kBlock x kPStride
+  float* ks = smem;                        // kBlock x (DK + 1)
+  float* vs = ks + kBlock * (DK + 1);      // kBlock x (DV + 1)
+  float* dss = vs + kBlock * (DV + 1);     // kBlock x kPStride
 
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
@@ -82,17 +85,18 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   // q (pre-scaled into the base-2 domain), dO and O through shared memory,
   // then each row into registers; delta = dO . O for the row.
-  stage_tile<D>(ks, q, q_bs, q_rs, b, h, qt * kBlock, L, scale * kLog2e);
-  stage_tile<D>(vs, dout, do_bs, do_rs, b, h, qt * kBlock, L, 1.f);
-  stage_tile<D>(dss, out, o_bs, o_rs, b, h, qt * kBlock, L, 1.f);
+  stage_tile<DK>(ks, q, q_bs, q_rs, b, h, qt * kBlock, L, scale * kLog2e);
+  stage_tile<DV>(vs, dout, do_bs, do_rs, b, h, qt * kBlock, L, 1.f);
+  stage_tile<DV>(dss, out, o_bs, o_rs, b, h, qt * kBlock, L, 1.f);
   __syncthreads();
-  float q2[D], dor[D];
+  float q2[DK], dor[DV];
   float dlt = 0.f;
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    q2[d] = ks[r * (D + 1) + d];
-    dor[d] = vs[r * (D + 1) + d];
-    dlt += dor[d] * dss[r * (D + 1) + d];
+  for (int d = 0; d < DK; ++d) q2[d] = ks[r * (DK + 1) + d];
+#pragma unroll
+  for (int d = 0; d < DV; ++d) {
+    dor[d] = vs[r * (DV + 1) + d];
+    dlt += dor[d] * dss[r * (DV + 1) + d];
   }
   const int64_t stat = (static_cast<int64_t>(b) * H + h) * L + qrow;
   const float lse2 = row_ok ? lse[stat] * kLog2e : -CUDART_INF_F;
@@ -106,8 +110,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // kBlock rows and keys per tile: the diagonal of q-tile qt is in k-tile qt.
   for (int kt = 0; kt <= qt; ++kt) {
     __syncthreads();  // every reader of the previous tiles is done
-    stage_tile<D>(ks, k, k_bs, k_rs, b, h, kt * kBlock, L, 1.f);
-    stage_tile<D>(vs, v, v_bs, v_rs, b, h, kt * kBlock, L, 1.f);
+    stage_tile<DK>(ks, k, k_bs, k_rs, b, h, kt * kBlock, L, 1.f);
+    stage_tile<DV>(vs, v, v_bs, v_rs, b, h, kt * kBlock, L, 1.f);
     __syncthreads();
 
 #pragma unroll 4
@@ -116,10 +120,9 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int key = kt * kBlock + c;
       float s = 0.f, dp = 0.f;
 #pragma unroll
-      for (int d = 0; d < D; ++d) {
-        s += q2[d] * ks[c * (D + 1) + d];
-        dp += dor[d] * vs[c * (D + 1) + d];
-      }
+      for (int d = 0; d < DK; ++d) s += q2[d] * ks[c * (DK + 1) + d];
+#pragma unroll
+      for (int d = 0; d < DV; ++d) dp += dor[d] * vs[c * (DV + 1) + d];
       const bool ok = live && key < L && key + offset <= qrow;
       const float p = ok ? exp2f(s - lse2) : 0.f;
       dss[r * kPStride + c] = p * (dp - dlt);
@@ -129,12 +132,12 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < kBlock; ++c) {
       const float ds = dss[r * kPStride + c];
 #pragma unroll
-      for (int d = 0; d < DH; ++d) acc[d] += ds * ks[c * (D + 1) + half * DH + d];
+      for (int d = 0; d < DH; ++d) acc[d] += ds * ks[c * (DK + 1) + half * DH + d];
     }
   }
 
   if (row_ok) {
-    float* dqp = dq + (static_cast<int64_t>(b) * L + qrow) * H * D + h * D +
+    float* dqp = dq + (static_cast<int64_t>(b) * L + qrow) * H * DK + h * DK +
                  half * DH;
 #pragma unroll
     for (int d = 0; d < DH; ++d) dqp[d] = acc[d] * scale;
@@ -144,7 +147,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // dk/dv pass: one CTA per (k-tile, head, batch). Thread (c, half) owns key c,
 // computes p and ds for the query rows r = 2j + half of each q-tile, and
 // sums dk and dv over the half of the features it owns.
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v,
@@ -155,11 +158,11 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       int64_t q_rs, int64_t k_bs, int64_t k_rs, int64_t v_bs,
                       int64_t v_rs, int64_t do_bs, int64_t do_rs, float scale,
                       int offset) {
-  constexpr int DH = D / 2;
+  constexpr int KH = DK / 2, VH = DV / 2;  // dk and dv features per thread
   extern __shared__ float smem[];
-  float* qs = smem;                        // kBlock x (D + 1)
-  float* dos = qs + kBlock * (D + 1);      // kBlock x (D + 1)
-  float* ps = dos + kBlock * (D + 1);      // kBlock keys x kPStride
+  float* qs = smem;                        // kBlock x (DK + 1)
+  float* dos = qs + kBlock * (DK + 1);     // kBlock x (DV + 1)
+  float* ps = dos + kBlock * (DV + 1);     // kBlock keys x kPStride
   float* dss = ps + kBlock * kPStride;     // kBlock keys x kPStride
   float* lse_s = dss + kBlock * kPStride;  // kBlock (base 2)
   float* delta_s = lse_s + kBlock;         // kBlock
@@ -171,24 +174,25 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int n_q_tiles = (L + kBlock - 1) / kBlock;
 
   // k (pre-scaled into the base-2 domain) and v rows into registers.
-  stage_tile<D>(qs, k, k_bs, k_rs, b, h, kt * kBlock, L, scale * kLog2e);
-  stage_tile<D>(dos, v, v_bs, v_rs, b, h, kt * kBlock, L, 1.f);
+  stage_tile<DK>(qs, k, k_bs, k_rs, b, h, kt * kBlock, L, scale * kLog2e);
+  stage_tile<DV>(dos, v, v_bs, v_rs, b, h, kt * kBlock, L, 1.f);
   __syncthreads();
-  float k2[D], vr[D];
+  float k2[DK], vr[DV];
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    k2[d] = qs[c * (D + 1) + d];
-    vr[d] = dos[c * (D + 1) + d];
-  }
-  float dk_acc[DH], dv_acc[DH];
+  for (int d = 0; d < DK; ++d) k2[d] = qs[c * (DK + 1) + d];
 #pragma unroll
-  for (int d = 0; d < DH; ++d) dk_acc[d] = dv_acc[d] = 0.f;
+  for (int d = 0; d < DV; ++d) vr[d] = dos[c * (DV + 1) + d];
+  float dk_acc[KH], dv_acc[VH];
+#pragma unroll
+  for (int d = 0; d < KH; ++d) dk_acc[d] = 0.f;
+#pragma unroll
+  for (int d = 0; d < VH; ++d) dv_acc[d] = 0.f;
 
   // q-tiles before this k-tile hold no row that sees its keys.
   for (int qt = kt; qt < n_q_tiles; ++qt) {
     __syncthreads();
-    stage_tile<D>(qs, q, q_bs, q_rs, b, h, qt * kBlock, L, 1.f);
-    stage_tile<D>(dos, dout, do_bs, do_rs, b, h, qt * kBlock, L, 1.f);
+    stage_tile<DK>(qs, q, q_bs, q_rs, b, h, qt * kBlock, L, 1.f);
+    stage_tile<DV>(dos, dout, do_bs, do_rs, b, h, qt * kBlock, L, 1.f);
     if (threadIdx.x < kBlock) {
       const int row = qt * kBlock + threadIdx.x;
       const int64_t stat = (static_cast<int64_t>(b) * H + h) * L + row;
@@ -203,10 +207,9 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int row = qt * kBlock + r;
       float s = 0.f, dp = 0.f;
 #pragma unroll
-      for (int d = 0; d < D; ++d) {
-        s += qs[r * (D + 1) + d] * k2[d];
-        dp += dos[r * (D + 1) + d] * vr[d];
-      }
+      for (int d = 0; d < DK; ++d) s += qs[r * (DK + 1) + d] * k2[d];
+#pragma unroll
+      for (int d = 0; d < DV; ++d) dp += dos[r * (DV + 1) + d] * vr[d];
       const float l2 = lse_s[r];  // -inf past L and on fully-masked rows
       const bool ok = key_ok && !isinf(l2) && key + offset <= row;
       const float p = ok ? exp2f(s - l2) : 0.f;
@@ -219,25 +222,24 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float p = ps[c * kPStride + r];
       const float ds = dss[c * kPStride + r];
 #pragma unroll
-      for (int d = 0; d < DH; ++d) {
-        dv_acc[d] += p * dos[r * (D + 1) + half * DH + d];
-        dk_acc[d] += ds * qs[r * (D + 1) + half * DH + d];
-      }
+      for (int d = 0; d < VH; ++d) dv_acc[d] += p * dos[r * (DV + 1) + half * VH + d];
+#pragma unroll
+      for (int d = 0; d < KH; ++d) dk_acc[d] += ds * qs[r * (DK + 1) + half * KH + d];
     }
   }
 
   if (key_ok) {
-    const int64_t o = (static_cast<int64_t>(b) * L + key) * H * D + h * D +
-                      half * DH;
+    const int64_t row = static_cast<int64_t>(b) * L + key;
+    float* dkp = dk + row * H * DK + h * DK + half * KH;
+    float* dvp = dv + row * H * DV + h * DV + half * VH;
 #pragma unroll
-    for (int d = 0; d < DH; ++d) {
-      dk[o + d] = dk_acc[d] * scale;
-      dv[o + d] = dv_acc[d];
-    }
+    for (int d = 0; d < KH; ++d) dkp[d] = dk_acc[d] * scale;
+#pragma unroll
+    for (int d = 0; d < VH; ++d) dvp[d] = dv_acc[d];
   }
 }
 
-template <int D>
+template <int DK, int DV>
 cudaError_t launch(const float* q, const float* k, const float* v,
                    const float* out, const float* dout, const float* lse,
                    float* dq, float* dk, float* dv, float* delta, int B, int L,
@@ -246,27 +248,27 @@ cudaError_t launch(const float* q, const float* k, const float* v,
                    int64_t o_rs, int64_t do_bs, int64_t do_rs, int mask_center,
                    cudaStream_t stream) {
   const size_t smem_dq =
-      sizeof(float) * (2 * kBlock * (D + 1) + kBlock * kPStride);
+      sizeof(float) * (kBlock * (DK + 1) + kBlock * (DV + 1) + kBlock * kPStride);
   const size_t smem_kv = sizeof(float) *
-      (2 * kBlock * (D + 1) + 2 * kBlock * kPStride + 2 * kBlock);
+      (kBlock * (DK + 1) + kBlock * (DV + 1) + 2 * kBlock * kPStride + 2 * kBlock);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dq_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem_dq));
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dkdv_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem_kv));
   if (err != cudaSuccess) return err;
   const dim3 grid((L + kBlock - 1) / kBlock, H, B);
-  const float scale = 1.f / sqrtf(static_cast<float>(D));
+  const float scale = 1.f / sqrtf(static_cast<float>(DK));
   const int offset = mask_center ? 1 : 0;
   // Same stream: the dk/dv pass reads the delta that the dq pass stores.
-  flash_bwd_dq_kernel<D><<<grid, kThreads, smem_dq, stream>>>(
+  flash_bwd_dq_kernel<DK, DV><<<grid, kThreads, smem_dq, stream>>>(
       q, k, v, out, dout, lse, dq, delta, L, H, q_bs, q_rs, k_bs, k_rs, v_bs,
       v_rs, o_bs, o_rs, do_bs, do_rs, scale, offset);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dkdv_kernel<D><<<grid, kThreads, smem_kv, stream>>>(
+  flash_bwd_dkdv_kernel<DK, DV><<<grid, kThreads, smem_kv, stream>>>(
       q, k, v, dout, lse, delta, dk, dv, L, H, q_bs, q_rs, k_bs, k_rs, v_bs,
       v_rs, do_bs, do_rs, scale, offset);
   return cudaGetLastError();
@@ -274,28 +276,30 @@ cudaError_t launch(const float* q, const float* k, const float* v,
 
 }  // namespace
 
-// q, k, v, out, dout: f32 with unit stride over features; (batch, row)
-// strides given in elements. d_k == d_v == D. lse: (B, H, L) natural log.
-// dq, dk, dv: contiguous (B, L, H*D); delta: (B, H, L) scratch.
+// q, k: f32 (B, L, H*d_k); v, out, dout: f32 (B, L, H*d_v); each with unit
+// stride over features and (batch, row) strides given in elements. (d_k,
+// d_v) is one of (16, 16), (32, 32), (64, 64), (4, 32), (4, 8). lse:
+// (B, H, L) natural log. dq, dk: contiguous (B, L, H*d_k); dv: contiguous
+// (B, L, H*d_v); delta: (B, H, L) scratch.
 extern "C" int flash_bwd_f32(const float* q, const float* k, const float* v,
                              const float* out, const float* dout,
                              const float* lse, float* dq, float* dk, float* dv,
-                             float* delta, int B, int L, int H, int D,
-                             int64_t q_bs, int64_t q_rs, int64_t k_bs,
+                             float* delta, int B, int L, int H, int d_k,
+                             int d_v, int64_t q_bs, int64_t q_rs, int64_t k_bs,
                              int64_t k_rs, int64_t v_bs, int64_t v_rs,
                              int64_t o_bs, int64_t o_rs, int64_t do_bs,
                              int64_t do_rs, int mask_center, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch<16>(q, k, v, out, dout, lse, dq, dk, dv, delta, B,
-                               L, H, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, o_bs,
-                               o_rs, do_bs, do_rs, mask_center, s);
-    case 32: return launch<32>(q, k, v, out, dout, lse, dq, dk, dv, delta, B,
-                               L, H, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, o_bs,
-                               o_rs, do_bs, do_rs, mask_center, s);
-    case 64: return launch<64>(q, k, v, out, dout, lse, dq, dk, dv, delta, B,
-                               L, H, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, o_bs,
-                               o_rs, do_bs, do_rs, mask_center, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+#define FLASH_BWD_CASE(DK, DV)                                                \
+  if (d_k == DK && d_v == DV)                                                 \
+    return launch<DK, DV>(q, k, v, out, dout, lse, dq, dk, dv, delta, B, L,   \
+                          H, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, o_bs, o_rs,  \
+                          do_bs, do_rs, mask_center, s);
+  FLASH_BWD_CASE(16, 16)
+  FLASH_BWD_CASE(32, 32)
+  FLASH_BWD_CASE(64, 64)
+  FLASH_BWD_CASE(4, 32)
+  FLASH_BWD_CASE(4, 8)
+#undef FLASH_BWD_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,4 +1,5 @@
-// Causal flash-attention forward over packed (B, L, H*d) float32 tensors.
+// Causal flash-attention forward over packed float32 tensors: q and k
+// (B, L, H*d_k), v and out (B, L, H*d_v).
 //
 // Replaces pytorch_generative_tpu/ops/attention_pallas.py::_fwd_kernel (the
 // packed forward that _flash_forward launches). Same contract: heads are cut
@@ -29,18 +30,19 @@ constexpr int kThreads = 2 * kBlockQ;  // two threads share one query row
 constexpr int kHalfK = kBlockK / 2;    // keys per thread per tile
 constexpr float kLn2 = 0.6931471805599453f;
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
                  float* __restrict__ lse, int L, int H,
                  int64_t q_bs, int64_t q_rs, int64_t k_bs, int64_t k_rs,
                  int64_t v_bs, int64_t v_rs, float scale_log2, int offset) {
-  constexpr int DH = D / 2;  // output features per thread
+  static_assert(kBlockQ == kBlockK, "q is staged through the k tile");
+  constexpr int DH = DV / 2;  // output features per thread
   extern __shared__ float smem[];
-  float* ks = smem;                       // kBlockK x (D + 1), padded rows
-  float* vs = ks + kBlockK * (D + 1);     // kBlockK x D
-  float* ps = vs + kBlockK * D;           // kBlockQ x (kBlockK + 1)
+  float* ks = smem;                       // kBlockK x (DK + 1), padded rows
+  float* vs = ks + kBlockK * (DK + 1);    // kBlockK x DV
+  float* ps = vs + kBlockK * DV;          // kBlockQ x (kBlockK + 1)
 
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x;
@@ -50,16 +52,16 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   // Stage the q tile through shared memory (coalesced), then keep each row,
   // pre-scaled into the base-2 domain, in registers.
-  for (int idx = tid; idx < kBlockQ * D; idx += kThreads) {
-    const int rr = idx / D, cc = idx % D;
+  for (int idx = tid; idx < kBlockQ * DK; idx += kThreads) {
+    const int rr = idx / DK, cc = idx % DK;
     const int row = qt * kBlockQ + rr;
-    ks[rr * (D + 1) + cc] =
-        row < L ? q[b * q_bs + row * q_rs + h * D + cc] * scale_log2 : 0.f;
+    ks[rr * (DK + 1) + cc] =
+        row < L ? q[b * q_bs + row * q_rs + h * DK + cc] * scale_log2 : 0.f;
   }
   __syncthreads();
-  float qreg[D];
+  float qreg[DK];
 #pragma unroll
-  for (int d = 0; d < D; ++d) qreg[d] = ks[r * (D + 1) + d];
+  for (int d = 0; d < DK; ++d) qreg[d] = ks[r * (DK + 1) + d];
 
   float m = -CUDART_INF_F, l = 0.f;
   float acc[DH];
@@ -69,16 +71,16 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // kBlockQ == kBlockK, so the diagonal of query tile qt lies in key tile qt.
   for (int kt = 0; kt <= qt; ++kt) {
     __syncthreads();  // every reader of the previous tile is done
-    for (int idx = tid; idx < kBlockK * D; idx += kThreads) {
-      const int rr = idx / D, cc = idx % D;
+    for (int idx = tid; idx < kBlockK * DK; idx += kThreads) {
+      const int rr = idx / DK, cc = idx % DK;
       const int key = kt * kBlockK + rr;
-      float kval = 0.f, vval = 0.f;
-      if (key < L) {
-        kval = k[b * k_bs + key * k_rs + h * D + cc];
-        vval = v[b * v_bs + key * v_rs + h * D + cc];
-      }
-      ks[rr * (D + 1) + cc] = kval;
-      vs[rr * D + cc] = vval;
+      ks[rr * (DK + 1) + cc] =
+          key < L ? k[b * k_bs + key * k_rs + h * DK + cc] : 0.f;
+    }
+    for (int idx = tid; idx < kBlockK * DV; idx += kThreads) {
+      const int rr = idx / DV, cc = idx % DV;
+      const int key = kt * kBlockK + rr;
+      vs[rr * DV + cc] = key < L ? v[b * v_bs + key * v_rs + h * DV + cc] : 0.f;
     }
     __syncthreads();
 
@@ -90,7 +92,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int key = kt * kBlockK + c;
       float dot = 0.f;
 #pragma unroll
-      for (int d = 0; d < D; ++d) dot += qreg[d] * ks[c * (D + 1) + d];
+      for (int d = 0; d < DK; ++d) dot += qreg[d] * ks[c * (DK + 1) + d];
       const bool ok = row_ok && key < L && key + offset <= qrow;
       s[j] = ok ? dot : -CUDART_INF_F;
       m_cur = fmaxf(m_cur, s[j]);
@@ -116,13 +118,13 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < kBlockK; ++c) {
       const float p = ps[r * (kBlockK + 1) + c];
 #pragma unroll
-      for (int d = 0; d < DH; ++d) acc[d] += p * vs[c * D + half * DH + d];
+      for (int d = 0; d < DH; ++d) acc[d] += p * vs[c * DV + half * DH + d];
     }
   }
 
   if (row_ok) {
     const float denom = l == 0.f ? 1.f : l;
-    float* op = out + (static_cast<int64_t>(b) * L + qrow) * H * D + h * D +
+    float* op = out + (static_cast<int64_t>(b) * L + qrow) * H * DV + h * DV +
                 half * DH;
 #pragma unroll
     for (int d = 0; d < DH; ++d) op[d] = acc[d] / denom;
@@ -133,20 +135,20 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D>
+template <int DK, int DV>
 cudaError_t launch(const float* q, const float* k, const float* v, float* out,
                    float* lse, int B, int L, int H, int64_t q_bs, int64_t q_rs,
                    int64_t k_bs, int64_t k_rs, int64_t v_bs, int64_t v_rs,
                    int mask_center, cudaStream_t stream) {
   const size_t smem = sizeof(float) *
-      (kBlockK * (D + 1) + kBlockK * D + kBlockQ * (kBlockK + 1));
+      (kBlockK * (DK + 1) + kBlockK * DV + kBlockQ * (kBlockK + 1));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((L + kBlockQ - 1) / kBlockQ, H, B);
-  const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
-  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+  const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(DK));
+  flash_fwd_kernel<DK, DV><<<grid, kThreads, smem, stream>>>(
       q, k, v, out, lse, L, H, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, scale_log2,
       mask_center ? 1 : 0);
   return cudaGetLastError();
@@ -154,21 +156,25 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* out,
 
 }  // namespace
 
-// q, k, v: f32 with unit stride over features; (batch, row) strides given in
-// elements. d_k == d_v == D. out: contiguous (B, L, H*D); lse: (B, H, L).
+// q, k: f32 (B, L, H*d_k); v: f32 (B, L, H*d_v); each with unit stride over
+// features and (batch, row) strides given in elements. (d_k, d_v) is one of
+// (16, 16), (32, 32), (64, 64), (4, 32), (4, 8). out: contiguous
+// (B, L, H*d_v); lse: (B, H, L).
 extern "C" int flash_fwd_f32(const float* q, const float* k, const float* v,
-                             float* out, float* lse, int B, int L, int H, int D,
-                             int64_t q_bs, int64_t q_rs, int64_t k_bs,
-                             int64_t k_rs, int64_t v_bs, int64_t v_rs,
-                             int mask_center, void* stream) {
+                             float* out, float* lse, int B, int L, int H,
+                             int d_k, int d_v, int64_t q_bs, int64_t q_rs,
+                             int64_t k_bs, int64_t k_rs, int64_t v_bs,
+                             int64_t v_rs, int mask_center, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch<16>(q, k, v, out, lse, B, L, H, q_bs, q_rs, k_bs,
-                               k_rs, v_bs, v_rs, mask_center, s);
-    case 32: return launch<32>(q, k, v, out, lse, B, L, H, q_bs, q_rs, k_bs,
-                               k_rs, v_bs, v_rs, mask_center, s);
-    case 64: return launch<64>(q, k, v, out, lse, B, L, H, q_bs, q_rs, k_bs,
-                               k_rs, v_bs, v_rs, mask_center, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+#define FLASH_FWD_CASE(DK, DV)                                              \
+  if (d_k == DK && d_v == DV)                                               \
+    return launch<DK, DV>(q, k, v, out, lse, B, L, H, q_bs, q_rs, k_bs,     \
+                          k_rs, v_bs, v_rs, mask_center, s);
+  FLASH_FWD_CASE(16, 16)
+  FLASH_FWD_CASE(32, 32)
+  FLASH_FWD_CASE(64, 64)
+  FLASH_FWD_CASE(4, 32)
+  FLASH_FWD_CASE(4, 8)
+#undef FLASH_FWD_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,3 +1,12 @@
 """Autoregressive models."""
 
-from pytorch_generative_tpu_torch.models.autoregressive import image_gpt  # noqa: F401
+from pytorch_generative_tpu_torch.models.autoregressive import (  # noqa: F401
+    image_gpt,
+    pixel_snail,
+)
+from pytorch_generative_tpu_torch.models.autoregressive.image_gpt import (  # noqa: F401
+    ImageGPT,
+)
+from pytorch_generative_tpu_torch.models.autoregressive.pixel_snail import (  # noqa: F401
+    PixelSNAIL,
+)

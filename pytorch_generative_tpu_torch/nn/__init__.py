@@ -1,10 +1,15 @@
 """Neural-network building blocks over NHWC tensors."""
 
-from pytorch_generative_tpu_torch.nn.attention import CausalAttention
+from pytorch_generative_tpu_torch.nn.attention import (
+    CausalAttention,
+    image_positional_encoding,
+)
 from pytorch_generative_tpu_torch.nn.convolution import (
     CausalConv2d,
     ChannelLayerNorm,
     Conv2d,
+    GatedActivation,
 )
 
-__all__ = ["CausalAttention", "CausalConv2d", "ChannelLayerNorm", "Conv2d"]
+__all__ = ["CausalAttention", "CausalConv2d", "ChannelLayerNorm", "Conv2d",
+           "GatedActivation", "image_positional_encoding"]

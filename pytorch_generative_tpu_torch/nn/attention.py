@@ -1,5 +1,6 @@
-"""Causal multi-head attention over image pixels (counterpart of
-``pytorch_generative_tpu/nn/attention.py::CausalAttention``, packed path)."""
+"""Causal multi-head attention over image pixels and the image positional
+encoding (counterpart of ``pytorch_generative_tpu/nn/attention.py``:
+``CausalAttention``'s packed path and ``image_positional_encoding``)."""
 
 from __future__ import annotations
 
@@ -8,6 +9,16 @@ from torch import nn
 
 from pytorch_generative_tpu_torch.nn.convolution import Conv2d
 from pytorch_generative_tpu_torch.ops.attention_cuda import causal_attention_packed
+
+
+def image_positional_encoding(shape, device=None, dtype=torch.float32):
+    """(y, x) coordinate channels in [-0.5, 0.5), shape (N, H, W, 2), for
+    an NHWC input of ``shape``: channel 0 varies along H, channel 1 along W."""
+    n, h, w = shape[0], shape[1], shape[2]
+    ys = torch.arange(h, device=device, dtype=dtype) / h - 0.5
+    xs = torch.arange(w, device=device, dtype=dtype) / w - 0.5
+    grid = torch.stack(torch.meshgrid(ys, xs, indexing="ij"), dim=-1)
+    return grid.expand(n, h, w, 2)
 
 
 class CausalAttention(nn.Module):

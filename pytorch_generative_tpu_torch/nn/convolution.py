@@ -76,6 +76,22 @@ class CausalConv2d(Conv2d):
         return y
 
 
+class GatedActivation(nn.Module):
+    """``activation_fn(top half of the channels) * sigmoid(bottom half)``,
+    split on the last axis."""
+
+    def __init__(self, activation_fn=torch.tanh):
+        super().__init__()
+        self.activation_fn = activation_fn
+
+    def forward(self, x):
+        c = x.shape[-1]
+        if c % 2:
+            raise ValueError(f"x must have an even number of channels, got {c}")
+        top, gate = x[..., : c // 2], x[..., c // 2:]
+        return self.activation_fn(top) * torch.sigmoid(gate)
+
+
 def channel_layer_norm(x, scale, offset, eps: float = 1e-5):
     """LayerNorm over the last axis with biased variance, as the JAX package."""
     mean = x.mean(dim=-1, keepdim=True)

@@ -2,7 +2,7 @@
 samplers.
 
 Plain PyTorch functions define semantics; ``attention_cuda``, ``ln_cuda``,
-``mlp_cuda`` and ``decode_cuda`` wrap the hand-written Hopper kernels in
+``mlp_cuda``, ``decode_cuda`` and ``snail_decode_cuda`` wrap the hand-written Hopper kernels in
 ``csrc/`` and hold each kernel's plain version beside it. Importing a
 wrapper builds nothing: a kernel is compiled at its first launch.
 """
@@ -14,4 +14,5 @@ from pytorch_generative_tpu_torch.ops import (  # noqa: F401
     ln_cuda,
     masks,
     mlp_cuda,
+    snail_decode_cuda,
 )

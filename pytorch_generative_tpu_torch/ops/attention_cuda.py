@@ -21,7 +21,9 @@ from pytorch_generative_tpu_torch.ops.masks import causal_attention_mask
 
 KERNEL = "flash_fwd"
 BWD_KERNEL = "flash_bwd"
-HEAD_DIMS = (16, 32, 64)
+# The (d_k, d_v) head widths the kernels are built for: ImageGPT's d_k ==
+# d_v, PixelSNAIL's (4, 32) and (4, 8) for small tests.
+HEAD_DIM_PAIRS = ((16, 16), (32, 32), (64, 64), (4, 32), (4, 8))
 
 # Kernel launches since the last reset; only _flash_forward_cuda adds to
 # `launches`, only _flash_backward_cuda to `bwd_launches` (one per call,
@@ -41,7 +43,8 @@ def _unpack(t, n_heads):
 
 
 def flash_forward_plain(q, k, v, mask_center: bool, n_heads: int):
-    """The kernel's plain version: (out (B, L, H*d_v), lse (B, H, L))."""
+    """The kernel's plain version: (out (B, L, H*d_v), lse (B, H, L)) for
+    q, k (B, L, H*d_k) and v (B, L, H*d_v)."""
     out, lse = causal_attention_with_lse(
         _unpack(q, n_heads), _unpack(k, n_heads), _unpack(v, n_heads),
         mask_center)
@@ -50,8 +53,8 @@ def flash_forward_plain(q, k, v, mask_center: bool, n_heads: int):
 
 def flash_backward_plain(q, k, v, out, lse, dout, mask_center: bool,
                          n_heads: int):
-    """The backward kernel's plain version, on a materialised p:
-    (dq, dk, dv), each (B, L, H*d)."""
+    """The backward kernel's plain version, on a materialised p: (dq, dk,
+    dv), dq and dk (B, L, H*d_k), dv (B, L, H*d_v)."""
     q, k, v, out, dout = (_unpack(t, n_heads) for t in (q, k, v, out, dout))
     scale = 1.0 / (q.shape[-1] ** 0.5)
     mask = causal_attention_mask(q.shape[-2], mask_center, device=q.device)
@@ -78,19 +81,24 @@ def _check_operand(name, t, b, l):
 
 
 def _check_operands(n_heads, **operands):
-    """Checks packed (B, L, H*d) operands on one device; returns the head dim."""
-    q = operands["q"]
+    """Checks packed operands on one device: q and k (B, L, H*d_k), the rest
+    (v, out, dout) (B, L, H*d_v); returns (d_k, d_v)."""
+    q, v = operands["q"], operands["v"]
     b, l, ck = q.shape
+    cv = v.shape[-1]
     for name, t in operands.items():
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         _check_operand(name, t, b, l)
-        if t.shape[2] != ck:
-            raise ValueError(f"{name} width {t.shape[2]} != q width {ck}")
-    if ck % n_heads or ck // n_heads not in HEAD_DIMS:
-        raise ValueError(f"width {ck} over {n_heads} heads: head dim not in "
-                         f"{HEAD_DIMS}")
-    return ck // n_heads
+        ref = "q" if name in ("q", "k") else "v"
+        if t.shape[2] != operands[ref].shape[2]:
+            raise ValueError(f"{name} width {t.shape[2]} != {ref} width "
+                             f"{operands[ref].shape[2]}")
+    dims = (ck // n_heads, cv // n_heads)
+    if ck % n_heads or cv % n_heads or dims not in HEAD_DIM_PAIRS:
+        raise ValueError(f"widths q/k {ck}, v {cv} over {n_heads} heads: "
+                         f"(d_k, d_v) not one of {HEAD_DIM_PAIRS}")
+    return dims
 
 
 def _strides(*tensors):
@@ -99,16 +107,16 @@ def _strides(*tensors):
 
 def _flash_forward_cuda(q, k, v, mask_center: bool, n_heads: int):
     global launches
-    d = _check_operands(n_heads, q=q, k=k, v=v)
-    b, l, ck = q.shape
-    out = torch.empty((b, l, ck), device=q.device, dtype=torch.float32)
+    d_k, d_v = _check_operands(n_heads, q=q, k=k, v=v)
+    b, l, _ = q.shape
+    out = torch.empty((b, l, n_heads * d_v), device=q.device, dtype=torch.float32)
     lse = torch.empty((b, n_heads, l), device=q.device, dtype=torch.float32)
     fn = _build.declare(_build.load(KERNEL).flash_fwd_f32,
-                        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                         + [ctypes.c_int64] * 6 + [ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 lse.data_ptr(), b, l, n_heads, d, *_strides(q, k, v),
+                 lse.data_ptr(), b, l, n_heads, d_k, d_v, *_strides(q, k, v),
                  int(mask_center), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_fwd_f32")
     launches += 1
@@ -119,21 +127,22 @@ def _flash_backward_cuda(q, k, v, out, lse, dout, mask_center: bool,
                          n_heads: int):
     global bwd_launches
     dout = dout.contiguous()
-    d = _check_operands(n_heads, q=q, k=k, v=v, out=out, dout=dout)
+    d_k, d_v = _check_operands(n_heads, q=q, k=k, v=v, out=out, dout=dout)
     b, l, ck = q.shape
     if lse.shape != (b, n_heads, l) or not lse.is_contiguous() \
             or lse.dtype != torch.float32 or lse.device != q.device:
         raise ValueError(f"lse must be contiguous float32 ({b}, {n_heads}, {l}) "
                          f"on {q.device}")
-    dq, dk, dv = (torch.empty((b, l, ck), device=q.device) for _ in range(3))
+    dq, dk = (torch.empty((b, l, ck), device=q.device) for _ in range(2))
+    dv = torch.empty((b, l, n_heads * d_v), device=q.device)
     delta = torch.empty((b, n_heads, l), device=q.device)
     fn = _build.declare(_build.load(BWD_KERNEL).flash_bwd_f32,
-                        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+                        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                         + [ctypes.c_int64] * 10 + [ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), delta.data_ptr(), b, l, n_heads, d,
+                 dv.data_ptr(), delta.data_ptr(), b, l, n_heads, d_k, d_v,
                  *_strides(q, k, v, out, dout), int(mask_center),
                  torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_bwd_f32")
@@ -142,14 +151,15 @@ def _flash_backward_cuda(q, k, v, out, lse, dout, mask_center: bool,
 
 
 def flash_forward(q, k, v, mask_center: bool, n_heads: int):
-    """Forward over packed q/k/v (B, L, H*d): returns (out, lse (B, H, L))."""
+    """Forward over packed q, k (B, L, H*d_k) and v (B, L, H*d_v): returns
+    (out (B, L, H*d_v), lse (B, H, L))."""
     return _build.dispatch(_flash_forward_cuda, flash_forward_plain, q, k, v,
                            mask_center, n_heads)
 
 
 def flash_backward(q, k, v, out, lse, dout, mask_center: bool, n_heads: int):
     """Backward over packed tensors, from the forward's out and lse:
-    returns (dq, dk, dv), each (B, L, H*d)."""
+    returns (dq, dk, dv), shaped as q, k and v."""
     return _build.dispatch(_flash_backward_cuda, flash_backward_plain, q, k, v,
                            out, lse, dout, mask_center, n_heads)
 
@@ -170,6 +180,6 @@ class _CausalAttentionPacked(torch.autograd.Function):
 
 
 def causal_attention_packed(q, k, v, mask_center: bool, n_heads: int):
-    """Differentiable causal attention over packed (B, L, heads*d) tensors,
-    head-major features; returns (B, L, heads*d_v)."""
+    """Differentiable causal attention over packed q, k (B, L, heads*d_k) and
+    v (B, L, heads*d_v), head-major features; returns (B, L, heads*d_v)."""
     return _CausalAttentionPacked.apply(q, k, v, mask_center, n_heads)

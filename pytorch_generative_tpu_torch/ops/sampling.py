@@ -1,5 +1,7 @@
-"""Fast ImageGPT sampling (counterpart of the ImageGPT part of
-``pytorch_generative_tpu/ops/sampling.py``).
+"""Fast ImageGPT and PixelSNAIL sampling (counterpart of the ImageGPT and
+PixelSNAIL parts of ``pytorch_generative_tpu/ops/sampling.py``).
+
+ImageGPT:
 
 Per raster position only the new position's activations are computed: the
 masked input conv on its patch, attention over cached K/V, the MLP and
@@ -14,6 +16,11 @@ on its accelerator (``sample_route``):
   cache, which it writes at the position) between a few PyTorch ops (conv
   taps, head, draw, inpainting merge), for any model and any n.
 
+PixelSNAIL (``pixel_snail_sample_route``): the whole-loop kernel
+``snail_decode_cuda.fused_snail_sample_loop`` for a 1-channel model with the
+default ``sample_fn``, at any n; ``pixel_snail_sample_fast``, the
+incremental sampler in PyTorch, for any other model.
+
 On the card each route runs its kernel; on the CPU its plain version.
 Uniforms are (H*W, N, C), so the port can be fed the JAX package's draws.
 """
@@ -23,25 +30,32 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from pytorch_generative_tpu_torch.ops import decode_cuda
+from pytorch_generative_tpu_torch.ops import decode_cuda, snail_decode_cuda
 
 LOOP_ROUTE = "loop"
 STEP_ROUTE = "step"
+INCREMENTAL_ROUTE = "incremental"
 
 
-def _whole_loop_eligible(model) -> bool:
-    """The sampler handles the common ImageGPT shape: 1-channel images, a
-    3x3/pad-1 type-A input conv and the default Bernoulli ``sample_fn`` (the
-    kernel draws ``u < sigmoid(logit)``)."""
+def _loop_eligible(model, head) -> bool:
+    """The whole-loop kernels cover 1-channel images in and out (``head`` is
+    the model's last 1x1 conv), a 3x3/pad-1 type-A input conv and the
+    default Bernoulli ``sample_fn`` (they draw ``u < sigmoid(logit)``): the
+    JAX package's rule."""
     from pytorch_generative_tpu_torch.models.base import _default_sample_fn
 
     _, _, c = model.in_shape
     conv = model.input_conv
     return (c == 1
-            and model.out_conv.weight.shape[-1] == 1
+            and head.weight.shape[-1] == 1
             and model.sample_fn is _default_sample_fn
             and tuple(conv.weight.shape[1:]) == (1, 3, 3)
             and conv.padding == (1, 1))
+
+
+def _whole_loop_eligible(model) -> bool:
+    """Whether an ImageGPT's shape is the whole-loop kernel's."""
+    return _loop_eligible(model, model.out_conv)
 
 
 def _sample_loop_tile(model, n, cache_dtype):
@@ -202,3 +216,84 @@ def image_gpt_sample_fast(model, n_samples=None, conditioned_on=None, *,
     if route == LOOP_ROUTE:
         return _image_gpt_sample_loop(model, conditioned_on.float(), uniforms)
     return _image_gpt_decode_step(model, conditioned_on.float(), uniforms, cache_dtype)
+
+
+# ---- PixelSNAIL ----------------------------------------------------------
+
+def _snail_loop_eligible(model) -> bool:
+    """Whether a PixelSNAIL's shape is the whole-loop kernel's."""
+    return _loop_eligible(model, model.output_conv2)
+
+
+def pixel_snail_sample_route(model, n) -> str:
+    """``LOOP_ROUTE`` for an eligible model at every ``n``, else
+    ``INCREMENTAL_ROUTE``.
+
+    This departs from the JAX package, which also sends an eligible model
+    to its XLA scan when its batch takes more than two tiles
+    (``n // tile > 2``, e.g. n = 256). That rule comes from the TPU: the
+    tile is what its 72 MB VMEM budget holds, and the crossover was
+    measured there. The card has neither: the kernel keeps its caches in
+    device memory and takes any n in one launch, so on the card the
+    kernel's plain version never serves an eligible model. ``n`` is kept
+    in the signature for that reason: the route does not depend on it.
+    """
+    del n
+    return LOOP_ROUTE if _snail_loop_eligible(model) else INCREMENTAL_ROUTE
+
+
+def snail_loop_inputs(model, conditioned_on, uniforms):
+    """The arguments of ``snail_decode_cuda.fused_snail_sample_loop`` for
+    (N, H, W, 1) ``conditioned_on`` and (H*W, N, 1) uniforms: the
+    zero-padded canvas flattened to (Hp*Wp, N), the uniforms, the stacked
+    weights and the image size."""
+    n, h, w, _ = conditioned_on.shape
+    canvas0 = F.pad(conditioned_on[..., 0], (1, 1, 1, 1)).reshape(n, -1).T
+    return (canvas0.contiguous(), uniforms.contiguous(),
+            snail_decode_cuda.stack_pixel_snail_weights(model), h, w)
+
+
+@torch.no_grad()
+def pixel_snail_sample_fast(model, n_samples=None, conditioned_on=None, *,
+                            generator=None, uniforms=None):
+    """Incremental-decoding sampler for PixelSNAIL, in PyTorch, for any
+    channel count and ``sample_fn`` (``snail_decode_cuda.snail_decode``):
+    per-(block, residual block) elu and mid caches for the 2x2 convs and
+    per-block K/V caches; pixel i's k/v are appended after pixel i is
+    merged, since they read it. Exact inpainting semantics: entries >= 0
+    of ``conditioned_on`` are kept.
+
+    Args:
+        model: A PixelSNAIL.
+        n_samples / conditioned_on: As in ``AutoregressiveModel.sample``.
+        generator: ``torch.Generator`` for the uniforms, when not given.
+        uniforms: (H*W, N, C) uniforms in [0, 1).
+    Returns:
+        (N, H, W, C) samples.
+    """
+    conditioned_on = model._get_conditioned_on(n_samples, conditioned_on)
+    n, h, w, c = conditioned_on.shape
+    uniforms = model._get_uniforms((h * w, n, c), generator, uniforms)
+    canvas = F.pad(conditioned_on.float(), (0, 0, 1, 1, 1, 1))
+    canvas = snail_decode_cuda.snail_decode(
+        canvas, uniforms, snail_decode_cuda.stack_pixel_snail_weights(model), h, w,
+        model.sample_fn)
+    return canvas[:, 1:-1, 1:-1]
+
+
+@torch.no_grad()
+def pixel_snail_sample(model, n_samples=None, conditioned_on=None, *,
+                       generator=None, uniforms=None):
+    """PixelSNAIL sampling on ``pixel_snail_sample_route``'s route: the
+    whole-loop kernel (its plain version on the CPU) for an eligible model,
+    ``pixel_snail_sample_fast`` for any other. Arguments and result as in
+    ``pixel_snail_sample_fast``."""
+    conditioned_on = model._get_conditioned_on(n_samples, conditioned_on)
+    n, h, w, c = conditioned_on.shape
+    if pixel_snail_sample_route(model, n) == INCREMENTAL_ROUTE:
+        return pixel_snail_sample_fast(model, conditioned_on=conditioned_on,
+                                       generator=generator, uniforms=uniforms)
+    uniforms = model._get_uniforms((h * w, n, c), generator, uniforms)
+    out = snail_decode_cuda.fused_snail_sample_loop(
+        *snail_loop_inputs(model, conditioned_on.float(), uniforms))
+    return canvas_to_images(out, h, w)

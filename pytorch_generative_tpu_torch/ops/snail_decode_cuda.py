@@ -1,0 +1,246 @@
+"""The PixelSNAIL whole-loop sampler kernel ``csrc/snail_loop.cu``, its plain
+PyTorch version and its launch count (counterpart of
+``pytorch_generative_tpu/ops/snail_decode_pallas.py``).
+
+Layouts follow the JAX package: the canvas is the zero-padded image flattened
+to (position, batch), ``(Hp*Wp, N)``, with raw values (markers < 0 are
+sampled, pixels >= 0 kept); ``uniforms`` are ``(H*W, N, 1)``. A CUDA tensor
+launches the kernel, or the wrapper raises; a CPU tensor takes the plain
+version.
+
+Per raster position i and sample, both compute: the live taps of the masked
+3x3 type-A input conv; per block, per residual block elu(res) into the elu
+cache at i, mid = elu(2x2 conv of the elu cache) into the mid cache, out =
+2x2 conv of the mid cache and res += out[:, :C] * sigmoid(out[:, C:]); q
+from [pos, res]; attention over the cached keys < i (none at i = 0: the
+output is out_proj's bias); the elu-conv-elu branches and the block skip;
+then the head of two 1x1 convs, the draw ``u < sigmoid(logit)``, the
+inpainting merge and, per block, kv_proj of [pos, res, merged pixel]
+appended to the K/V cache at i: k/v read the merged pixel, so they are
+appended only after it is drawn.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from pytorch_generative_tpu_torch.ops import _build
+
+KERNEL = "snail_loop"
+WEIGHT_ORDER = ("in_w4", "in_b", "rb1_w", "rb1_b", "rb2_w", "rb2_b", "q_w", "q_b",
+                "kv_w", "kv_b", "op_w", "op_b", "ro_w", "ro_b", "ao_w", "ao_b",
+                "o_w", "o_b", "h1_w", "h1_b", "h2_w", "h2_b")
+
+# Kernel launches since the last reset; only _snail_loop_cuda adds to it.
+launches = 0
+
+
+def stack_pixel_snail_weights(model):
+    """A PixelSNAIL's parameters, stacked per block, in the kernel's layout.
+
+    ``in_w4`` (4 * Cin, C): the live taps of the masked 3x3 type-A input
+    conv at (-1, -1), (-1, 0), (-1, +1), (0, -1), each (Cin, C). Per block
+    and residual block: ``rb1_w`` (4C, C) and ``rb2_w`` (4C, 2C), the 2x2
+    conv taps (0, 0), (0, 1), (1, 0), (1, 1) stacked over the input
+    channels. Per block: ``q_w`` (C + 2, d_k), ``kv_w`` (C + 2 + Cin,
+    d_k + d_v), ``op_w`` (d_v, d_v), ``ro_w`` (C, C), ``ao_w`` (d_v, C),
+    ``o_w`` (C, C). The head: ``h1_w`` (C, C // 2), ``h2_w`` (C // 2, Cout).
+    """
+    blocks = model.pixel_snail_blocks
+    wm = model.input_conv.weight * model.input_conv.mask      # (C, Cin, 3, 3)
+    c = wm.shape[0]
+    stack = lambda get: torch.stack([get(blk) for blk in blocks])
+    # OIHW (Co, Ci, 2, 2) -> (2, 2, Ci, Co) -> (4 Ci, Co).
+    taps = lambda conv: conv.weight.permute(2, 3, 1, 0).reshape(-1, conv.weight.shape[0])
+
+    def per_rb(get, shape):
+        if not blocks[0].residual_blocks:
+            return wm.new_zeros((len(blocks), 0, *shape))
+        return stack(lambda blk: torch.stack([get(rb) for rb in blk.residual_blocks]))
+
+    weights = {
+        "in_w4": torch.cat([wm[:, :, 0, 0].T, wm[:, :, 0, 1].T, wm[:, :, 0, 2].T,
+                            wm[:, :, 1, 0].T]),
+        "in_b": model.input_conv.bias,
+        "rb1_w": per_rb(lambda rb: taps(rb.input_conv), (4 * c, c)),
+        "rb1_b": per_rb(lambda rb: rb.input_conv.bias, (c,)),
+        "rb2_w": per_rb(lambda rb: taps(rb.output_conv), (4 * c, 2 * c)),
+        "rb2_b": per_rb(lambda rb: rb.output_conv.bias, (2 * c,)),
+        "q_w": stack(lambda b: b.attention.q_proj.weight),
+        "q_b": stack(lambda b: b.attention.q_proj.bias),
+        "kv_w": stack(lambda b: b.attention.kv_proj.weight),
+        "kv_b": stack(lambda b: b.attention.kv_proj.bias),
+        "op_w": stack(lambda b: b.attention.out_proj.weight),
+        "op_b": stack(lambda b: b.attention.out_proj.bias),
+        "ro_w": stack(lambda b: b.residual_out.weight),
+        "ro_b": stack(lambda b: b.residual_out.bias),
+        "ao_w": stack(lambda b: b.attention_out.weight),
+        "ao_b": stack(lambda b: b.attention_out.bias),
+        "o_w": stack(lambda b: b.out.weight),
+        "o_b": stack(lambda b: b.out.bias),
+        "h1_w": model.output_conv1.weight,
+        "h1_b": model.output_conv1.bias,
+        "h2_w": model.output_conv2.weight,
+        "h2_b": model.output_conv2.bias,
+    }
+    return {k: v.detach().float().contiguous() for k, v in weights.items()}
+
+
+def _dims(weights):
+    """(n_blocks, n_rb, C, C2, d_k, d_v, Cin, Cout) of stacked weights."""
+    n_blocks, n_rb, _, c = weights["rb1_w"].shape
+    d_k, d_v = weights["q_w"].shape[2], weights["op_w"].shape[1]
+    c2, c_out = weights["h2_w"].shape
+    return n_blocks, n_rb, c, c2, d_k, d_v, weights["in_w4"].shape[0] // 4, c_out
+
+
+def _weight_shapes(weights):
+    """The stacked weights' shapes, as the kernel takes them (Cin = Cout = 1)."""
+    nb, nr, c, c2, d_k, d_v, _, _ = _dims(weights)
+    return {
+        "in_w4": (4, c), "in_b": (c,),
+        "rb1_w": (nb, nr, 4 * c, c), "rb1_b": (nb, nr, c),
+        "rb2_w": (nb, nr, 4 * c, 2 * c), "rb2_b": (nb, nr, 2 * c),
+        "q_w": (nb, c + 2, d_k), "q_b": (nb, d_k),
+        "kv_w": (nb, c + 3, d_k + d_v), "kv_b": (nb, d_k + d_v),
+        "op_w": (nb, d_v, d_v), "op_b": (nb, d_v),
+        "ro_w": (nb, c, c), "ro_b": (nb, c),
+        "ao_w": (nb, d_v, c), "ao_b": (nb, c),
+        "o_w": (nb, c, c), "o_b": (nb, c),
+        "h1_w": (c, c2), "h1_b": (c2,), "h2_w": (c2, 1), "h2_b": (1,),
+    }
+
+
+def snail_decode(canvas, uniforms, weights, h, w, sample_fn):
+    """KV-cache decoding of a PixelSNAIL, one raster position at a time over
+    the whole batch (the JAX package's ``pixel_snail_sample_fast``).
+
+    Args:
+        canvas: (N, H + 2, W + 2, Cin) zero-padded images; entries < 0 are
+            sampled, entries >= 0 kept. Updated in place.
+        uniforms: (H*W, N, Cin) draws for ``sample_fn``.
+        weights: ``stack_pixel_snail_weights(model)``.
+        sample_fn: ``(u (N, Cin), logits (N, Cout)) -> (N, Cin)`` samples.
+    Returns:
+        ``canvas``, with every sampled entry drawn.
+    """
+    n, cin = canvas.shape[0], canvas.shape[-1]
+    wt = weights
+    nb, nr, c, _, d_k, d_v, _, _ = _dims(wt)
+    seq_len = h * w
+    # Per (block, residual block): elu(res) and mid as (h + 1, w + 1) maps
+    # whose entry (r + 1, c + 1) holds position (r, c); row 0 and column 0
+    # are the 2x2 convs' zero padding.
+    elu_c = canvas.new_zeros((nb, nr, n, h + 1, w + 1, c))
+    mid_c = torch.zeros_like(elu_c)
+    k_cache = canvas.new_zeros((nb, n, seq_len, d_k))
+    v_cache = canvas.new_zeros((nb, n, seq_len, d_v))
+    hw = torch.tensor([h, w], dtype=torch.float32, device=canvas.device)
+    for i in range(seq_len):
+        row, col = divmod(i, w)
+        pos = (torch.tensor([row, col], dtype=torch.float32, device=canvas.device)
+               / hw - 0.5).expand(n, 2)
+        patch = torch.cat([canvas[:, row, col], canvas[:, row, col + 1],
+                           canvas[:, row, col + 2], canvas[:, row + 1, col]], dim=-1)
+        x = patch @ wt["in_w4"] + wt["in_b"]
+        q_ins = []
+        for b in range(nb):
+            res = x
+            for j in range(nr):
+                elu_c[b, j, :, row + 1, col + 1] = F.elu(res)
+                taps = elu_c[b, j, :, row:row + 2, col:col + 2].reshape(n, 4 * c)
+                mid = F.elu(taps @ wt["rb1_w"][b, j] + wt["rb1_b"][b, j])
+                mid_c[b, j, :, row + 1, col + 1] = mid
+                taps = mid_c[b, j, :, row:row + 2, col:col + 2].reshape(n, 4 * c)
+                out = taps @ wt["rb2_w"][b, j] + wt["rb2_b"][b, j]
+                res = res + out[:, :c] * torch.sigmoid(out[:, c:])
+            q_in = torch.cat([pos, res], dim=-1)
+            q_ins.append(q_in)
+            att = canvas.new_zeros((n, d_v))
+            if i > 0:  # mask_center: position i attends to positions < i
+                q = (q_in @ wt["q_w"][b] + wt["q_b"][b]) / d_k ** 0.5
+                probs = torch.softmax(torch.einsum("nd,nld->nl", q, k_cache[b, :, :i]), -1)
+                att = torch.einsum("nl,nld->nd", probs, v_cache[b, :, :i])
+            att = att @ wt["op_w"][b] + wt["op_b"][b]
+            res2 = F.elu(F.elu(res) @ wt["ro_w"][b] + wt["ro_b"][b])
+            att2 = F.elu(F.elu(att) @ wt["ao_w"][b] + wt["ao_b"][b])
+            x = x + F.elu(F.elu(res2 + att2) @ wt["o_w"][b] + wt["o_b"][b])
+        logits = (x @ wt["h1_w"] + wt["h1_b"]) @ wt["h2_w"] + wt["h2_b"]
+        sampled = sample_fn(uniforms[i], logits).reshape(n, cin).to(canvas.dtype)
+        current = canvas[:, row + 1, col + 1]
+        merged = torch.where(current < 0, sampled, current)
+        canvas[:, row + 1, col + 1] = merged
+        for b, q_in in enumerate(q_ins):
+            kv = torch.cat([q_in, merged], dim=-1) @ wt["kv_w"][b] + wt["kv_b"][b]
+            k_cache[b, :, i], v_cache[b, :, i] = kv[:, :d_k], kv[:, d_k:]
+    return canvas
+
+
+def _draw(u, logits):
+    """The kernel's draw: ``u < sigmoid(logit)`` as exact 0.0 or 1.0."""
+    return (u < torch.sigmoid(logits)).to(logits.dtype)
+
+
+def snail_sample_loop_plain(canvas0, uniforms, weights, h, w):
+    """The kernel's plain version: ``snail_decode`` of a 1-channel model on
+    the (Hp*Wp, N) canvas with the (H*W, N, 1) uniforms."""
+    n = canvas0.shape[1]
+    canvas = canvas0.T.reshape(n, h + 2, w + 2, 1).clone()
+    out = snail_decode(canvas, uniforms, weights, h, w, _draw)
+    return out.reshape(n, -1).T.contiguous()
+
+
+def _lib():
+    lib = _build.load(KERNEL)
+    _build.declare(lib.snail_loop_scratch_floats, [ctypes.c_int] * 7, ctypes.c_longlong)
+    _build.declare(lib.snail_loop_f32,
+                   [ctypes.c_void_p] * 4 + [ctypes.c_void_p] * len(WEIGHT_ORDER)
+                   + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    return lib
+
+
+def _snail_loop_cuda(canvas0, uniforms, weights, h, w):
+    global launches
+    lp, n = canvas0.shape
+    nb, nr, c, c2, d_k, d_v, c_in, c_out = _dims(weights)
+    if (c_in, c_out) != (1, 1):
+        raise ValueError(f"{KERNEL} samples 1-channel images, got {c_in} in, "
+                         f"{c_out} out")
+    expected = _weight_shapes(weights)
+    expected.update(canvas0=((h + 2) * (w + 2), n), uniforms=(h * w, n, 1))
+    operands = dict(weights, canvas0=canvas0, uniforms=uniforms)
+    dev = canvas0.device
+    for k in ("canvas0", "uniforms", *WEIGHT_ORDER):
+        _build.check_tensor(k, operands[k], expected[k], dev, KERNEL)
+    lib = _lib()
+    canvas = torch.empty_like(canvas0)
+    scratch = torch.empty(n * lib.snail_loop_scratch_floats(h, w, nb, nr, c, d_k, d_v),
+                          device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.snail_loop_f32(
+            canvas0.data_ptr(), uniforms.data_ptr(), canvas.data_ptr(), scratch.data_ptr(),
+            *[weights[k].data_ptr() for k in WEIGHT_ORDER],
+            n, h, w, nb, nr, c, c2, d_k, d_v, stream)
+    _build.check(err, "snail_loop_f32")
+    launches += 1
+    return canvas
+
+
+def fused_snail_sample_loop(canvas0, uniforms, weights, h, w):
+    """Runs the whole PixelSNAIL raster scan of a 1-channel model.
+
+    Args:
+        canvas0: (Hp*Wp, N) float32, the zero-padded raw canvas in (position,
+            batch) layout; values < 0 are sampled, pixels >= 0 kept.
+        uniforms: (H*W, N, 1) float32 per-position uniform draws.
+        weights: ``stack_pixel_snail_weights(model)``.
+        h, w: the image size.
+    Returns:
+        (Hp*Wp, N) float32 final canvas; sampled pixels are exact 0.0 or 1.0.
+    """
+    return _build.dispatch(_snail_loop_cuda, snail_sample_loop_plain, canvas0, uniforms,
+                           weights, h, w)

@@ -16,7 +16,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from pytorch_generative_tpu_torch import optim, trainer  # noqa: E402
-from pytorch_generative_tpu_torch.models import ImageGPT  # noqa: E402
+from pytorch_generative_tpu_torch.models import ImageGPT, PixelSNAIL  # noqa: E402
 from pytorch_generative_tpu_torch.models.autoregressive import image_gpt  # noqa: E402
 from pytorch_generative_tpu_torch.ops import (  # noqa: E402
     attention_cuda,
@@ -24,6 +24,7 @@ from pytorch_generative_tpu_torch.ops import (  # noqa: E402
     ln_cuda,
     mlp_cuda,
     sampling,
+    snail_decode_cuda,
 )
 from pytorch_generative_tpu_torch.ops.attention import causal_attention_with_lse  # noqa: E402
 
@@ -43,16 +44,22 @@ def _rand(shape, seed, dev):
     return torch.randn(shape, generator=torch.Generator().manual_seed(seed)).to(dev)
 
 
+# Every (d_k, d_v) instance of the flash kernels: ImageGPT's d_k == d_v and
+# PixelSNAIL's d_k != d_v.
+PAIRS = [pytest.param(dk, dv, id=f"{dk}-{dv}") for dk, dv in attention_cuda.HEAD_DIM_PAIRS]
+
+
 @pytest.mark.parametrize("mask_center", [False, True])
 @pytest.mark.parametrize("l", [64, 200, 784])
-@pytest.mark.parametrize("d", list(attention_cuda.HEAD_DIMS))
-def test_flash_kernel_matches_plain(dev, mask_center, l, d):
+@pytest.mark.parametrize("d_k,d_v", PAIRS)
+def test_flash_kernel_matches_plain(dev, mask_center, l, d_k, d_v):
     """out and lse within 5e-5 of the dense version (f32, another summation
     order); k/v as feature slices of one packed kv tensor."""
     n_heads = 2
-    q = _rand((3, l, n_heads * d), l + d, dev)
-    kv = _rand((3, l, 2 * n_heads * d), l + d + 1, dev)
-    k, v = kv[..., : n_heads * d], kv[..., n_heads * d:]
+    ck = n_heads * d_k
+    q = _rand((3, l, ck), l + d_k + d_v, dev)
+    kv = _rand((3, l, ck + n_heads * d_v), l + d_k + d_v + 1, dev)
+    k, v = kv[..., :ck], kv[..., ck:]
     before = attention_cuda.launches
     out, lse = attention_cuda.flash_forward(q, k, v, mask_center, n_heads)
     torch.cuda.synchronize()
@@ -69,8 +76,12 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(dev):
     q = _rand((2, 64, 64), 0, dev)
     with pytest.raises(TypeError):
         attention_cuda.flash_forward(q.double(), q.double(), q.double(), False, 2)
-    with pytest.raises(ValueError):
-        attention_cuda.flash_forward(q, q, q, False, 8)  # head dim 8
+    with pytest.raises(ValueError, match="not one of"):
+        attention_cuda.flash_forward(q, q, q, False, 8)  # (8, 8) has no instance
+    with pytest.raises(ValueError, match="k width"):
+        attention_cuda.flash_forward(q, q[..., :32], q, False, 2)
+    with pytest.raises(ValueError, match="not one of"):
+        attention_cuda.flash_forward(q, q, q[..., :16], False, 2)  # (32, 8)
     with pytest.raises(ValueError):
         attention_cuda.flash_forward(q, q.cpu(), q, False, 2)
     with pytest.raises(ValueError):
@@ -266,15 +277,16 @@ BWD_TOL = 1e-4
 
 @pytest.mark.parametrize("mask_center", [False, True])
 @pytest.mark.parametrize("l", [64, 200, 784])
-@pytest.mark.parametrize("d", list(attention_cuda.HEAD_DIMS))
-def test_flash_backward_kernel_matches_plain(dev, mask_center, l, d):
+@pytest.mark.parametrize("d_k,d_v", PAIRS)
+def test_flash_backward_kernel_matches_plain(dev, mask_center, l, d_k, d_v):
     """dq, dk, dv within BWD_TOL of the plain backward on the same saved out
     and lse; row 0 under mask_center gets an exactly-zero dq."""
     n_heads = 2
-    q = _rand((3, l, n_heads * d), l + d, dev)
-    kv = _rand((3, l, 2 * n_heads * d), l + d + 1, dev)
-    k, v = kv[..., : n_heads * d], kv[..., n_heads * d:]
-    dout = _rand((3, l, n_heads * d), l + d + 2, dev)
+    ck = n_heads * d_k
+    q = _rand((3, l, ck), l + d_k + d_v, dev)
+    kv = _rand((3, l, ck + n_heads * d_v), l + d_k + d_v + 1, dev)
+    k, v = kv[..., :ck], kv[..., ck:]
+    dout = _rand((3, l, n_heads * d_v), l + d_k + d_v + 2, dev)
     out, lse = attention_cuda.flash_forward(q, k, v, mask_center, n_heads)
     before = attention_cuda.bwd_launches
     got = attention_cuda.flash_backward(q, k, v, out, lse, dout, mask_center, n_heads)
@@ -435,3 +447,89 @@ def test_large_config_train_step_runs_every_training_kernel(dev, tmp_path):
     assert (ln_cuda.launches, ln_cuda.bwd_launches) == (9, 9)
     assert (mlp_cuda.launches, mlp_cuda.bwd_launches) == (8, 8)
     assert (attention_cuda.launches, attention_cuda.bwd_launches) == (8, 8)
+
+
+# PixelSNAIL: the whole-loop sampler kernel and the model on the card.
+SNAIL_TINY = dict(n_channels=16, n_pixel_snail_blocks=2, n_residual_blocks=2,
+                  attention_key_channels=4, attention_value_channels=8, in_shape=(8, 8, 1))
+
+
+def _snail(dev, seed=0):
+    return PixelSNAIL(**SNAIL_TINY, generator=torch.Generator().manual_seed(seed),
+                      device=dev).eval()
+
+
+@pytest.mark.parametrize("inpaint", [False, True])
+def test_snail_loop_kernel_matches_plain(dev, inpaint):
+    """Pixel-equal to the plain KV-cache decoder (8x8, C 16, 2 blocks, d_k
+    4, d_v 8, n 4), on uniforms moved 2e-3 off the decision boundary of the
+    plain sample's teacher-forced logits; one launch."""
+    model = _snail(dev)
+    n, h, w = 4, 8, 8
+    cond = -torch.ones((n, h, w, 1), device=dev)
+    if inpaint:
+        cond[:, :4] = (_rand((n, 4, w, 1), 3, dev) > 0).float()
+    u = torch.rand((h * w, n, 1), generator=torch.Generator().manual_seed(4)).to(dev)
+    plain = snail_decode_cuda.snail_sample_loop_plain(*sampling.snail_loop_inputs(model, cond, u))
+    with torch.no_grad():
+        p = torch.sigmoid(model(sampling.canvas_to_images(plain, h, w))).reshape(n, -1).T[..., None]
+    d = u - p
+    u = torch.where(d.abs() < 1e-3, (p + 2e-3 * torch.where(d >= 0, 1.0, -1.0)).clamp(0, 1), u)
+    inputs = sampling.snail_loop_inputs(model, cond, u)
+    plain = snail_decode_cuda.snail_sample_loop_plain(*inputs)
+    before = snail_decode_cuda.launches
+    kern = snail_decode_cuda.fused_snail_sample_loop(*inputs)
+    torch.cuda.synchronize()
+    assert snail_decode_cuda.launches == before + 1
+    torch.testing.assert_close(kern, plain, rtol=0, atol=0)
+    if inpaint:
+        assert bool((sampling.canvas_to_images(kern, h, w)[:, :4] == cond[:, :4]).all())
+
+
+def test_pixel_snail_on_cuda_runs_the_kernels(dev):
+    """forward launches the flash forward once per block and agrees with the
+    plain CPU forward within 1e-4; a backward launches the flash backward
+    once per block; sample launches snail_loop once at any n, and a custom
+    sample_fn takes the incremental sampler (no launch)."""
+    model = _snail(dev, seed=1)
+    cpu = PixelSNAIL(**SNAIL_TINY, device="cpu").eval()
+    cpu.load_state_dict({k: t.cpu() for k, t in model.state_dict().items()})
+    x = (torch.rand((3, 8, 8, 1), generator=torch.Generator().manual_seed(2)) < 0.3).float()
+    attention_cuda.launches = attention_cuda.bwd_launches = 0
+    with torch.no_grad():
+        got = model(x.to(dev))
+        want = cpu(x)
+    torch.cuda.synchronize()
+    assert attention_cuda.launches == 2
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+    loss = image_gpt.reproduce_loss(x.to(dev), None, model(x.to(dev)))
+    loss.backward()
+    torch.cuda.synchronize()
+    assert attention_cuda.bwd_launches == 2
+    snail_decode_cuda.launches = 0
+    for n in (1, 5):
+        s = model.sample(n_samples=n, generator=torch.Generator().manual_seed(n))
+        assert s.shape == (n, 8, 8, 1) and set(s.unique().tolist()) <= {0.0, 1.0}
+    torch.cuda.synchronize()
+    assert snail_decode_cuda.launches == 2
+    model.sample_fn = lambda uu, logits: (uu < torch.sigmoid(logits)).float()
+    s = model.sample(n_samples=2, generator=torch.Generator().manual_seed(3))
+    torch.cuda.synchronize()
+    assert snail_decode_cuda.launches == 2
+    assert s.shape == (2, 8, 8, 1) and set(s.unique().tolist()) <= {0.0, 1.0}
+
+
+def test_snail_loop_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    model = _snail(dev)
+    cond = -torch.ones((2, 8, 8, 1), device=dev)
+    u = torch.rand((64, 2, 1), device=dev)
+    canvas0, u, weights, h, w = sampling.snail_loop_inputs(model, cond, u)
+    run = snail_decode_cuda.fused_snail_sample_loop
+    with pytest.raises(ValueError):
+        run(canvas0, u[:10], weights, h, w)
+    with pytest.raises(TypeError):
+        run(canvas0, u.double(), weights, h, w)
+    with pytest.raises(ValueError):
+        run(canvas0, u, dict(weights, q_w=weights["q_w"].cpu()), h, w)
+    with pytest.raises(ValueError):
+        run(canvas0.T.contiguous().T, u, weights, h, w)
