@@ -99,6 +99,26 @@ TIMED_POSITION = 391
 # Uniforms within this distance of the plain route's own probability are
 # moved twice as far away before two sampler routes are compared.
 NUDGE = 1e-3
+# The wide instances, widths the JAX package runs: bench.py's C = 512
+# ImageGPT with 4 heads has d = 128; ImageGPT routes every
+# C % 128 == 0 to the fused LayerNorm and MLP kernels, so C = 640 and 1024
+# are checked too (R = 8192 and a ragged R; times at C = 1024, R = 50,176).
+WIDE_HEADS = 4
+WIDE_C = (640, 1024)
+WIDE_ROWS = 8192
+# VQ-VAE reproduce(): batch 128, 8 x 8 latents a image, so M = 8192 rows
+# against a 512 x 64 codebook; bench.py draws its batch as
+# np.random.default_rng(1).random((128, 32, 32, 3)).
+VQ_BATCH = 128
+VQ_TRAIN_STEPS = 3
+# Rows whose top-two scores (2 x.e - |e|^2, f32 sums over D = 64 terms in
+# another order on each side) are closer than this share of the largest
+# |score| may take either code; they are counted, and only they may differ.
+VQ_NEAR_TIE = 1e-5
+# The VQ kernel's sums against the plain version's one_hot.T @ x, as a share
+# of the largest |sum|: row-order f32 sums of up to 8192 rows against a
+# matrix product.
+VQ_SUMS_RTOL = 1e-5
 # Bounds: NVIDIA's H100 SXM data sheet, at its 700 W limit.
 F32_FLOPS = 67e12   # f32 on the CUDA cores, FMA = 2 operations
 HBM_BYTES = 3.35e12  # HBM3 bytes/s
@@ -133,6 +153,23 @@ def time_ms(fn, iters, warmup=1):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def ptxas_summary(log):
+    """'function: registers, spills' for each entry function in an nvcc
+    -Xptxas -v log (names demangled only as far as their template
+    arguments)."""
+    out, name = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name, spills = ln.split("'")[1], "spills not reported"
+        elif "spill stores" in ln and name:
+            spills = ln.split("bytes stack frame,")[-1].strip()
+        elif "Used" in ln and "registers" in ln and name:
+            regs = ln.split("Used")[1].split("registers")[0].strip()
+            out.append(f"{name}: {regs} registers, {spills}")
+            name = None
+    return " | ".join(out)
 
 
 def bound(flops, nbytes):
@@ -305,6 +342,169 @@ def mlp_work(r, c, f):
     return fwd, bwd
 
 
+def vq_work(m, k, d):
+    """(FLOPs, bytes) of the fused VQ: the scores 2 M K D (the argmax and
+    the statistics' adds are not counted); x read, quantized written, the
+    codebook read, counts and sums written."""
+    return 2 * m * k * d, 4 * (2 * m * d + 2 * k * d + k)
+
+
+def vq_composition(x, cb):
+    """The unfused route as PyTorch calls, the VQ kernel's yardstick: addmm
+    scores, argmax, index_select, bincount and index_add_."""
+    scores = torch.addmm((cb * cb).sum(1), x, cb.T, beta=-1.0, alpha=2.0)
+    idx = scores.argmax(1)
+    counts = torch.bincount(idx, minlength=cb.shape[0]).float()
+    return cb.index_select(0, idx), counts, torch.zeros_like(cb).index_add_(0, idx, x)
+
+
+def vq_against_plain(x, cb):
+    """The VQ kernel against its plain version on (x, cb): (rows whose code
+    differs, near-tie rows, max |quantized error| where the codes agree,
+    counts equal, sums error, max |sum|). Fails unless every differing row
+    is a near-tie holding one of its two best codes exactly, counts sum to
+    M and, where no row differs, counts are exact and sums within
+    VQ_SUMS_RTOL."""
+    from pytorch_generative_tpu_torch.ops import vq_cuda
+
+    q, counts, sums = vq_cuda.vq_quantize_fused(x, cb)
+    pq, pcounts, psums = vq_cuda.vq_quantize_plain(x, cb)
+    torch.cuda.synchronize()
+    scores = 2.0 * (x.double() @ cb.double().T) - (cb.double() ** 2).sum(1)
+    top2 = scores.topk(2, dim=1)
+    near = (top2.values[:, 0] - top2.values[:, 1]) <= VQ_NEAR_TIE * float(scores.abs().max())
+    differ = (q != pq).any(dim=1)
+    best = [cb[top2.indices[differ, j]] for j in (0, 1)]
+    check(not bool((differ & ~near).any()), "the VQ kernel picks another code on a clear row")
+    check(bool(((q[differ] == best[0]).all(1) | (q[differ] == best[1]).all(1)).all()),
+          "a near-tie row holds neither of its two best codes")
+    check(float(counts.sum()) == x.shape[0], f"VQ counts sum to {float(counts.sum())}")
+    q_err = float((q[~differ] - pq[~differ]).abs().max()) if bool((~differ).any()) else 0.0
+    s_err, s_max = rel_err(sums, psums)
+    n_differ = int(differ.sum())
+    counts_equal = bool(torch.equal(counts, pcounts))
+    if not n_differ:
+        check(q_err == 0.0 and counts_equal, "VQ quantized rows or counts disagree")
+        check(s_err <= VQ_SUMS_RTOL * s_max, "VQ sums disagree")
+    return n_differ, int(near.sum()), q_err, counts_equal, s_err, s_max
+
+
+def fused_checks(rows, c, gen, dev):
+    """The LayerNorm and MLP kernels (F = 4C) against their plain versions at
+    each R of ``rows``, the MLP backward from the forward's own saved y;
+    every output within LN_RTOL or MLP_RTOL of its largest magnitude.
+    Returns the largest errors of (ln_fwd, ln_bwd, mlp_fwd, mlp_bwd)."""
+    from pytorch_generative_tpu_torch.ops import ln_cuda, mlp_cuda
+
+    f = 4 * c
+    ln_err = ln_bwd_err = mlp_err = mlp_bwd_err = 0.0
+    for r in rows:
+        xr = (2.0 * torch.randn((r, c), generator=gen) + 0.5).to(dev)
+        gamma = (1.0 + 0.1 * torch.randn((c,), generator=gen)).to(dev)
+        beta = (0.1 * torch.randn((c,), generator=gen)).to(dev)
+        dyr = torch.randn((r, c), generator=gen).to(dev)
+        w1 = (torch.randn((c, f), generator=gen) / c ** 0.5).to(dev)
+        b1 = (0.1 * torch.randn((f,), generator=gen)).to(dev)
+        w2 = (torch.randn((f, c), generator=gen) / f ** 0.5).to(dev)
+        b2 = (0.1 * torch.randn((c,), generator=gen)).to(dev)
+        errs = {}
+        errs["ln y"] = rel_err(ln_cuda.ln_forward(xr, gamma, beta, 1e-5),
+                               ln_cuda.layernorm_forward_plain(xr, gamma, beta, 1e-5))
+        for name, g_, w_ in zip(("ln dx", "ln dgamma", "ln dbeta"),
+                                ln_cuda.ln_backward(xr, dyr, gamma, 1e-5),
+                                ln_cuda.layernorm_backward_plain(xr, dyr, gamma, 1e-5)):
+            errs[name] = rel_err(g_, w_)
+        out_k, y_k = mlp_cuda.ln_mlp_forward(xr, gamma, beta, w1, b1, w2, b2, 1e-5)
+        out_p, y_p = mlp_cuda.ln_mlp_forward_plain(xr, gamma, beta, w1, b1, w2, b2, 1e-5)
+        errs["mlp out"], errs["mlp y"] = rel_err(out_k, out_p), rel_err(y_k, y_p)
+        del out_p, y_p
+        for name, g_, w_ in zip(
+                ("mlp dx", "mlp dgamma", "mlp dbeta", "mlp dw1", "mlp db1", "mlp dw2", "mlp db2"),
+                mlp_cuda.ln_mlp_backward(xr, dyr, y_k, gamma, beta, w1, b1, w2, 1e-5),
+                mlp_cuda.ln_mlp_backward_plain(xr, dyr, y_k, gamma, beta, w1, b1, w2, 1e-5)):
+            errs[name] = rel_err(g_, w_)
+        torch.cuda.synchronize()
+        print(f"phase fused kernels: R={r} C={c} F={f} max_abs_err (max |plain|): " + ", ".join(
+            f"{k}={e:.3e} ({m:.3e})" for k, (e, m) in errs.items())
+            + f" (tol LayerNorm {LN_RTOL}, MLP {MLP_RTOL} x max |plain|)", flush=True)
+        for k, (e, m) in errs.items():
+            check(e <= (LN_RTOL if k.startswith("ln") else MLP_RTOL) * m,
+                  f"{k} kernel disagrees at C = {c}")
+        ln_err = max(ln_err, errs["ln y"][0])
+        ln_bwd_err = max(ln_bwd_err, *(errs[k][0] for k in ("ln dx", "ln dgamma", "ln dbeta")))
+        mlp_err = max(mlp_err, errs["mlp out"][0], errs["mlp y"][0])
+        mlp_bwd_err = max(mlp_bwd_err, *(e for k, (e, _) in errs.items()
+                                         if k.startswith("mlp d")))
+        del out_k, y_k
+    return ln_err, ln_bwd_err, mlp_err, mlp_bwd_err
+
+
+def fused_times_at(r, c, gen, dev, smi):
+    """CUDA-event ms of the LayerNorm and MLP kernels (F = 4C) at (R, C)
+    beside their plain versions, their bounds and a library yardstick the
+    port never calls (F.layer_norm; for the MLP the composition F.layer_norm
+    -> addmm -> F.gelu -> addmm -> + x, since no one PyTorch call computes
+    it), each backward as autograd.grad through the yardstick. Returns
+    ({kernel: {plain, kernel, library, kernel2}}, {kernel: bound})."""
+    from pytorch_generative_tpu_torch.ops import ln_cuda, mlp_cuda
+
+    f = 4 * c
+    xr = torch.randn((r, c), generator=gen).to(dev).requires_grad_()
+    gamma = (1.0 + 0.1 * torch.randn((c,), generator=gen)).to(dev).requires_grad_()
+    beta = (0.1 * torch.randn((c,), generator=gen)).to(dev).requires_grad_()
+    w1 = (torch.randn((c, f), generator=gen) / c ** 0.5).to(dev).requires_grad_()
+    b1 = (0.1 * torch.randn((f,), generator=gen)).to(dev).requires_grad_()
+    w2 = (torch.randn((f, c), generator=gen) / f ** 0.5).to(dev).requires_grad_()
+    b2 = (0.1 * torch.randn((c,), generator=gen)).to(dev).requires_grad_()
+    dyr = torch.randn((r, c), generator=gen).to(dev)
+    xd, gd, bd, w1d, b1d, w2d, b2d = (t.detach() for t in (xr, gamma, beta, w1, b1, w2, b2))
+    _, y_k = mlp_cuda.ln_mlp_forward(xd, gd, bd, w1d, b1d, w2d, b2d, 1e-5)
+    ln_lib_out = F.layer_norm(xr, (c,), gamma, beta, 1e-5)
+    mlp_lib_out = torch.addmm(b2, F.gelu(torch.addmm(b1, F.layer_norm(
+        xr, (c,), gamma, beta, 1e-5), w1)), w2) + xr
+
+    def mlp_lib():
+        with torch.no_grad():
+            return torch.addmm(b2d, F.gelu(torch.addmm(b1d, F.layer_norm(
+                xd, (c,), gd, bd, 1e-5), w1d)), w2d) + xd
+
+    def ln_lib():
+        with torch.no_grad():
+            return F.layer_norm(xd, (c,), gd, bd, 1e-5)
+
+    fused_fns = {
+        "ln_fwd": (lambda: ln_cuda.ln_forward(xd, gd, bd, 1e-5),
+                   lambda: ln_cuda.layernorm_forward_plain(xd, gd, bd, 1e-5), ln_lib, 20),
+        "ln_bwd": (lambda: ln_cuda.ln_backward(xd, dyr, gd, 1e-5),
+                   lambda: ln_cuda.layernorm_backward_plain(xd, dyr, gd, 1e-5),
+                   lambda: torch.autograd.grad(ln_lib_out, (xr, gamma, beta), dyr,
+                                               retain_graph=True), 20),
+        "mlp_fwd": (lambda: mlp_cuda.ln_mlp_forward(xd, gd, bd, w1d, b1d, w2d, b2d, 1e-5),
+                    lambda: mlp_cuda.ln_mlp_forward_plain(xd, gd, bd, w1d, b1d, w2d, b2d,
+                                                          1e-5), mlp_lib, 5),
+        "mlp_bwd": (lambda: mlp_cuda.ln_mlp_backward(xd, dyr, y_k, gd, bd, w1d, b1d, w2d, 1e-5),
+                    lambda: mlp_cuda.ln_mlp_backward_plain(xd, dyr, y_k, gd, bd, w1d, b1d, w2d,
+                                                           1e-5),
+                    lambda: torch.autograd.grad(mlp_lib_out, (xr, gamma, beta, w1, b1, w2, b2),
+                                                dyr, retain_graph=True), 5),
+    }
+    times = {}
+    for name, (kern, plain, lib, iters) in fused_fns.items():
+        times[name] = {"plain": time_ms(plain, iters, 2), "kernel": time_ms(kern, iters, 2),
+                       "library": time_ms(lib, iters, 2), "kernel2": time_ms(kern, iters, 2)}
+    (ln_fwd_work, ln_bwd_work), (mlp_fwd_work, mlp_bwd_work) = ln_work(r, c), mlp_work(r, c, f)
+    bounds = {"ln_fwd": bound(*ln_fwd_work), "ln_bwd": bound(*ln_bwd_work),
+              "mlp_fwd": bound(*mlp_fwd_work), "mlp_bwd": bound(*mlp_bwd_work)}
+    lib_names = {"ln_fwd": "F.layer_norm", "ln_bwd": "autograd.grad through F.layer_norm",
+                 "mlp_fwd": "composition", "mlp_bwd": "autograd.grad through the composition"}
+    for name, t in times.items():
+        b_ms, b_by = bounds[name]
+        print(f"phase times C={c} [{smi}]: {name} (R={r}, C={c}, F={f}) kernel "
+              f"{t['kernel']:.4f}/{t['kernel2']:.4f} ms, plain {t['plain']:.4f} ms, "
+              f"{lib_names[name]} {t['library']:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+    return times, bounds
+
+
 def grads_vs_cpu(model, cpu_model, xg, label):
     """Gradients of the reproduce loss on the card's kernel path vs the CPU
     plain path of the same weights, per parameter group, within GRAD_RTOL
@@ -383,6 +583,22 @@ def flash_times(q, k, v, dout, n_heads, mask_center=False):
     return times
 
 
+def flash_times_line(label, smi, q, k, v, dout, n_heads):
+    """Times the flash kernels (flash_times) at q's causal shape and prints
+    them beside the plain versions, causal SDPA and the bounds."""
+    b, l, ck = q.shape
+    d = ck // n_heads
+    t = flash_times(q, k, v, dout, n_heads)
+    fwd = bound(flash_work(b, l, n_heads, d, d, False), flash_bytes(b, l, n_heads, d, d))
+    bwd = bound(flash_work(b, l, n_heads, d, d, False, backward=True),
+                flash_bytes(b, l, n_heads, d, d, backward=True))
+    print(f"phase times {label} [{smi}]: flash_fwd (B={b}, L={l}, H={n_heads}, d={d}) "
+          f"kernel {t['fwd']:.4f}/{t['fwd2']:.4f} ms, plain {t['fwd_plain']:.4f} ms, causal SDPA "
+          f"{t['fwd_lib']:.4f} ms, bound {fwd[0]:.4f} ms ({fwd[1]}); flash_bwd kernel "
+          f"{t['bwd']:.4f}/{t['bwd2']:.4f} ms, plain {t['bwd_plain']:.4f} ms, SDPA autograd.grad "
+          f"{t['bwd_lib']:.4f} ms, bound {bwd[0]:.4f} ms ({bwd[1]})", flush=True)
+
+
 def profile_steps(step, n_steps, step_ms, what, per_call, label, smi, focus, host=False):
     """torch.profiler over n_steps calls of ``step`` (``what``, of
     ``per_call`` = (count, unit) items): kernel time per call by kernel
@@ -428,6 +644,398 @@ def profile_steps(step, n_steps, step_ms, what, per_call, label, smi, focus, hos
               f"{sum(r[1] for r in ops) / n_steps:.3f} ms/call; top: " + ", ".join(
                   f"{key} {ms / n_steps:.3f} ms/{count // n_steps}" for key, ms, count in ops[:8]),
               flush=True)
+
+
+def wide_phases(dev, gen, smi, reset_counts, read_counts):
+    """The widths the JAX package runs beyond the first kernels' reach:
+    the flash kernels' d = 128 instance at bench.py's C = 512
+    4-head shape (B 64, L 784, H 4) against the plain version, with times;
+    the LayerNorm and MLP kernels at C = 640 and 1024 (R = 8192 and a
+    ragged R) against theirs, with times at C = 1024, R = 50,176; and
+    ImageGPT(**LARGE_CONFIG) with 4 heads through the entry points: a
+    forward at batch 64 against the CPU at batch 2 and one Trainer step.
+    Returns d, the largest errors and the launch counts."""
+    from pytorch_generative_tpu_torch import optim, trainer
+    from pytorch_generative_tpu_torch.models import ImageGPT
+    from pytorch_generative_tpu_torch.models.autoregressive import image_gpt
+    from pytorch_generative_tpu_torch.ops import attention_cuda, ln_cuda, mlp_cuda
+
+    cfg = dict(image_gpt.LARGE_CONFIG, n_attention_heads=WIDE_HEADS)
+    h, w, _ = cfg["in_shape"]
+    c, nb = cfg["n_embedding_channels"], cfg["n_transformer_blocks"]
+    d = c // WIDE_HEADS
+    l = h * w
+
+    # Phase W1: flash at d = 128, (B 64, L 784, H 4) and a ragged L with
+    # mask_center, k and v feature slices of one kv tensor.
+    flash_err = bwd_err = 0.0
+    for ll, mask_center in ((l, False), (200, True)):
+        q = torch.randn((BATCH, ll, c), generator=gen).to(dev)
+        kv = torch.randn((BATCH, ll, 2 * c), generator=gen).to(dev)
+        dout = torch.randn((BATCH, ll, c), generator=gen).to(dev)
+        k, v = kv[..., :c], kv[..., c:]
+        out, lse = attention_cuda.flash_forward(q, k, v, mask_center, WIDE_HEADS)
+        ref_out, ref_lse = attention_cuda.flash_forward_plain(q, k, v, mask_center, WIDE_HEADS)
+        e_out, e_lse = max_err(out, ref_out), max_err(lse, ref_lse)
+        del ref_out, ref_lse
+        grads = attention_cuda.flash_backward(q, k, v, out, lse, dout, mask_center, WIDE_HEADS)
+        e_grads = [max_err(g, r) for g, r in zip(grads, attention_cuda.flash_backward_plain(
+            q, k, v, out, lse, dout, mask_center, WIDE_HEADS))]
+        torch.cuda.synchronize()
+        flash_err, bwd_err = max(flash_err, e_out, e_lse), max(bwd_err, *e_grads)
+        print(f"phase flash d={d}: B={BATCH} L={ll} H={WIDE_HEADS} mask_center={mask_center} "
+              f"max_abs_err out={e_out:.3e} lse={e_lse:.3e} (tol {FLASH_TOL}); backward "
+              f"dq={e_grads[0]:.3e} dk={e_grads[1]:.3e} dv={e_grads[2]:.3e} (tol "
+              f"{FLASH_BWD_TOL})", flush=True)
+        check(e_out <= FLASH_TOL and e_lse <= FLASH_TOL, "flash forward disagrees at d = 128")
+        check(max(e_grads) <= FLASH_BWD_TOL, "flash backward disagrees at d = 128")
+        if mask_center:
+            check(bool((out[:, 0] == 0).all()) and bool(torch.isneginf(lse[:, :, 0]).all())
+                  and bool((grads[0][:, 0] == 0).all()),
+                  "row 0 under mask_center is not out 0, lse -inf, dq 0 at d = 128")
+        del kv, out, lse, grads
+    q = torch.randn((BATCH, l, c), generator=gen).to(dev)
+    kv = torch.randn((BATCH, l, 2 * c), generator=gen).to(dev)
+    dout = torch.randn((BATCH, l, c), generator=gen).to(dev)
+    flash_times_line(f"d={d}", smi, q, kv[..., :c], kv[..., c:], dout, WIDE_HEADS)
+    del q, kv, dout
+
+    # Phase W2: the LayerNorm and MLP kernels at C = 640 and 1024, on the
+    # CTA-per-row path, then their times at C = 1024, R = 50,176 (ImageGPT's
+    # rows at batch 64).
+    fused_errs = [0.0] * 4
+    for cw in WIDE_C:
+        fused_errs = [max(a, b) for a, b in zip(
+            fused_errs, fused_checks((WIDE_ROWS, WIDE_ROWS - 7), cw, gen, dev))]
+    fused_times_at(BATCH * l, WIDE_C[-1], gen, dev, smi)
+
+    # Phase W3: ImageGPT at C = 512 with 4 heads (d = 128) through the entry
+    # points: per forward 9 LayerNorms, 8 fused MLPs and 8 flash forwards at
+    # d = 128; the same weights on the CPU's plain path at batch 2; then one
+    # Trainer step (forward and backward of each).
+    model = ImageGPT(**cfg, generator=gen, device=dev)
+    with torch.no_grad():
+        model.pos.copy_(0.1 * torch.randn(model.pos.shape, generator=gen))
+    model.eval()
+    x = (torch.rand((BATCH, h, w, 1), generator=gen) < 0.3).float().to(dev)
+    reset_counts()
+    with torch.no_grad():
+        logits = model(x)
+        loss = image_gpt.reproduce_loss(x, None, logits)
+    torch.cuda.synchronize()
+    serve_counts = read_counts()
+    want = {k_: 0 for k_ in serve_counts}
+    want.update({ln_cuda.KERNEL: nb + 1, mlp_cuda.KERNEL: nb, attention_cuda.KERNEL: nb})
+    print(f"phase serve C={c} H={WIDE_HEADS}: forward logits {tuple(logits.shape)} "
+          f"nll={float(loss):.4f} nats/image; launches={serve_counts}", flush=True)
+    check(logits.shape == (BATCH, h, w, 1) and bool(torch.isfinite(logits).all()),
+          "bad logits at C = 512, 4 heads")
+    check(serve_counts == want, f"4-head forward launches {serve_counts}, expected {want}")
+    cpu_model = ImageGPT(**cfg, device="cpu")
+    cpu_model.load_state_dict({k_: t.cpu() for k_, t in model.state_dict().items()})
+    with torch.no_grad():
+        ref = cpu_model(x[:2].cpu())
+    fwd_err = float((logits[:2].cpu() - ref).abs().max())
+    scale = max(1.0, float(ref.abs().max()))
+    print(f"phase serve C={c} H={WIDE_HEADS}: forward vs plain CPU forward (batch 2) "
+          f"max_abs_err={fwd_err:.3e} (tol {FORWARD_TOL} x max(1, max |logit|) = "
+          f"{FORWARD_TOL * scale:.3e})", flush=True)
+    check(fwd_err <= FORWARD_TOL * scale, "4-head forward disagrees with the CPU")
+    del cpu_model, logits, ref
+    step_trainer = trainer.Trainer(
+        model, image_gpt.reproduce_loss, optim.adam_multiplicative(5e-3, 0.999977), [], [],
+        log_dir=tempfile.mkdtemp(prefix="chip_smoke_wide_"), use_tensorboard=False, device=dev)
+    xb = (torch.rand((BATCH, h, w, 1), generator=gen) < 0.13).float().numpy()
+    reset_counts()
+    step_loss = float(step_trainer.train_one_step(xb, None)[0]["loss"])
+    torch.cuda.synchronize()
+    train_counts = read_counts()
+    want.update({ln_cuda.BWD_KERNEL: nb + 1, mlp_cuda.BWD_KERNEL: nb,
+                 attention_cuda.BWD_KERNEL: nb})
+    step_ms = time_ms(lambda: step_trainer.train_one_step(xb, None), 2, 1)
+    print(f"phase train C={c} H={WIDE_HEADS} [{smi}]: one step at batch {BATCH}, loss "
+          f"{step_loss:.3f}; launches={train_counts}; step {step_ms:.3f} ms "
+          f"({BATCH * 1000 / step_ms:.2f} samples/s)", flush=True)
+    check(math.isfinite(step_loss), "the 4-head train step gave a non-finite loss")
+    check(train_counts == want, f"4-head train launches {train_counts}, expected {want}")
+    shutil.rmtree(step_trainer.log_dir, ignore_errors=True)
+    return {"d": d, "flash_err": flash_err, "bwd_err": bwd_err, "fused_errs": fused_errs,
+            "counts": [serve_counts, train_counts]}
+
+
+def vq_group(name):
+    """VQ-VAE parameter groups: the module path's first two parts
+    (encoder.down_convs, quantizer.conv, decoder.up_convs, ...)."""
+    return ".".join(name.split(".")[:2])
+
+
+def vq_vae_phases(dev, gen, smi, reset_counts, read_counts):
+    """VQ-VAE at its reproduce() config (32x32x3, hidden 128, 2 residual
+    blocks of 32, a 512 x 64 EMA codebook, batch 128, adam_multiplicative(
+    2e-4, 0.999977)), with PGT_FUSED_VQ=1 so that the quantizer takes the
+    fused kernel: the kernel against its plain version at M = 8192, 8191
+    and 300 and on a codebook with duplicated rows, with times; the forward
+    (eval mode) at batch 128 on bench.py's data against the CPU, launches
+    on both routes; a Trainer epoch at batch 128; gradients and 3 steps
+    (parameters and EMA buffers) against the CPU; step and forward times on
+    both routes and a profiled step. Returns the launch counts of the runs
+    of its main path and the vq kernel's entry of the per-kernel summary."""
+    from pytorch_generative_tpu_torch import optim, trainer
+    from pytorch_generative_tpu_torch.models import VectorQuantizedVAE
+    from pytorch_generative_tpu_torch.models.vae import vq_vae
+    from pytorch_generative_tpu_torch.ops import vq as vq_ops
+    from pytorch_generative_tpu_torch.ops import vq_cuda
+
+    os.environ["PGT_FUSED_VQ"] = "1"  # read when a VectorQuantizer is built
+    cfg = vq_vae.REPRODUCE_CONFIG
+    k, d = cfg["n_embeddings"], cfg["embedding_dim"]
+    h, w, c_in = cfg["in_shape"]
+    m = VQ_BATCH * (h // 4) * (w // 4)
+
+    # Phase V1: the kernel against its plain version at the path's shape
+    # (M = 8192 rows of N(0, 1) against a N(0, 1) codebook), ragged M and a
+    # codebook whose rows 7 and 300 repeat row 3 (ties go to 3).
+    x = torch.randn((m, d), generator=gen).to(dev)
+    cb = torch.randn((k, d), generator=gen).to(dev)
+    cb_dup = cb.clone()
+    cb_dup[[7, 300]] = cb[3]
+    x_dup = x.clone()
+    x_dup[:1000] = cb[3] + 0.01 * torch.randn((1000, d), generator=gen).to(dev)
+    vq_err = 0.0
+    for label, xx, cc in ((f"M={m}", x, cb), (f"M={m - 1}", x[:m - 1], cb),
+                          ("M=300", x[:300], cb), ("duplicated rows", x_dup, cb_dup)):
+        n_differ, n_near, q_err, counts_eq, s_err, s_max = vq_against_plain(xx, cc)
+        vq_err = max(vq_err, q_err, s_err)
+        extra = ""
+        if label == "duplicated rows":
+            _, counts, _ = vq_cuda.vq_quantize_fused(xx, cc)
+            extra = (f"; counts of code 3 / 7 / 300: {int(counts[3])} / {int(counts[7])} / "
+                     f"{int(counts[300])}")
+            check(int(counts[3]) >= 1000 and int(counts[7]) == int(counts[300]) == 0,
+                  "an exact tie did not go to the first index")
+        print(f"phase vq kernel: {label} K={cc.shape[0]} D={d}: rows whose code differs "
+              f"{n_differ} (near-tie rows {n_near}, gap <= {VQ_NEAR_TIE} x max |score|); "
+              f"quantized max_abs_err where codes agree {q_err:.3e}; counts equal "
+              f"{counts_eq}; sums max_abs_err {s_err:.3e} (max |sum| {s_max:.3e}, tol "
+              f"{VQ_SUMS_RTOL} x max |sum|){extra}", flush=True)
+    vq_times = {"kernel": time_ms(lambda: vq_cuda.vq_quantize_fused(x, cb), 50, 5),
+                "plain": time_ms(lambda: vq_cuda.vq_quantize_plain(x, cb), 20, 3),
+                "library": time_ms(lambda: vq_composition(x, cb), 50, 5),
+                "kernel2": time_ms(lambda: vq_cuda.vq_quantize_fused(x, cb), 50, 5)}
+    vq_bound = bound(*vq_work(m, k, d))
+    print(f"phase times vq [{smi}]: (M={m}, K={k}, D={d}) kernel {vq_times['kernel']:.4f}/"
+          f"{vq_times['kernel2']:.4f} ms, plain {vq_times['plain']:.4f} ms, composition "
+          f"(addmm, argmax, index_select, bincount, index_add_) {vq_times['library']:.4f} ms, "
+          f"bound {vq_bound[0]:.4f} ms ({vq_bound[1]})", flush=True)
+    del x, cb, cb_dup, x_dup
+
+    # Phase V2: serving: the forward in eval mode at batch 128 on bench.py's
+    # data through the entry point, on the fused route (1 vq launch) and
+    # the unfused one (none); then against the CPU's plain path with the
+    # same weights: the encoder's latents, the codes (near-ties counted),
+    # and the decoder on the card's codes.
+    xs = torch.from_numpy(np.random.default_rng(1).random(
+        (VQ_BATCH, h, w, c_in)).astype(np.float32)).to(dev)
+    model = VectorQuantizedVAE(**cfg, generator=torch.Generator().manual_seed(SEED),
+                               device=dev).eval()
+    unfused = VectorQuantizedVAE(**cfg, use_fused=False, device=dev).eval()
+    unfused.load_state_dict(model.state_dict())
+    check(model.quantizer.vq.fused(xs) and not unfused.quantizer.vq.fused(xs),
+          "PGT_FUSED_VQ=1 did not select the fused route")
+    serve_counts = {}
+    outs = {}
+    for route, net in (("fused", model), ("unfused", unfused)):
+        reset_counts()
+        with torch.no_grad():
+            outs[route] = net(xs)
+        torch.cuda.synchronize()
+        serve_counts[route] = read_counts()
+        want = {k_: 0 for k_ in serve_counts[route]}
+        want[vq_cuda.KERNEL] = 1 if route == "fused" else 0
+        check(serve_counts[route] == want,
+              f"VQ-VAE {route} forward launches {serve_counts[route]}, expected {want}")
+    out, loss = outs["fused"]
+    route_diff = float((out - outs["unfused"][0]).abs().max())
+    print(f"phase serve VQ-VAE: forward (eval) reconstruction {tuple(out.shape)} vq_loss "
+          f"{float(loss):.6f}; launches fused {serve_counts['fused']}, unfused "
+          f"{serve_counts['unfused']}; fused vs unfused route max_abs_err {route_diff:.3e}",
+          flush=True)
+    check(out.shape == (VQ_BATCH, h, w, c_in) and bool(torch.isfinite(out).all()),
+          "bad VQ-VAE reconstruction")
+    cpu = VectorQuantizedVAE(**cfg, device="cpu").eval()
+    cpu.load_state_dict({k_: t.cpu() for k_, t in model.state_dict().items()})
+    with torch.no_grad():
+        z = model.quantizer.conv(model.encoder(xs)).reshape(-1, d)
+        z_cpu = cpu.quantizer.conv(cpu.encoder(xs.cpu())).reshape(-1, d)
+        codebook = model.quantizer.vq.ema_embedding
+        n_differ, n_near, q_err, _, _, _ = vq_against_plain(z, codebook)
+        q_card, _, _ = vq_cuda.vq_quantize_fused(z, codebook)
+        ref_out, ref_loss = cpu(xs.cpu())
+        ref_dec = cpu.decoder(q_card.cpu().reshape(VQ_BATCH, h // 4, w // 4, d))
+    cb_cpu = codebook.cpu().double()
+    scores = 2.0 * z_cpu.double() @ cb_cpu.T - (cb_cpu ** 2).sum(1)
+    top2 = scores.topk(2, dim=1).values
+    near = (top2[:, 0] - top2[:, 1]) <= VQ_NEAR_TIE * float(scores.abs().max())
+    code_differ = vq_ops.nearest_codebook(z.cpu(), codebook.cpu()) != vq_ops.nearest_codebook(
+        z_cpu, codebook.cpu())
+    z_err = float((z.cpu() - z_cpu).abs().max())
+    z_scale = max(1.0, float(z_cpu.abs().max()))
+    dec_err = float((out.cpu() - ref_dec).abs().max())
+    scale = max(1.0, float(ref_dec.abs().max()))
+    full_err = float((out.cpu() - ref_out).abs().max())
+    print(f"phase serve VQ-VAE: vs the CPU plain path (batch {VQ_BATCH}): latents max_abs_err "
+          f"{z_err:.3e} (tol {FORWARD_TOL} x {z_scale:.3e}); codes differing card vs CPU "
+          f"{int(code_differ.sum())} of {z.shape[0]} (near-tie latents {int(near.sum())}); "
+          f"kernel vs plain on the card's latents: codes differing {n_differ}; reconstruction "
+          f"from the card's codes max_abs_err {dec_err:.3e} (tol {FORWARD_TOL} x {scale:.3e}); "
+          f"whole forward max_abs_err {full_err:.3e}, vq_loss {float(loss):.6f} vs "
+          f"{float(ref_loss):.6f}", flush=True)
+    check(z_err <= FORWARD_TOL * z_scale, "VQ-VAE latents disagree with the CPU")
+    check(not bool((code_differ & ~near).any()), "VQ-VAE codes disagree with the CPU on a clear latent")
+    check(dec_err <= FORWARD_TOL * scale, "VQ-VAE reconstruction disagrees with the CPU")
+    if not bool(code_differ.any()):
+        check(full_err <= FORWARD_TOL * scale
+              and abs(float(loss) - float(ref_loss)) <= FORWARD_TOL * max(1.0, float(ref_loss)),
+              "VQ-VAE forward disagrees with the CPU")
+    del outs, out, ref_out, ref_dec, z, z_cpu, q_card
+
+    # Phase V3: training through the Trainer: reproduce()'s model, optimizer
+    # and loss at batch 128, one epoch of VQ_TRAIN_STEPS steps on seeded
+    # batches (the first bench.py's) and one eval batch: one vq launch a
+    # step and one for the eval forward; the EMA buffers move.
+    batches = [(np.random.default_rng(1 + i).random((VQ_BATCH, h, w, c_in)).astype(np.float32),
+                None) for i in range(VQ_TRAIN_STEPS)]
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_vq_")
+    try:
+        vq_trainer = trainer.Trainer(
+            VectorQuantizedVAE(**cfg, generator=torch.Generator().manual_seed(SEED), device=dev),
+            vq_vae.reproduce_loss, optim.adam_multiplicative(2e-4, 0.999977), batches,
+            batches[:1], log_dir=log_dir, sample_epochs=None, use_tensorboard=False,
+            device=dev)
+        ema0 = vq_trainer.model.quantizer.vq.ema_cluster_size.clone()
+        reset_counts()
+        vq_trainer.interleaved_train_and_eval(1)
+        torch.cuda.synchronize()
+        train_counts = read_counts()
+        losses, _ = read_losses(log_dir)
+        print(f"phase train VQ-VAE: {vq_trainer._step} steps at batch {VQ_BATCH}, losses "
+              f"{[round(losses[s_], 5) for s_ in sorted(losses)]}; files "
+              f"{sorted(os.listdir(log_dir))}; launches={train_counts}", flush=True)
+        want = {k_: 0 for k_ in train_counts}
+        want[vq_cuda.KERNEL] = VQ_TRAIN_STEPS + 1
+        check(train_counts == want, f"VQ-VAE train launches {train_counts}, expected {want}")
+        check(sorted(losses) == list(range(VQ_TRAIN_STEPS))
+              and all(math.isfinite(v_) for v_ in losses.values()), "bad VQ-VAE losses")
+        check(not torch.equal(vq_trainer.model.quantizer.vq.ema_cluster_size, ema0),
+              "the EMA buffers did not move")
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+
+    # Phase V4: gradients at batch 128 in training mode (which also moves
+    # the EMA buffers once), then 3 Trainer steps, card (fused) against the
+    # CPU (plain) from the same weights and batches: gradients within
+    # GRAD_RTOL of each group's largest; losses, parameters and the three
+    # EMA buffers within TRAJ_RTOL of each tensor's largest magnitude.
+    card = VectorQuantizedVAE(**cfg, generator=torch.Generator().manual_seed(SEED + 1),
+                              device=dev)
+    cpu = VectorQuantizedVAE(**cfg, device="cpu")
+    cpu.load_state_dict({k_: t.cpu() for k_, t in card.state_dict().items()})
+    xb = torch.from_numpy(batches[0][0])
+    for net, xx in ((card, xb.to(dev)), (cpu, xb)):
+        net.train()
+        vq_vae.reproduce_loss(xx, None, net(xx))["loss"].backward()
+    grad_errs, grad_scales = {}, {}
+    for (name, p_), (_, pc) in zip(card.named_parameters(), cpu.named_parameters()):
+        g = vq_group(name)
+        grad_errs[g] = max(grad_errs.get(g, 0.0), float((p_.grad.cpu() - pc.grad).abs().max()))
+        grad_scales[g] = max(grad_scales.get(g, 0.0), float(pc.grad.abs().max()))
+    print("phase grads VQ-VAE: max_abs_err per group (max |grad|): " + ", ".join(
+        f"{g}={grad_errs[g]:.3e} ({grad_scales[g]:.3e})" for g in grad_errs)
+        + f" (tol {GRAD_RTOL} x max |grad|)", flush=True)
+    check(all(grad_errs[g] <= GRAD_RTOL * grad_scales[g] for g in grad_errs),
+          "VQ-VAE card gradients disagree with the CPU plain path")
+    traj = {}
+    for where, net in ((dev, card), ("cpu", cpu)):
+        t_ = trainer.Trainer(net, vq_vae.reproduce_loss, optim.adam_multiplicative(2e-4, 0.999977),
+                             [], [], log_dir=tempfile.mkdtemp(prefix="chip_smoke_vqtraj_"),
+                             use_tensorboard=False, device=where)
+        traj[str(where)] = [float(t_.train_one_step(xx, None)[0]["loss"]) for xx, _ in batches]
+        shutil.rmtree(t_.log_dir, ignore_errors=True)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(traj[str(dev)], traj["cpu"]))
+    # Each parameter tensor by its relative L2 error |card - cpu| / |cpu|:
+    # Adam divides each gradient by its own magnitude (eps 1e-8), so a
+    # weight whose gradient is at rounding level (~1e-9 on the dead ReLU
+    # paths of the residual stacks) takes a step of another fraction of lr
+    # on each side, and an element-wise maximum measures those few weights
+    # (it is printed beside). The EMA buffers row by row (element by element
+    # for the cluster sizes), since a code no row picks keeps a cluster size
+    # near 0 and its ema_embedding row grows by 1 / (size + 1e-5), far above
+    # the rows in use.
+    cpu_state = cpu.state_dict()
+    worst, elementwise = {}, {}
+    for name, t_ in card.state_dict().items():
+        a, b = t_.cpu(), cpu_state[name]
+        elementwise[name] = float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+        if ".ema_" in name:
+            a, b = a.reshape(len(a), -1), b.reshape(len(b), -1)
+            err, scale = (a - b).abs().amax(1), b.abs().amax(1)
+            worst[name] = float((err / scale.clamp(min=1e-30)).max())
+        else:
+            worst[name] = float((a - b).norm() / b.norm().clamp(min=1e-30))
+    params = [n_ for n_ in worst if ".ema_" not in n_]
+    name_w = max(params, key=worst.get)
+    name_e = max(params, key=elementwise.get)
+    print(f"phase trajectory VQ-VAE: losses card {traj[str(dev)]} cpu {traj['cpu']} max rel err "
+          f"{loss_err:.3e}; after {len(batches)} steps: parameters, largest relative L2 error "
+          f"{worst[name_w]:.3e} ({name_w}), largest element error over max |cpu| "
+          f"{elementwise[name_e]:.3e} ({name_e}); EMA buffers, largest row error over the row's "
+          "max |cpu|: " + ", ".join(f"{n_.rsplit('.', 1)[-1]} {e:.3e}" for n_, e in worst.items()
+                                    if ".ema_" in n_) + f" (tol {TRAJ_RTOL})", flush=True)
+    check(loss_err <= TRAJ_RTOL, "VQ-VAE 3-step losses disagree with the CPU")
+    check(all(e <= TRAJ_RTOL for e in worst.values()),
+          "VQ-VAE parameters or EMA buffers after 3 steps disagree with the CPU")
+    del cpu, card
+
+    # Phase V5: times on both routes: the train step at batch 128
+    # (Trainer.train_one_step, the H2D copy of the batch included) and the
+    # eval forward, then a profile of the fused route's step.
+    xb = batches[0][0]
+    route_times = {}
+    for route, use_fused in (("fused", None), ("unfused", False)):
+        net = VectorQuantizedVAE(**cfg, use_fused=use_fused,
+                                 generator=torch.Generator().manual_seed(SEED), device=dev)
+        t_ = trainer.Trainer(net, vq_vae.reproduce_loss, optim.adam_multiplicative(2e-4, 0.999977),
+                             [], [], log_dir=tempfile.mkdtemp(prefix="chip_smoke_vqstep_"),
+                             use_tensorboard=False, device=dev)
+
+        def forward():
+            net.eval()
+            with torch.no_grad():
+                return net(xs)
+
+        route_times[route] = {"step": time_ms(lambda: t_.train_one_step(xb, None), 10, 3),
+                              "forward": time_ms(forward, 10, 3)}
+        print(f"phase times VQ-VAE {route} route [{smi}]: train step batch {VQ_BATCH} "
+              f"{route_times[route]['step']:.3f} ms "
+              f"({VQ_BATCH * 1000 / route_times[route]['step']:.2f} samples/s); forward "
+              f"{route_times[route]['forward']:.3f} ms "
+              f"({VQ_BATCH * 1000 / route_times[route]['forward']:.2f} images/s)", flush=True)
+        if route == "fused":
+            profile_steps(lambda: t_.train_one_step(xb, None), 3, route_times[route]["step"],
+                          f"train step batch {VQ_BATCH}", (VQ_BATCH, "samples"),
+                          "step VQ-VAE", smi, ("vq_", "conv", "gemm", "elementwise",
+                                               "reduce_kernel", "Adam"))
+        shutil.rmtree(t_.log_dir, ignore_errors=True)
+
+    return {
+        "counts": [serve_counts["fused"], serve_counts["unfused"], train_counts],
+        "kernel": {"name": vq_cuda.KERNEL, "route": "cuda",
+                   "source": "pytorch_generative_tpu_torch/csrc/vq.cu",
+                   "replaces": "pytorch_generative_tpu/ops/vq_pallas.py:27",
+                   "max_abs_err": vq_err, "ms": vq_times["kernel"], "plain_ms": vq_times["plain"],
+                   "bound_ms": vq_bound[0], "bound_by": vq_bound[1],
+                   "library_ms": vq_times["library"]},
+    }
 
 
 def pixel_snail_phases(dev, gen, smi, reset_counts, read_counts):
@@ -713,6 +1321,7 @@ def main():
         mlp_cuda,
         sampling,
         snail_decode_cuda,
+        vq_cuda,
     )
 
     dev = torch.device(DEVICE)
@@ -731,15 +1340,14 @@ def main():
     # one nvcc per source, all started together.
     names = (attention_cuda.KERNEL, attention_cuda.BWD_KERNEL, decode_cuda.KERNEL,
              decode_cuda.DECODE_STEP_KERNEL, ln_cuda.KERNEL, ln_cuda.BWD_KERNEL,
-             mlp_cuda.KERNEL, mlp_cuda.BWD_KERNEL, snail_decode_cuda.KERNEL)
+             mlp_cuda.KERNEL, mlp_cuda.BWD_KERNEL, snail_decode_cuda.KERNEL, vq_cuda.KERNEL)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         paths = dict(zip(names, pool.map(_build.build, names)))
     for name in names:
         _build.load(name)
-        ptxas = [ln.strip() for ln in paths[name].with_suffix(".log").read_text().splitlines()
-                 if "registers" in ln or "spill" in ln]
-        print(f"phase build: {name}; ptxas: {' | '.join(ptxas)}", flush=True)
+        print(f"phase build: {name}; ptxas: "
+              f"{ptxas_summary(paths[name].with_suffix('.log').read_text())}", flush=True)
     print(f"phase build: all kernels {time.perf_counter() - t0:.1f}s", flush=True)
 
     gen = torch.Generator().manual_seed(SEED)
@@ -820,12 +1428,13 @@ def main():
         for mod in pairs:
             mod.launches = mod.bwd_launches = 0
         decode_cuda.launches = decode_cuda.step_launches = 0
-        snail_decode_cuda.launches = 0
+        snail_decode_cuda.launches = vq_cuda.launches = 0
 
     def read_counts():
         counts = {decode_cuda.KERNEL: decode_cuda.launches,
                   decode_cuda.DECODE_STEP_KERNEL: decode_cuda.step_launches,
-                  snail_decode_cuda.KERNEL: snail_decode_cuda.launches}
+                  snail_decode_cuda.KERNEL: snail_decode_cuda.launches,
+                  vq_cuda.KERNEL: vq_cuda.launches}
         for mod in pairs:
             counts[mod.KERNEL], counts[mod.BWD_KERNEL] = mod.launches, mod.bwd_launches
         return counts
@@ -975,44 +1584,8 @@ def main():
     # Phase 11: the LayerNorm and MLP kernels against their plain versions
     # at the path's shapes (R = 64 x 784 rows) and a ragged R; the MLP
     # backward from the forward's own saved y.
-    ln_err = ln_bwd_err = mlp_err = mlp_bwd_err = 0.0
-    for r in (rows_big, rows_big - 7):
-        xr = (2.0 * torch.randn((r, cb), generator=gen) + 0.5).to(dev)
-        gamma = (1.0 + 0.1 * torch.randn((cb,), generator=gen)).to(dev)
-        beta = (0.1 * torch.randn((cb,), generator=gen)).to(dev)
-        dyr = torch.randn((r, cb), generator=gen).to(dev)
-        w1 = (torch.randn((cb, fb), generator=gen) / cb ** 0.5).to(dev)
-        b1 = (0.1 * torch.randn((fb,), generator=gen)).to(dev)
-        w2 = (torch.randn((fb, cb), generator=gen) / fb ** 0.5).to(dev)
-        b2 = (0.1 * torch.randn((cb,), generator=gen)).to(dev)
-        errs = {}
-        errs["ln y"] = rel_err(ln_cuda.ln_forward(xr, gamma, beta, 1e-5),
-                               ln_cuda.layernorm_forward_plain(xr, gamma, beta, 1e-5))
-        for name, g_, w_ in zip(("ln dx", "ln dgamma", "ln dbeta"),
-                                ln_cuda.ln_backward(xr, dyr, gamma, 1e-5),
-                                ln_cuda.layernorm_backward_plain(xr, dyr, gamma, 1e-5)):
-            errs[name] = rel_err(g_, w_)
-        out_k, y_k = mlp_cuda.ln_mlp_forward(xr, gamma, beta, w1, b1, w2, b2, 1e-5)
-        out_p, y_p = mlp_cuda.ln_mlp_forward_plain(xr, gamma, beta, w1, b1, w2, b2, 1e-5)
-        errs["mlp out"], errs["mlp y"] = rel_err(out_k, out_p), rel_err(y_k, y_p)
-        del out_p, y_p
-        for name, g_, w_ in zip(
-                ("mlp dx", "mlp dgamma", "mlp dbeta", "mlp dw1", "mlp db1", "mlp dw2", "mlp db2"),
-                mlp_cuda.ln_mlp_backward(xr, dyr, y_k, gamma, beta, w1, b1, w2, 1e-5),
-                mlp_cuda.ln_mlp_backward_plain(xr, dyr, y_k, gamma, beta, w1, b1, w2, 1e-5)):
-            errs[name] = rel_err(g_, w_)
-        torch.cuda.synchronize()
-        print(f"phase fused kernels: R={r} C={cb} F={fb} max_abs_err (max |plain|): " + ", ".join(
-            f"{k}={e:.3e} ({m:.3e})" for k, (e, m) in errs.items())
-            + f" (tol LayerNorm {LN_RTOL}, MLP {MLP_RTOL} x max |plain|)", flush=True)
-        for k, (e, m) in errs.items():
-            check(e <= (LN_RTOL if k.startswith("ln") else MLP_RTOL) * m, f"{k} kernel disagrees")
-        ln_err = max(ln_err, errs["ln y"][0])
-        ln_bwd_err = max(ln_bwd_err, *(errs[k][0] for k in ("ln dx", "ln dgamma", "ln dbeta")))
-        mlp_err = max(mlp_err, errs["mlp out"][0], errs["mlp y"][0])
-        mlp_bwd_err = max(mlp_bwd_err, *(e for k, (e, _) in errs.items()
-                                         if k.startswith("mlp d")))
-        del out_k, y_k
+    ln_err, ln_bwd_err, mlp_err, mlp_bwd_err = fused_checks(
+        (rows_big, rows_big - 7), cb, gen, dev)
 
     # Phase 12: the flash kernels at d = 64, the path's (B 64, L 784, H 8).
     db = cb // hb
@@ -1108,78 +1681,12 @@ def main():
 
     # Phase 17: times at C = 512: each fused kernel at the path's shapes
     # beside its plain version, its bound and a library yardstick the port
-    # never calls (F.layer_norm; for the MLP the composition F.layer_norm ->
-    # addmm -> F.gelu -> addmm -> + x, since no one PyTorch call computes
-    # it), each backward as autograd.grad through the yardstick.
-    xr = torch.randn((rows_big, cb), generator=gen).to(dev).requires_grad_()
-    gamma = (1.0 + 0.1 * torch.randn((cb,), generator=gen)).to(dev).requires_grad_()
-    beta = (0.1 * torch.randn((cb,), generator=gen)).to(dev).requires_grad_()
-    w1 = (torch.randn((cb, fb), generator=gen) / cb ** 0.5).to(dev).requires_grad_()
-    b1 = (0.1 * torch.randn((fb,), generator=gen)).to(dev).requires_grad_()
-    w2 = (torch.randn((fb, cb), generator=gen) / fb ** 0.5).to(dev).requires_grad_()
-    b2 = (0.1 * torch.randn((cb,), generator=gen)).to(dev).requires_grad_()
-    dyr = torch.randn((rows_big, cb), generator=gen).to(dev)
-    xd, gd, bd, w1d, b1d, w2d, b2d = (t.detach() for t in (xr, gamma, beta, w1, b1, w2, b2))
-    _, y_k = mlp_cuda.ln_mlp_forward(xd, gd, bd, w1d, b1d, w2d, b2d, 1e-5)
-    ln_lib_out = F.layer_norm(xr, (cb,), gamma, beta, 1e-5)
-    mlp_lib_out = torch.addmm(b2, F.gelu(torch.addmm(b1, F.layer_norm(
-        xr, (cb,), gamma, beta, 1e-5), w1)), w2) + xr
-
-    def mlp_lib():
-        with torch.no_grad():
-            return torch.addmm(b2d, F.gelu(torch.addmm(b1d, F.layer_norm(
-                xd, (cb,), gd, bd, 1e-5), w1d)), w2d) + xd
-
-    def ln_lib():
-        with torch.no_grad():
-            return F.layer_norm(xd, (cb,), gd, bd, 1e-5)
-
-    fused_fns = {
-        "ln_fwd": (lambda: ln_cuda.ln_forward(xd, gd, bd, 1e-5),
-                   lambda: ln_cuda.layernorm_forward_plain(xd, gd, bd, 1e-5), ln_lib, 20),
-        "ln_bwd": (lambda: ln_cuda.ln_backward(xd, dyr, gd, 1e-5),
-                   lambda: ln_cuda.layernorm_backward_plain(xd, dyr, gd, 1e-5),
-                   lambda: torch.autograd.grad(ln_lib_out, (xr, gamma, beta), dyr,
-                                               retain_graph=True), 20),
-        "mlp_fwd": (lambda: mlp_cuda.ln_mlp_forward(xd, gd, bd, w1d, b1d, w2d, b2d, 1e-5),
-                    lambda: mlp_cuda.ln_mlp_forward_plain(xd, gd, bd, w1d, b1d, w2d, b2d,
-                                                          1e-5), mlp_lib, 5),
-        "mlp_bwd": (lambda: mlp_cuda.ln_mlp_backward(xd, dyr, y_k, gd, bd, w1d, b1d, w2d, 1e-5),
-                    lambda: mlp_cuda.ln_mlp_backward_plain(xd, dyr, y_k, gd, bd, w1d, b1d, w2d,
-                                                           1e-5),
-                    lambda: torch.autograd.grad(mlp_lib_out, (xr, gamma, beta, w1, b1, w2, b2),
-                                                dyr, retain_graph=True), 5),
-    }
-    fused_times = {}
-    for name, (kern, plain, lib, iters) in fused_fns.items():
-        fused_times[name] = {"plain": time_ms(plain, iters, 2), "kernel": time_ms(kern, iters, 2),
-                             "library": time_ms(lib, iters, 2), "kernel2": time_ms(kern, iters, 2)}
-    (ln_fwd_work, ln_bwd_work), (mlp_fwd_work, mlp_bwd_work) = (
-        ln_work(rows_big, cb), mlp_work(rows_big, cb, fb))
-    fused_bounds = {"ln_fwd": bound(*ln_fwd_work), "ln_bwd": bound(*ln_bwd_work),
-                    "mlp_fwd": bound(*mlp_fwd_work), "mlp_bwd": bound(*mlp_bwd_work)}
-    lib_names = {"ln_fwd": "F.layer_norm", "ln_bwd": "autograd.grad through F.layer_norm",
-                 "mlp_fwd": "composition", "mlp_bwd": "autograd.grad through the composition"}
-    for name, t in fused_times.items():
-        b_ms, b_by = fused_bounds[name]
-        print(f"phase times C={cb} [{smi}]: {name} (R={rows_big}, C={cb}, F={fb}) kernel "
-              f"{t['kernel']:.4f}/{t['kernel2']:.4f} ms, plain {t['plain']:.4f} ms, "
-              f"{lib_names[name]} {t['library']:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
-    del xr, gamma, beta, w1, b1, w2, b2, dyr, y_k, ln_lib_out, mlp_lib_out, fused_fns
+    # never calls; then the flash kernels at d = 64.
+    fused_times, fused_bounds = fused_times_at(rows_big, cb, gen, dev, smi)
     q = torch.randn((BATCH, h * w, cb), generator=gen).to(dev)
     kv = torch.randn((BATCH, h * w, 2 * cb), generator=gen).to(dev)
     dout = torch.randn((BATCH, h * w, cb), generator=gen).to(dev)
-    times64 = flash_times(q, kv[..., :cb], kv[..., cb:], dout, hb)
-    fwd64 = bound(flash_work(BATCH, h * w, hb, db, db, False),
-                  flash_bytes(BATCH, h * w, hb, db, db))
-    bwd64 = bound(flash_work(BATCH, h * w, hb, db, db, False, backward=True),
-                  flash_bytes(BATCH, h * w, hb, db, db, backward=True))
-    print(f"phase times C={cb} [{smi}]: flash_fwd (B={BATCH}, L={h * w}, H={hb}, d={db}) "
-          f"kernel {times64['fwd']:.4f}/{times64['fwd2']:.4f} ms, plain "
-          f"{times64['fwd_plain']:.4f} ms, causal SDPA {times64['fwd_lib']:.4f} ms, bound "
-          f"{fwd64[0]:.4f} ms ({fwd64[1]}); flash_bwd kernel {times64['bwd']:.4f}/"
-          f"{times64['bwd2']:.4f} ms, plain {times64['bwd_plain']:.4f} ms, SDPA autograd.grad "
-          f"{times64['bwd_lib']:.4f} ms, bound {bwd64[0]:.4f} ms ({bwd64[1]})", flush=True)
+    flash_times_line(f"C={cb}", smi, q, kv[..., :cb], kv[..., cb:], dout, hb)
     del q, kv, dout
 
     # Phase 18: the C = 512 train step at batch 64, timed, then profiled.
@@ -1191,6 +1698,15 @@ def main():
                   ("gemm_kernel", "flash_bwd", "flash_fwd", "ln_bwd_rows", "ln_fwd"))
     shutil.rmtree(big_trainer.log_dir, ignore_errors=True)
     del big_trainer
+
+    # ---- The widths the JAX package runs (wide_phases): flash at d = 128,
+    # LayerNorm and MLP at C = 640 and 1024, ImageGPT at C = 512 with 4
+    # heads. ----
+    wide = wide_phases(dev, gen, smi, reset_counts, read_counts)
+    flash_err = max(flash_err, wide["flash_err"])
+    bwd_err = max(bwd_err, wide["bwd_err"])
+    ln_err, ln_bwd_err, mlp_err, mlp_bwd_err = (
+        max(a, b) for a, b in zip((ln_err, ln_bwd_err, mlp_err, mlp_bwd_err), wide["fused_errs"]))
 
     # ---- Sampling on the per-position step route. ----
     # Phase 19: the decode step kernel against its plain version at
@@ -1374,21 +1890,30 @@ def main():
     flash_err = max(flash_err, snail["flash_err"])
     bwd_err = max(bwd_err, snail["bwd_err"])
 
+    # ---- VQ-VAE (vq_vae_phases). ----
+    vq = vq_vae_phases(dev, gen, smi, reset_counts, read_counts)
+
     all_counts = (serve_counts, train_counts, big_serve_counts, big_train_counts,
-                  *big_sample_counts, *route_counts, *snail["counts"])
+                  *big_sample_counts, *route_counts, *snail["counts"], *wide["counts"],
+                  *vq["counts"])
+    # The flash kernels' (d_k, d_v) instances this run held against the
+    # plain version; ms, plain_ms and library_ms are reproduce()'s d = 32.
+    instances = [f"{dk}x{dv}" for dk, dv in ((d, d), (db, db), (wide["d"], wide["d"]), (4, 32))]
     print(json.dumps({"kernels": [
         {"name": attention_cuda.KERNEL, "route": "cuda",
          "source": "pytorch_generative_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "pytorch_generative_tpu/ops/attention_pallas.py:100",
          "launches": sum(cs[attention_cuda.KERNEL] for cs in all_counts),
          "max_abs_err": flash_err, "ms": times["fwd"], "plain_ms": times["fwd_plain"],
-         "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1], "library_ms": times["fwd_lib"]},
+         "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1], "library_ms": times["fwd_lib"],
+         "instances": instances},
         {"name": attention_cuda.BWD_KERNEL, "route": "cuda",
          "source": "pytorch_generative_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "pytorch_generative_tpu/ops/attention_pallas.py:205",
          "launches": sum(cs[attention_cuda.BWD_KERNEL] for cs in all_counts),
          "max_abs_err": bwd_err, "ms": times["bwd"], "plain_ms": times["bwd_plain"],
-         "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1], "library_ms": times["bwd_lib"]},
+         "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1], "library_ms": times["bwd_lib"],
+         "instances": instances},
         {"name": decode_cuda.KERNEL, "route": "cuda",
          "source": "pytorch_generative_tpu_torch/csrc/sample_loop.cu",
          "replaces": "pytorch_generative_tpu/ops/decode_pallas.py:257",
@@ -1414,6 +1939,7 @@ def main():
               (mlp_cuda.KERNEL, "pytorch_generative_tpu/ops/mlp_pallas.py:81", mlp_err),
               (mlp_cuda.BWD_KERNEL, "pytorch_generative_tpu/ops/mlp_pallas.py:102", mlp_bwd_err))),
         dict(snail["kernel"], launches=sum(cs[snail_decode_cuda.KERNEL] for cs in all_counts)),
+        dict(vq["kernel"], launches=sum(cs[vq_cuda.KERNEL] for cs in all_counts)),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

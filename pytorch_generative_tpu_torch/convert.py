@@ -31,9 +31,17 @@ def _value(name: str, arr: np.ndarray) -> torch.Tensor:
 
 
 def from_jax_params(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
-    """The port's ``state_dict`` from ``{keystr(path): leaf}`` of a JAX model."""
+    """The port's ``state_dict`` from ``{keystr(path): leaf}`` of a JAX model.
+
+    A 4-D ``weight`` is a conv's: HWIO becomes OIHW, and a transposed conv's
+    (kh, kw, out, in) becomes torch's (in, out, kh, kw) by the same axis
+    reversal. A zero-size leaf (the placeholder ``embedding`` of the JAX
+    EMA quantizer) holds nothing and has no counterpart: it is dropped.
+    """
     out = {}
     for path, arr in flat.items():
+        if np.size(arr) == 0:
+            continue
         name = _key(path)
         out[name] = _value(name, arr)
     return out

@@ -17,12 +17,15 @@
 // floats: 308 MB at R = 50,176, C = 512, ~92 us at 3.35 TB/s. One warp per
 // row with the row in registers, as in ln_fwd.cu; the partials add
 // R / 64 * 2 C floats, under 2% of the traffic.
+// Rows wider than 512 channels take one CTA a row-chunk instead
+// (rows.cuh, ln_bwd_rows_wide_kernel): the CTA walks its 64 rows one at a
+// time and each thread keeps the column sums of its own columns.
 
 #include "rows.cuh"
 
 // x, dy, dx (R, C), gamma (C,), sums (2, C) = (dgamma, dbeta): contiguous
 // float32; part is (ceil(R / rows_per_cta), 2, C) scratch. C a multiple of
-// 4, at most 512.
+// 4, at most rows::kMaxChannels (4096; rows.cuh).
 extern "C" int ln_bwd_f32(const float* x, const float* dy, const float* gamma,
                           float* dx, float* sums, float* part, int R, int C,
                           int rows_per_cta, float eps, void* stream) {

@@ -97,7 +97,7 @@ struct Store {
 // dw2 (F, C), and sums (3, C) = (dgamma, dbeta, db2). Scratch: stats (R, 2),
 // dy (R, F), dln (R, C), wpart (splits, C * F), rpart (ceil(R /
 // rows_per_cta), 3, C), cpart (ceil(R / rows_per_chunk), F). C and F
-// multiples of 4, C at most 512.
+// multiples of 4, C at most rows::kMaxChannels (4096).
 extern "C" int mlp_bwd_f32(const float* x, const float* dout, const float* y,
                            const float* gamma, const float* beta, const float* w1,
                            const float* w2, float* dx, float* dw1, float* db1,

@@ -72,7 +72,7 @@ struct BiasStore {
 
 // x (R, C), w1 (C, F), w2 (F, C), gamma/beta/b2 (C,), b1 (F,): contiguous
 // float32. Writes out (R, C) and y (R, F); stats is (R, 2) float32
-// scratch. C and F multiples of 4, C at most 512.
+// scratch. C and F multiples of 4, C at most rows::kMaxChannels (4096).
 extern "C" int mlp_fwd_f32(const float* x, const float* gamma, const float* beta,
                            const float* w1, const float* b1, const float* w2,
                            const float* b2, float* out, float* y, float* stats,

@@ -9,6 +9,12 @@
 // butterfly leaves the same sum in every lane (each step adds a pair in both
 // orders, and float addition commutes exactly).
 //
+// A wider row (512 < C <= kMaxChannels) is held by one CTA of kThreads:
+// thread t owns the float4s at columns 4 * (t + 256 * i), i < NVC, NVC = 1,
+// 2 or 4 for C up to 1024, 2048 or 4096; its sums are warp sums added in
+// warp order through shared memory (block_sum), the same in every thread.
+// Rows of C <= 512 never take this path, so their results do not change.
+//
 // Sums over rows (dgamma, dbeta, bias gradients) never use atomics: a first
 // pass writes one partial per CTA or row chunk, and sum_slices_kernel adds
 // the partials in a fixed order. The result is the same run to run.
@@ -226,13 +232,155 @@ inline cudaError_t sum_slices(const float* part, float* out, int S, int64_t n,
   return cudaGetLastError();
 }
 
-// Float4s per lane for C channels; 0 where the row kernels do not take C.
+// ---- Wide rows: one CTA a row (512 < C <= kMaxChannels). ----
+
+constexpr int kMaxChannels = 4096;
+
+__device__ __forceinline__ int wcol(int t, int i) { return 4 * (t + kThreads * i); }
+
+// The sum of v over the CTA, the same in every thread: the warp sums added
+// in warp order. red holds kWarps floats; it is free again on return.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float t = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) t += red[w];
+  __syncthreads();
+  return t;
+}
+
+// The thread's float4s of one row; columns past C read as 0.
+template <int NVC>
+__device__ __forceinline__ void load_row_wide(float4 (&v)[NVC], const float* p, int C) {
+#pragma unroll
+  for (int i = 0; i < NVC; ++i) {
+    const int c = wcol(threadIdx.x, i);
+    v[i] = c < C ? ld4(p + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// (mean, 1 / sqrt(biased variance + eps)) of a CTA's row, in two passes
+// as row_stats.
+template <int NVC>
+__device__ __forceinline__ float2 row_stats_wide(const float4 (&v)[NVC], int C,
+                                                 float eps, float* red) {
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < NVC; ++i) s += hsum(v[i]);  // padding holds 0
+  const float mu = block_sum(s, red) / C;
+  float q = 0.f;
+#pragma unroll
+  for (int i = 0; i < NVC; ++i) {
+    if (wcol(threadIdx.x, i) < C) {
+      const float a = v[i].x - mu, b = v[i].y - mu, c = v[i].z - mu, d = v[i].w - mu;
+      q += a * a + b * b + c * c + d * d;
+    }
+  }
+  return make_float2(mu, rsqrtf(block_sum(q, red) / C + eps));
+}
+
+// Per-row (mean, rstd) of an (R, C) matrix, one CTA per row.
+template <int NVC>
+__global__ void __launch_bounds__(kThreads)
+row_stats_wide_kernel(const float* __restrict__ x, float2* __restrict__ stats, int C,
+                      float eps) {
+  __shared__ float red[kWarps];
+  float4 v[NVC];
+  load_row_wide<NVC>(v, x + static_cast<int64_t>(blockIdx.x) * C, C);
+  const float2 st = row_stats_wide<NVC>(v, C, eps, red);
+  if (threadIdx.x == 0) stats[blockIdx.x] = st;
+}
+
+// ln_bwd_rows_kernel for wide rows: the CTA walks its rows one at a time,
+// each thread keeping the column sums of the columns it owns, so the CTA's
+// partial sums need no reduction across threads.
+template <int NVC, bool kResid>
+__global__ void __launch_bounds__(kThreads)
+ln_bwd_rows_wide_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+                        const float* __restrict__ gamma, const float* __restrict__ resid,
+                        float* __restrict__ dx, float* __restrict__ part, int R, int C,
+                        int rows_per_cta, float eps) {
+  constexpr int kAcc = kResid ? 3 : 2;
+  __shared__ float red[kWarps];
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 dg[NVC], db[NVC], dr[NVC];
+#pragma unroll
+  for (int i = 0; i < NVC; ++i) dg[i] = db[i] = dr[i] = zero;
+
+  const int r0 = blockIdx.x * rows_per_cta;
+  const int r1 = min(R, r0 + rows_per_cta);
+  for (int r = r0; r < r1; ++r) {
+    const int64_t base = static_cast<int64_t>(r) * C;
+    float4 xh[NVC], d[NVC], dxh[NVC];
+    load_row_wide<NVC>(xh, x + base, C);
+    load_row_wide<NVC>(d, dy + base, C);
+    const float2 st = row_stats_wide<NVC>(xh, C, eps, red);
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < NVC; ++i) {
+      dxh[i] = zero;
+      const int c = wcol(threadIdx.x, i);
+      if (c < C) {
+        const float4 g = ld4(gamma + c);
+        xh[i] = make_float4((xh[i].x - st.x) * st.y, (xh[i].y - st.x) * st.y,
+                            (xh[i].z - st.x) * st.y, (xh[i].w - st.x) * st.y);
+        dxh[i] = make_float4(d[i].x * g.x, d[i].y * g.y, d[i].z * g.z, d[i].w * g.w);
+        s1 += hsum(dxh[i]);
+        s2 += dxh[i].x * xh[i].x + dxh[i].y * xh[i].y + dxh[i].z * xh[i].z +
+              dxh[i].w * xh[i].w;
+        dg[i].x += d[i].x * xh[i].x; dg[i].y += d[i].y * xh[i].y;
+        dg[i].z += d[i].z * xh[i].z; dg[i].w += d[i].w * xh[i].w;
+        db[i].x += d[i].x; db[i].y += d[i].y; db[i].z += d[i].z; db[i].w += d[i].w;
+      }
+    }
+    const float m1 = block_sum(s1, red) / C, m2 = block_sum(s2, red) / C;
+#pragma unroll
+    for (int i = 0; i < NVC; ++i) {
+      const int c = wcol(threadIdx.x, i);
+      if (c >= C) continue;
+      float4 o = make_float4((dxh[i].x - m1 - xh[i].x * m2) * st.y,
+                             (dxh[i].y - m1 - xh[i].y * m2) * st.y,
+                             (dxh[i].z - m1 - xh[i].z * m2) * st.y,
+                             (dxh[i].w - m1 - xh[i].w * m2) * st.y);
+      if constexpr (kResid) {
+        const float4 rr = ld4(resid + base + c);
+        o.x += rr.x; o.y += rr.y; o.z += rr.z; o.w += rr.w;
+        dr[i].x += rr.x; dr[i].y += rr.y; dr[i].z += rr.z; dr[i].w += rr.w;
+      }
+      st4(dx + base + c, o);
+    }
+  }
+
+  float* out = part + static_cast<int64_t>(blockIdx.x) * kAcc * C;
+#pragma unroll
+  for (int i = 0; i < NVC; ++i) {
+    const int c = wcol(threadIdx.x, i);
+    if (c >= C) continue;
+    st4(out + c, dg[i]);
+    st4(out + C + c, db[i]);
+    if constexpr (kResid) st4(out + 2 * C + c, dr[i]);
+  }
+}
+
+// Float4s per lane for C channels; 0 where the warp-per-row kernels do not
+// take C.
 inline int vecs_per_lane(int C) {
   if (C <= 0 || C % 4 != 0) return 0;
   if (C <= 128) return 1;
   if (C <= 256) return 2;
   if (C <= 512) return 4;
   return 0;
+}
+
+// Float4s per thread of the CTA-per-row kernels for C channels; 0 where
+// they do not take C (C <= 512 takes the warp-per-row kernels).
+inline int vecs_per_thread(int C) {
+  if (C <= 512 || C % 4 != 0 || C > kMaxChannels) return 0;
+  if (C <= 1024) return 1;
+  if (C <= 2048) return 2;
+  return 4;
 }
 
 inline cudaError_t row_stats(const float* x, float2* stats, int R, int C, float eps,
@@ -242,7 +390,14 @@ inline cudaError_t row_stats(const float* x, float2* stats, int R, int C, float 
     case 1: row_stats_kernel<1><<<grid, kThreads, 0, stream>>>(x, stats, R, C, eps); break;
     case 2: row_stats_kernel<2><<<grid, kThreads, 0, stream>>>(x, stats, R, C, eps); break;
     case 4: row_stats_kernel<4><<<grid, kThreads, 0, stream>>>(x, stats, R, C, eps); break;
-    default: return cudaErrorInvalidValue;
+    default:
+      if (R <= 0) return cudaErrorInvalidValue;
+      switch (vecs_per_thread(C)) {
+        case 1: row_stats_wide_kernel<1><<<R, kThreads, 0, stream>>>(x, stats, C, eps); break;
+        case 2: row_stats_wide_kernel<2><<<R, kThreads, 0, stream>>>(x, stats, C, eps); break;
+        case 4: row_stats_wide_kernel<4><<<R, kThreads, 0, stream>>>(x, stats, C, eps); break;
+        default: return cudaErrorInvalidValue;
+      }
   }
   return cudaGetLastError();
 }
@@ -265,13 +420,28 @@ inline cudaError_t ln_backward(const float* x, const float* dy, const float* gam
     ln_bwd_rows_kernel<NV, false><<<n_ctas, kThreads, smem, stream>>>(          \
         x, dy, gamma, resid, dx, part, R, C, rows_per_cta, eps);                \
   break;
+#define PGT_LN_BWD_WIDE(NVC)                                                    \
+  if (resid)                                                                    \
+    ln_bwd_rows_wide_kernel<NVC, true><<<n_ctas, kThreads, 0, stream>>>(        \
+        x, dy, gamma, resid, dx, part, R, C, rows_per_cta, eps);                \
+  else                                                                          \
+    ln_bwd_rows_wide_kernel<NVC, false><<<n_ctas, kThreads, 0, stream>>>(       \
+        x, dy, gamma, resid, dx, part, R, C, rows_per_cta, eps);                \
+  break;
   switch (vecs_per_lane(C)) {
     case 1: PGT_LN_BWD(1)
     case 2: PGT_LN_BWD(2)
     case 4: PGT_LN_BWD(4)
-    default: return cudaErrorInvalidValue;
+    default:
+      switch (vecs_per_thread(C)) {
+        case 1: PGT_LN_BWD_WIDE(1)
+        case 2: PGT_LN_BWD_WIDE(2)
+        case 4: PGT_LN_BWD_WIDE(4)
+        default: return cudaErrorInvalidValue;
+      }
   }
 #undef PGT_LN_BWD
+#undef PGT_LN_BWD_WIDE
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return sum_slices(part, sums, n_ctas, static_cast<int64_t>(acc) * C, stream);

@@ -1,6 +1,6 @@
-"""MNIST loaders as NumPy pipelines (counterpart of the MNIST part of
-``pytorch_generative_tpu/datasets.py``; the port keeps its own copy, since
-importing the JAX package imports JAX).
+"""MNIST and CIFAR10 loaders as NumPy pipelines (counterpart of those parts
+of ``pytorch_generative_tpu/datasets.py``; the port keeps its own copy,
+since importing the JAX package imports JAX).
 
 Batches are NHWC float32 NumPy arrays; the Trainer moves them to the
 device. Shuffling and stochastic transforms draw from explicit NumPy streams
@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import gzip
 import os
+import pickle
 
 import numpy as np
 
@@ -59,6 +60,29 @@ def load_mnist():
               for key, fname in _MNIST_FILES.items()}
     return ((arrays["train_images"], arrays["train_labels"]),
             (arrays["test_images"], arrays["test_labels"]))
+
+
+def load_cifar10():
+    """Returns ((train_x, train_y), (test_x, test_y)); images uint8 NHWC
+    32x32x3. Reads an unpacked ``cifar-10-batches-py`` (the python pickles)
+    under the data roots; nothing is downloaded."""
+    searched = [os.path.join(root, "cifar-10-batches-py") for root in _data_roots()]
+    base = next((p for p in searched if os.path.isdir(p)), None)
+    if base is None:
+        raise FileNotFoundError(
+            f"CIFAR10 (cifar-10-batches-py) not found; searched {searched}. "
+            "Unpack it there or point $PGT_DATA_DIR at its root (nothing is "
+            "downloaded).")
+
+    def read_batch(name):
+        with open(os.path.join(base, name), "rb") as f:
+            d = pickle.load(f, encoding="bytes")
+        x = d[b"data"].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+        return x, np.asarray(d[b"labels"], np.int64)
+
+    xs, ys = zip(*[read_batch(f"data_batch_{i}") for i in range(1, 6)])
+    test_x, test_y = read_batch("test_batch")
+    return (np.concatenate(xs), np.concatenate(ys)), (test_x, test_y)
 
 
 def dynamically_binarize(rng: np.random.Generator, x: np.ndarray) -> np.ndarray:
@@ -124,6 +148,26 @@ def get_mnist_loaders(batch_size, dynamically_binarize=False, seed=0):
                               transform=transform, seed=seed)
     test_loader = DataLoader(test_x, test_y, batch_size, transform=transform,
                              seed=seed + 1)
+    return train_loader, test_loader
+
+
+_CIFAR10_MEAN = np.asarray([0.4914, 0.4822, 0.4465], np.float32)
+_CIFAR10_STD = np.asarray([0.2023, 0.1994, 0.2010], np.float32)
+
+
+def _normalize_cifar10(rng, x):  # noqa: ARG001 - the DataLoader transform signature
+    return (x - _CIFAR10_MEAN) / _CIFAR10_STD
+
+
+def get_cifar10_loaders(batch_size, normalize=False, seed=0):
+    """Train/test loaders for CIFAR10: the JAX package's NumPy pipeline,
+    images in [0, 1], with ``normalize`` the per-channel standardization."""
+    (train_x, train_y), (test_x, test_y) = load_cifar10()
+    train_x, test_x = _to_float_nhwc(train_x), _to_float_nhwc(test_x)
+    transform = _normalize_cifar10 if normalize else None
+    train_loader = DataLoader(train_x, train_y, batch_size, shuffle=True,
+                              transform=transform, seed=seed)
+    test_loader = DataLoader(test_x, test_y, batch_size, transform=transform)
     return train_loader, test_loader
 
 

@@ -89,3 +89,19 @@ class AutoregressiveModel(GenerativeModel):
             current = canvas[:, row, col, :]
             canvas[:, row, col, :] = torch.where(current < 0, sampled, current)
         return canvas
+
+
+class VariationalAutoEncoder(GenerativeModel):
+    """Base class for VAEs: ``sample`` draws from the prior and decodes
+    (``_sample``), then applies ``sample_fn`` to uniforms of the decoded
+    shape drawn from ``generator``, as the JAX package's
+    ``sample_fn(rng, _sample(rng, n))``."""
+
+    def _sample(self, n_samples, generator):
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def sample(self, n_samples, *, generator=None):
+        decoded = self._sample(n_samples, generator)
+        u = torch.rand(decoded.shape, generator=generator).to(decoded.device)
+        return self.sample_fn(u, decoded)

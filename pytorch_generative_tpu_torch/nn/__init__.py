@@ -8,8 +8,11 @@ from pytorch_generative_tpu_torch.nn.convolution import (
     CausalConv2d,
     ChannelLayerNorm,
     Conv2d,
+    ConvTranspose2d,
     GatedActivation,
 )
+from pytorch_generative_tpu_torch.nn.utils import VectorQuantizer
 
 __all__ = ["CausalAttention", "CausalConv2d", "ChannelLayerNorm", "Conv2d",
-           "GatedActivation", "image_positional_encoding"]
+           "ConvTranspose2d", "GatedActivation", "VectorQuantizer",
+           "image_positional_encoding"]

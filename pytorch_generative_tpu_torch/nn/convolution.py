@@ -4,7 +4,8 @@
 Tensors stay NHWC, as in the JAX package. A 1x1 convolution keeps its weight
 as an (in, out) matrix and runs as ``x @ W + b`` on the channel axis, as the
 JAX package lowers it; other kernels keep OIHW weights and run ``F.conv2d`` on
-an NCHW view of the input.
+an NCHW view of the input. ``ConvTranspose2d`` keeps torch's (in, out, kh,
+kw) weight and runs ``F.conv_transpose2d`` the same way.
 """
 
 from __future__ import annotations
@@ -23,15 +24,17 @@ def _pair(v):
 
 
 class Conv2d(nn.Module):
-    """2-D convolution (stride 1) over NHWC inputs, torch default init."""
+    """2-D convolution over NHWC inputs, torch default init."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size,
-                 padding=0, use_bias: bool = True, generator=None):
+                 stride=1, padding=0, use_bias: bool = True, generator=None):
         super().__init__()
         kh, kw = _pair(kernel_size)
+        self.stride = _pair(stride)
         self.padding = _pair(padding)
         fan_in = in_channels * kh * kw
-        self.pointwise = (kh, kw) == (1, 1) and self.padding == (0, 0)
+        self.pointwise = ((kh, kw) == (1, 1) and self.padding == (0, 0)
+                          and self.stride == (1, 1))
         shape = ((in_channels, out_channels) if self.pointwise
                  else (out_channels, in_channels, kh, kw))
         self.weight = nn.Parameter(
@@ -42,11 +45,40 @@ class Conv2d(nn.Module):
     def _conv(self, x, weight):
         if self.pointwise:
             return x @ weight
-        y = F.conv2d(x.permute(0, 3, 1, 2), weight, padding=self.padding)
+        y = F.conv2d(x.permute(0, 3, 1, 2), weight, stride=self.stride,
+                     padding=self.padding)
         return y.permute(0, 2, 3, 1)
 
     def forward(self, x):
         y = self._conv(x, self.weight)
+        if self.bias is not None:
+            y = y + self.bias
+        return y
+
+
+class ConvTranspose2d(nn.Module):
+    """2-D transposed convolution over NHWC inputs, as
+    ``torch.nn.ConvTranspose2d``: output size (in - 1) * stride - 2 *
+    padding + kernel. The weight is torch's (in, out, kh, kw), which is the
+    JAX package's (kh, kw, out, in) with its axes reversed; fan_in is
+    out * kh * kw, as in torch and the JAX package."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size,
+                 stride=1, padding=0, use_bias: bool = True, generator=None):
+        super().__init__()
+        kh, kw = _pair(kernel_size)
+        self.stride = _pair(stride)
+        self.padding = _pair(padding)
+        fan_in = out_channels * kh * kw
+        self.weight = nn.Parameter(init_ops.torch_default_weight(
+            generator, (in_channels, out_channels, kh, kw), fan_in))
+        self.bias = (nn.Parameter(init_ops.torch_default_bias(
+            generator, (out_channels,), fan_in)) if use_bias else None)
+
+    def forward(self, x):
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), self.weight,
+                               stride=self.stride, padding=self.padding)
+        y = y.permute(0, 2, 3, 1)
         if self.bias is not None:
             y = y + self.bias
         return y

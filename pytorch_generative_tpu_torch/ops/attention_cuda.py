@@ -22,8 +22,9 @@ from pytorch_generative_tpu_torch.ops.masks import causal_attention_mask
 KERNEL = "flash_fwd"
 BWD_KERNEL = "flash_bwd"
 # The (d_k, d_v) head widths the kernels are built for: ImageGPT's d_k ==
-# d_v, PixelSNAIL's (4, 32) and (4, 8) for small tests.
-HEAD_DIM_PAIRS = ((16, 16), (32, 32), (64, 64), (4, 32), (4, 8))
+# d_v (128: bench.py's C = 512 model with 4 heads, on the kernels' wide
+# instance), PixelSNAIL's (4, 32) and (4, 8) for small tests.
+HEAD_DIM_PAIRS = ((16, 16), (32, 32), (64, 64), (128, 128), (4, 32), (4, 8))
 
 # Kernel launches since the last reset; only _flash_forward_cuda adds to
 # `launches`, only _flash_backward_cuda to `bwd_launches` (one per call,

@@ -26,3 +26,9 @@ def torch_default_bias(generator, shape, fan_in, dtype=torch.float32):
     """The torch.nn.Linear/Conv2d default bias: U(-1/sqrt(fan_in), 1/sqrt(fan_in))."""
     bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
     return _uniform(generator, shape, bound, dtype)
+
+
+def kaiming_uniform(generator, shape, fan_in, dtype=torch.float32):
+    """torch.nn.init.kaiming_uniform_ in fan_in mode with
+    nonlinearity="linear" (gain 1): U(-sqrt(3 / fan_in), sqrt(3 / fan_in))."""
+    return _uniform(generator, shape, math.sqrt(3.0 / fan_in), dtype)

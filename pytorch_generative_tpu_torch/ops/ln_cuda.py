@@ -19,7 +19,9 @@ from pytorch_generative_tpu_torch.ops import _build
 
 KERNEL = "ln_fwd"
 BWD_KERNEL = "ln_bwd"
-MAX_CHANNELS = 512  # the kernels hold a row in one warp's registers
+# C <= 512: a row in one warp's registers; wider rows, up to MAX_CHANNELS,
+# in one CTA's registers (csrc/rows.cuh, kMaxChannels).
+MAX_CHANNELS = 4096
 # Rows per CTA of the backward's first launch; the (ceil(R / 64), 2, C)
 # partial sums of dgamma and dbeta are added in a fixed order.
 ROWS_PER_CTA = 64
@@ -61,7 +63,8 @@ def check_rows(x2):
         raise ValueError(f"expected (R, C) rows, got {tuple(x2.shape)}")
     r, c = x2.shape
     if c % 4 or not 0 < c <= MAX_CHANNELS:
-        raise ValueError(f"C = {c}: the kernels take a multiple of 4 up to {MAX_CHANNELS}")
+        raise ValueError(f"C = {c}: the kernels take a multiple of 4 from 4 to "
+                         f"{MAX_CHANNELS}")
     return r, c
 
 

@@ -14,6 +14,11 @@
     the mean of their gradients; a batch it does not divide is computed
     whole, with one warning.
   * The LR is logged per batch, indexed by applied steps.
+  * Model state that is not a parameter (buffers, such as the VQ-VAE's EMA
+    codebook) changes in place during each training forward, once per
+    chunk. A step that ``skip_nonfinite`` drops also restores the buffers
+    to what they were before it; ``skip_grad_norm`` alone keeps their
+    update, as in the JAX package.
   * Eval metrics are example-weighted means over the eval set.
   * Checkpoints ``trainer_state_{epoch}.ckpt`` every
     ``save_checkpoint_epochs``, with auto-resume from the latest one and a
@@ -243,6 +248,8 @@ class Trainer:
         x, y = self._to_device(x, y)
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
+        buffers = list(self.model.buffers()) if self.skip_nonfinite else []
+        saved = [b.clone() for b in buffers]
         chunks = self._microbatches(x, y)
         metrics = {}
         for xb, yb in chunks:
@@ -265,6 +272,9 @@ class Trainer:
             finite = torch.isfinite(norm) & torch.isfinite(metrics["loss"])
             metrics["nonfinite_steps"] = (~finite).float()
             keep = finite if keep is None else keep & finite
+            with torch.no_grad():
+                for b, old in zip(buffers, saved):
+                    b.copy_(torch.where(finite, b, old))
         if keep is None:
             self.optimizer.step()
         else:

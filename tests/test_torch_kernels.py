@@ -16,7 +16,11 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from pytorch_generative_tpu_torch import optim, trainer  # noqa: E402
-from pytorch_generative_tpu_torch.models import ImageGPT, PixelSNAIL  # noqa: E402
+from pytorch_generative_tpu_torch.models import (  # noqa: E402
+    ImageGPT,
+    PixelSNAIL,
+    VectorQuantizedVAE,
+)
 from pytorch_generative_tpu_torch.models.autoregressive import image_gpt  # noqa: E402
 from pytorch_generative_tpu_torch.ops import (  # noqa: E402
     attention_cuda,
@@ -25,6 +29,7 @@ from pytorch_generative_tpu_torch.ops import (  # noqa: E402
     mlp_cuda,
     sampling,
     snail_decode_cuda,
+    vq_cuda,
 )
 from pytorch_generative_tpu_torch.ops.attention import causal_attention_with_lse  # noqa: E402
 
@@ -369,10 +374,11 @@ def _mlp_inputs(r, c, dev, seed=0):
 
 
 @pytest.mark.parametrize("r", [1024, 1031])
-@pytest.mark.parametrize("c", [128, 512])
+@pytest.mark.parametrize("c", [128, 512, 640, 1024])
 def test_ln_kernels_match_plain(dev, c, r):
     """Forward and (dx, dgamma, dbeta) within LN_RTOL of the plain versions,
-    an even and a ragged row count."""
+    an even and a ragged row count; C = 640 and 1024 take the CTA-per-row
+    kernels."""
     x, gamma, beta = _ln_inputs(r, c, dev)
     dy = _rand((r, c), 7, dev)
     before = (ln_cuda.launches, ln_cuda.bwd_launches)
@@ -387,7 +393,7 @@ def test_ln_kernels_match_plain(dev, c, r):
 
 
 @pytest.mark.parametrize("r", [1024, 1031])
-@pytest.mark.parametrize("c", [128, 512])
+@pytest.mark.parametrize("c", [128, 512, 640, 1024])
 def test_mlp_kernels_match_plain(dev, c, r):
     """out and y, then all seven gradients from the same saved y, within
     MLP_RTOL of the plain versions."""
@@ -412,9 +418,9 @@ def test_ln_and_mlp_wrappers_reject_what_the_kernels_do_not_take(dev):
         ln_cuda.ln_forward(x.double(), gamma.double(), beta.double(), 1e-5)
     with pytest.raises(ValueError):
         ln_cuda.ln_forward(x[:, :126].contiguous(), gamma[:126], beta[:126], 1e-5)
-    with pytest.raises(ValueError):
-        ln_cuda.ln_forward(torch.cat([x] * 5, dim=1), torch.cat([gamma] * 5),
-                           torch.cat([beta] * 5), 1e-5)  # C = 640 > 512
+    with pytest.raises(ValueError, match="from 4 to 4096"):
+        ln_cuda.ln_forward(torch.cat([x] * 33, dim=1), torch.cat([gamma] * 33),
+                           torch.cat([beta] * 33), 1e-5)  # C = 4224 > 4096
     with pytest.raises(ValueError):
         ln_cuda.ln_forward(x, gamma.cpu(), beta, 1e-5)
     with pytest.raises(ValueError):
@@ -533,3 +539,106 @@ def test_snail_loop_wrapper_rejects_what_the_kernel_does_not_take(dev):
         run(canvas0, u, dict(weights, q_w=weights["q_w"].cpu()), h, w)
     with pytest.raises(ValueError):
         run(canvas0.T.contiguous().T, u, weights, h, w)
+
+
+# VQ: the fused quantization kernel and the VQ-VAE on the card.
+# Scores summed over D terms in another order than the plain version's
+# matrix product: rows whose top-two scores are closer than this (relative
+# to the largest |score|) may pick either code; they are counted and only
+# they may differ.
+VQ_NEAR_TIE = 1e-5
+
+
+def _vq_check(x, cb):
+    """Runs the kernel and its plain version: a row's code may differ only
+    on a near-tie, and then it holds one of its two best codes."""
+    before = vq_cuda.launches
+    q, counts, sums = vq_cuda.vq_quantize_fused(x, cb)
+    torch.cuda.synchronize()
+    assert vq_cuda.launches == before + 1
+    pq, pcounts, psums = vq_cuda.vq_quantize_plain(x, cb)
+    scores = 2.0 * (x.double() @ cb.double().T) - (cb.double() ** 2).sum(1)
+    top2 = torch.cat([scores, torch.full_like(scores[:, :1], -float("inf"))], 1).topk(2, dim=1)
+    near = (top2.values[:, 0] - top2.values[:, 1]) <= VQ_NEAR_TIE * float(scores.abs().max())
+    differ = (q != pq).any(dim=1)
+    assert not bool((differ & ~near).any())
+    # A differing row still holds one of its two best codes, exactly.
+    best = [cb[top2.indices[differ, j].clamp(max=cb.shape[0] - 1)] for j in (0, 1)]
+    assert bool(((q[differ] == best[0]).all(1) | (q[differ] == best[1]).all(1)).all())
+    assert float(counts.sum()) == x.shape[0]
+    if not bool(differ.any()):
+        assert torch.equal(counts, pcounts)
+        assert float((sums - psums).abs().max()) <= 1e-5 * float(psums.abs().max())
+
+
+@pytest.mark.parametrize("m,k,d", [(8192, 512, 64), (8191, 512, 64), (300, 512, 64),
+                                   (1000, 37, 12), (77, 2000, 256), (64, 1, 4)])
+def test_vq_kernel_matches_plain(dev, m, k, d):
+    """quantized exact codebook rows, equal to the plain version's except on
+    near-tie rows; counts exact and summing to M (ragged M included); sums
+    within 1e-5 of the largest |sum| (row-order sums against a matrix
+    product). K = 2000 at D = 256 takes several codebook chunks."""
+    x = _rand((m, d), m + k, dev)
+    cb = _rand((k, d), d, dev)
+    _vq_check(x, cb)
+
+
+def test_vq_kernel_takes_the_first_index_on_exact_ties(dev):
+    """A codebook with rows 7 and 20 equal to row 3, and rows close to it:
+    every tie goes to code 3, as in torch.argmax and jnp.argmax."""
+    cb = _rand((32, 16), 1, dev)
+    cb[[7, 20]] = cb[3].clone()
+    x = _rand((500, 16), 2, dev)
+    x[:100] = cb[3] + 0.01 * _rand((100, 16), 3, dev)
+    _vq_check(x, cb)
+    _, counts, _ = vq_cuda.vq_quantize_fused(x, cb)
+    assert counts[3] >= 100 and counts[7] == counts[20] == 0
+
+
+def test_vq_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    x, cb = _rand((64, 16), 0, dev), _rand((8, 16), 1, dev)
+    with pytest.raises(TypeError):
+        vq_cuda.vq_quantize_fused(x.double(), cb.double())
+    with pytest.raises(ValueError, match="from 4 to 256"):
+        vq_cuda.vq_quantize_fused(_rand((64, 260), 0, dev), _rand((8, 260), 1, dev))
+    with pytest.raises(ValueError, match="from 4 to 256"):
+        vq_cuda.vq_quantize_fused(x[:, :14].contiguous(), cb[:, :14].contiguous())
+    with pytest.raises(ValueError):
+        vq_cuda.vq_quantize_fused(x, cb[:, :8].contiguous())
+    with pytest.raises(ValueError):
+        vq_cuda.vq_quantize_fused(x, cb.cpu())
+    with pytest.raises(ValueError):
+        vq_cuda.vq_quantize_fused(x.T.contiguous().T, cb)
+    with pytest.raises(ValueError, match="16-byte"):
+        vq_cuda.vq_quantize_fused(x.reshape(-1)[1:1 + 63 * 16].reshape(63, 16), cb)
+
+
+VQ_TINY = dict(in_channels=3, out_channels=3, hidden_channels=32, residual_channels=8,
+               n_residual_blocks=1, n_embeddings=32, embedding_dim=16, in_shape=(16, 16, 3))
+
+
+@pytest.mark.parametrize("use_fused", [True, False])
+def test_vq_vae_on_cuda_runs_the_kernel_on_the_fused_route(dev, use_fused):
+    """One training forward and backward: the fused route launches the VQ
+    kernel once, the unfused route never; both match the CPU model (fused
+    there means the kernel's plain version) within 1e-4 (f32 convolutions
+    in another order) and move the EMA buffers alike."""
+    model = VectorQuantizedVAE(**VQ_TINY, use_fused=use_fused,
+                               generator=torch.Generator().manual_seed(0), device=dev)
+    cpu = VectorQuantizedVAE(**VQ_TINY, use_fused=use_fused, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    x = torch.rand((4, 16, 16, 3), generator=torch.Generator().manual_seed(1))
+    before = vq_cuda.launches
+    model.train()
+    cpu.train()
+    out, loss = model(x.to(dev))
+    (out.square().mean() + loss).backward()
+    torch.cuda.synchronize()
+    assert vq_cuda.launches == before + (1 if use_fused else 0)
+    ref, ref_loss = cpu(x)
+    (ref.square().mean() + ref_loss).backward()
+    torch.testing.assert_close(out.detach().cpu(), ref.detach(), rtol=0, atol=1e-4)
+    for (name, b), (_, bc) in zip(model.named_buffers(), cpu.named_buffers()):
+        torch.testing.assert_close(b.cpu(), bc, rtol=0, atol=1e-4, msg=name)
+    for (name, p), (_, pc) in zip(model.named_parameters(), cpu.named_parameters()):
+        torch.testing.assert_close(p.grad.cpu(), pc.grad, rtol=1e-3, atol=1e-5, msg=name)
