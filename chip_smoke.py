@@ -39,7 +39,13 @@ launch a call); a Trainer epoch at batch 128 with eval and a sample grid;
 gradients and 3 Adam steps against the CPU; times (the flash kernels
 beside masked SDPA, the train step with a profile, the sample call and
 kernel at n = 16 and 64 with bounds and a latency floor, a profiled sample
-call). The line before the last is the per-kernel JSON summary; the last
+call). Then the widths the JAX package runs (``wide_phases``), VQ-VAE
+(``vq_vae_phases``) and ImageGPT at ``LARGE_CONFIG`` with the fused
+attention block (``PGT_FUSED_ATTN=1``) under the MLP backward's saved-y,
+recompute and pipelined routes (``fused_attn_phases``): the block kernel
+and both routes against their plain versions, the forward and a train
+step a route with their launches, gradients and 3 Adam steps against the
+CPU, times. The line before the last is the per-kernel JSON summary; the last
 line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 before that line; without a CUDA device it fails at once.
 """
@@ -119,6 +125,17 @@ VQ_NEAR_TIE = 1e-5
 # of the largest |sum|: row-order f32 sums of up to 8192 rows against a
 # matrix product.
 VQ_SUMS_RTOL = 1e-5
+# The fused attention block (PGT_FUSED_ATTN=1) against its plain version:
+# y and attn as a share of each one's largest magnitude (f32 sums over C =
+# 512 and the keys in another order than cuBLAS's), lse absolutely, as the
+# flash forward's. Its widths: reproduce()'s C = 64 with 2 heads,
+# LARGE_CONFIG's C = 512 with 8 and bench.py's C = 512 with 4.
+BLOCK_RTOL = 1e-4
+BLOCK_LSE_TOL = 5e-5
+BLOCK_WIDTHS = ((64, 2), (512, 8), (512, 4))
+# The MLP backward's routes: saved y (the default), recompute
+# (_SAVE_PREACT = False) and the pipelined one (PGT_MLP_BWD=pipe).
+MLP_ROUTES = ("saved", "recompute", "pipe")
 # Bounds: NVIDIA's H100 SXM data sheet, at its 700 W limit.
 F32_FLOPS = 67e12   # f32 on the CUDA cores, FMA = 2 operations
 HBM_BYTES = 3.35e12  # HBM3 bytes/s
@@ -1305,6 +1322,315 @@ def pixel_snail_phases(dev, gen, smi, reset_counts, read_counts):
                    "bound_by": snail_bounds[SNAIL_N[0]][1], "library_ms": None},
     }
 
+def block_work(b, l, c, e, c_out, n_heads, mask_center):
+    """(FLOPs, bytes) of the fused attention block's forward: the
+    projections 2 B L C (2E + O) and 2 B L O C' (O = E) plus the attention
+    (flash_work); x and the weights read once, y, attn and lse written
+    once."""
+    d = e // n_heads
+    flops = (2 * b * l * c * 3 * e + 2 * b * l * e * c_out
+             + flash_work(b, l, n_heads, d, d, mask_center))
+    nbytes = 4 * (b * l * c + 3 * c * e + 3 * e + e * c_out + c_out
+                  + b * l * (c_out + e + n_heads))
+    return flops, nbytes
+
+
+def block_operands(b, l, c, gen, dev):
+    """x (B, L, C) and seeded weights of a block of width C (E = O = C'):
+    wq, bq, wkv, bkv, wo, bo."""
+    x = torch.randn((b, l, c), generator=gen)
+    ws = [torch.randn(shape, generator=gen) * s for shape, s in (
+        ((c, c), c ** -0.5), ((c,), 0.1), ((c, 2 * c), c ** -0.5), ((2 * c,), 0.1),
+        ((c, c), c ** -0.5), ((c,), 0.1))]
+    return [t.to(dev) for t in (x, *ws)]
+
+
+def block_composition(x, wq, bq, wkv, bkv, wo, bo, n_heads):
+    """addmm -> causal SDPA -> addmm: the composition the fused block
+    replaces, its library yardstick (the port never calls it)."""
+    b, l, c = x.shape
+    e = wq.shape[1]
+    x2 = x.reshape(-1, c)
+    q = torch.addmm(bq, x2, wq).view(b, l, n_heads, -1).transpose(1, 2)
+    kv = torch.addmm(bkv, x2, wkv).view(b, l, 2, n_heads, -1)
+    att = F.scaled_dot_product_attention(q, kv[:, :, 0].transpose(1, 2),
+                                         kv[:, :, 1].transpose(1, 2), is_causal=True)
+    return torch.addmm(bo, att.transpose(1, 2).reshape(b * l, e), wo)
+
+
+def set_mlp_route(route):
+    """The MLP backward's route as a user picks it: mlp_cuda._SAVE_PREACT
+    and PGT_MLP_BWD."""
+    from pytorch_generative_tpu_torch.ops import mlp_cuda
+
+    mlp_cuda._SAVE_PREACT = route != "recompute"
+    os.environ["PGT_MLP_BWD"] = "pipe" if route == "pipe" else "mono"
+
+
+def fused_attn_phases(dev, gen, smi, reset_counts, read_counts):
+    """ImageGPT at LARGE_CONFIG with the fused attention block
+    (PGT_FUSED_ATTN=1) under the MLP backward's three routes: the block
+    kernel against its plain version at its three widths (B 64, L 784, and
+    L 200 with mask_center); the recompute and pipelined MLP backwards
+    against the saved-y route's plain version at R = 50,176, C = 512 and
+    1024, and bit for bit against the saved-y kernel; the forward at batch
+    64 against the CPU with its launches; one train step a route with its
+    launches; gradients and 3 Adam steps a route against the CPU at batch
+    2; times of the new kernels beside their plain versions, bounds and
+    library yardsticks, of the forward and the step with the gate on and
+    off and under each route; a profiled gated step. Returns the launch
+    counts of its main path runs and the three kernels' entries of the
+    per-kernel summary."""
+    from pytorch_generative_tpu_torch import optim, trainer
+    from pytorch_generative_tpu_torch.models import ImageGPT
+    from pytorch_generative_tpu_torch.models.autoregressive import image_gpt
+    from pytorch_generative_tpu_torch.ops import (
+        attention_cuda,
+        attn_block_cuda,
+        ln_cuda,
+        mlp_cuda,
+    )
+
+    cfg = image_gpt.LARGE_CONFIG
+    h, w, _ = cfg["in_shape"]
+    c, hb, nb = cfg["n_embedding_channels"], cfg["n_attention_heads"], cfg["n_transformer_blocks"]
+    l = h * w
+    rows = BATCH * l
+    route_kernel = {"saved": mlp_cuda.BWD_KERNEL, "recompute": mlp_cuda.RECOMPUTE_KERNEL,
+                    "pipe": mlp_cuda.PIPE_KERNEL}
+
+    # Phase A1: the block kernel against its plain version at its widths.
+    block_err = 0.0
+    for cw, heads in BLOCK_WIDTHS:
+        for ll, mask_center in ((l, False), (200, True)):
+            ops = block_operands(BATCH, ll, cw, gen, dev)
+            y, attn, lse = attn_block_cuda.attention_block_forward(*ops, mask_center, heads)
+            ry, rattn, rlse = attn_block_cuda.attention_block_plain(*ops, mask_center, heads)
+            torch.cuda.synchronize()
+            (e_y, m_y), (e_a, m_a) = rel_err(y, ry), rel_err(attn, rattn)
+            e_l = max_err(lse, rlse)
+            block_err = max(block_err, e_y, e_a, e_l)
+            print(f"phase block C={cw} H={heads}: B={BATCH} L={ll} mask_center={mask_center} "
+                  f"max_abs_err y={e_y:.3e} ({m_y:.3e}) attn={e_a:.3e} ({m_a:.3e}) (tol "
+                  f"{BLOCK_RTOL} x max |plain|) lse={e_l:.3e} (tol {BLOCK_LSE_TOL})", flush=True)
+            check(e_y <= BLOCK_RTOL * m_y and e_a <= BLOCK_RTOL * m_a and e_l <= BLOCK_LSE_TOL,
+                  f"the block kernel disagrees at C = {cw}, {heads} heads")
+            if mask_center:
+                check(bool((attn[:, 0] == 0).all()) and bool(torch.isneginf(lse[:, :, 0]).all()),
+                      "row 0 under mask_center is not attn 0 with lse -inf in the block")
+            del ops, y, attn, lse, ry, rattn, rlse
+
+    # Phase A2: the recompute and pipelined MLP backwards at the path's rows
+    # and C = 1024, from the forward kernel's y: within MLP_RTOL of the
+    # saved-y route's plain version, and equal to the saved-y kernel.
+    route_err = {"recompute": 0.0, "pipe": 0.0}
+    for cw in (c, WIDE_C[-1]):
+        f = 4 * cw
+        x = (2.0 * torch.randn((rows, cw), generator=gen) + 0.5).to(dev)
+        gamma = (1.0 + 0.1 * torch.randn((cw,), generator=gen)).to(dev)
+        beta = (0.1 * torch.randn((cw,), generator=gen)).to(dev)
+        dout = torch.randn((rows, cw), generator=gen).to(dev)
+        w1 = (torch.randn((cw, f), generator=gen) / cw ** 0.5).to(dev)
+        b1 = (0.1 * torch.randn((f,), generator=gen)).to(dev)
+        w2 = (torch.randn((f, cw), generator=gen) / f ** 0.5).to(dev)
+        b2 = (0.1 * torch.randn((cw,), generator=gen)).to(dev)
+        _, y = mlp_cuda.ln_mlp_forward(x, gamma, beta, w1, b1, w2, b2, 1e-5)
+        saved = mlp_cuda.ln_mlp_backward(x, dout, y, gamma, beta, w1, b1, w2, 1e-5)
+        want = mlp_cuda.ln_mlp_backward_plain(x, dout, y, gamma, beta, w1, b1, w2, 1e-5)
+        got = {"recompute": mlp_cuda.ln_mlp_backward_recompute(x, dout, gamma, beta, w1, b1,
+                                                               w2, 1e-5),
+               "pipe": mlp_cuda.ln_mlp_backward_pipe(x, dout, y, gamma, beta, w1, b1, w2, 1e-5)}
+        torch.cuda.synchronize()
+        for route, grads in got.items():
+            errs = [rel_err(g_, w_) for g_, w_ in zip(grads, want)]
+            equal = all(torch.equal(g_, s_) for g_, s_ in zip(grads, saved))
+            route_err[route] = max(route_err[route], *(e for e, _ in errs))
+            print(f"phase mlp route {route}: R={rows} C={cw} F={f} max_abs_err (max |plain|) "
+                  + ", ".join(f"{n}={e:.3e} ({m:.3e})" for n, (e, m) in zip(
+                      ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2"), errs))
+                  + f" (tol {MLP_RTOL} x max |plain|); equal to the saved-y kernel: {equal}",
+                  flush=True)
+            check(all(e <= MLP_RTOL * m for e, m in errs),
+                  f"the {route} MLP backward disagrees at C = {cw}")
+            check(equal, f"the {route} MLP backward's bits differ from the saved-y route's")
+        del x, dout, y, saved, want, got
+
+    # Phase A3: the forward at batch 64 through the entry point with the
+    # gate on: per forward 8 block kernels, no flash forward, 9 LayerNorms
+    # and 8 fused MLPs; the same weights on the CPU's plain path at batch 2.
+    os.environ["PGT_FUSED_ATTN"] = "1"
+    big = ImageGPT(**cfg, generator=gen, device=dev)
+    with torch.no_grad():
+        big.pos.copy_(0.1 * torch.randn(big.pos.shape, generator=gen))
+    big.eval()
+    x = (torch.rand((BATCH, h, w, 1), generator=gen) < 0.3).float().to(dev)
+    reset_counts()
+    with torch.no_grad():
+        logits = big(x)
+        loss = image_gpt.reproduce_loss(x, None, logits)
+    torch.cuda.synchronize()
+    serve_counts = read_counts()
+    want = {k_: 0 for k_ in serve_counts}
+    want.update({attn_block_cuda.KERNEL: nb, ln_cuda.KERNEL: nb + 1, mlp_cuda.KERNEL: nb})
+    print(f"phase serve gated C={c}: forward logits {tuple(logits.shape)} nll={float(loss):.4f} "
+          f"nats/image; launches={serve_counts}", flush=True)
+    check(logits.shape == (BATCH, h, w, 1) and bool(torch.isfinite(logits).all()),
+          "bad logits with the fused block")
+    check(serve_counts == want, f"gated forward launches {serve_counts}, expected {want}")
+    cpu_big = ImageGPT(**cfg, device="cpu")
+    cpu_big.load_state_dict({k_: t.cpu() for k_, t in big.state_dict().items()})
+    with torch.no_grad():
+        ref = cpu_big(x[:2].cpu())
+    fwd_err = float((logits[:2].cpu() - ref).abs().max())
+    scale = max(1.0, float(ref.abs().max()))
+    print(f"phase serve gated C={c}: forward vs plain CPU forward (batch 2) max_abs_err="
+          f"{fwd_err:.3e} (tol {FORWARD_TOL} x max(1, max |logit|) = {FORWARD_TOL * scale:.3e})",
+          flush=True)
+    check(fwd_err <= FORWARD_TOL * scale, "the gated forward disagrees with the CPU")
+    del logits, ref
+
+    # Phase A4: one Trainer step a route at batch 64: per step 8 block
+    # kernels and 8 projection recomputes, 8 flash backwards and no flash
+    # forward, 9 LayerNorm forwards and backwards, 8 fused MLP forwards and
+    # 8 of the route's backward; then, at batch 2 against the CPU,
+    # gradients and 3 Adam steps under each route.
+    step_trainer = trainer.Trainer(
+        ImageGPT(**cfg, generator=torch.Generator().manual_seed(SEED), device=dev),
+        image_gpt.reproduce_loss, optim.adam_multiplicative(5e-3, 0.999977), [], [],
+        log_dir=tempfile.mkdtemp(prefix="chip_smoke_gated_"), use_tensorboard=False, device=dev)
+    xb = (torch.rand((BATCH, h, w, 1), generator=gen) < 0.13).float().numpy()
+    train_counts = []
+    for route in MLP_ROUTES:
+        set_mlp_route(route)
+        reset_counts()
+        step_loss = float(step_trainer.train_one_step(xb, None)[0]["loss"])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        train_counts.append(counts)
+        want = {k_: 0 for k_ in counts}
+        want.update({attn_block_cuda.KERNEL: nb, attn_block_cuda.PROJECT_KERNEL: nb,
+                     attention_cuda.BWD_KERNEL: nb, ln_cuda.KERNEL: nb + 1,
+                     ln_cuda.BWD_KERNEL: nb + 1, mlp_cuda.KERNEL: nb, route_kernel[route]: nb})
+        print(f"phase train gated C={c} route {route}: one step at batch {BATCH}, loss "
+              f"{step_loss:.3f}; launches={counts}", flush=True)
+        check(math.isfinite(step_loss), f"the gated step gave a non-finite loss ({route})")
+        check(counts == want, f"gated train launches {counts} ({route}), expected {want}")
+    for route in MLP_ROUTES[1:]:
+        set_mlp_route(route)
+        cpu_big.load_state_dict({k_: t.cpu() for k_, t in big.state_dict().items()})
+        grads_vs_cpu(big, cpu_big, x[:2], f" gated C={c} route {route}")
+        trajectory(big, cpu_big, dev,
+                   [(torch.rand((2, h, w, 1), generator=gen) < 0.13).float().numpy()
+                    for _ in range(3)], f" gated C={c} route {route}")
+    del big, cpu_big
+
+    # Phase A5: times. The new kernels at the path's shapes beside their
+    # plain versions, bounds and library yardsticks; the saved-y kernel
+    # beside the pipelined one in the same call.
+    ops = block_operands(BATCH, l, c, gen, dev)
+    block_t = {"kernel": time_ms(lambda: attn_block_cuda.attention_block_forward(
+                   *ops, False, hb), 10, 2),
+               "plain": time_ms(lambda: attn_block_cuda.attention_block_plain(
+                   *ops, False, hb), 5, 1),
+               "library": time_ms(lambda: block_composition(*ops, hb), 10, 2),
+               "kernel2": time_ms(lambda: attn_block_cuda.attention_block_forward(
+                   *ops, False, hb), 10, 2)}
+    block_bound = bound(*block_work(BATCH, l, c, c, c, hb, False))
+    print(f"phase times block [{smi}]: attn_block_fwd (B={BATCH}, L={l}, C={c}, H={hb}) kernel "
+          f"{block_t['kernel']:.4f}/{block_t['kernel2']:.4f} ms, plain {block_t['plain']:.4f} ms, "
+          f"addmm -> causal SDPA -> addmm {block_t['library']:.4f} ms, bound "
+          f"{block_bound[0]:.4f} ms ({block_bound[1]})", flush=True)
+    del ops
+    f = 4 * c
+    xr = torch.randn((rows, c), generator=gen).to(dev).requires_grad_()
+    params = [(1.0 + 0.1 * torch.randn((c,), generator=gen)), 0.1 * torch.randn((c,), generator=gen),
+              torch.randn((c, f), generator=gen) / c ** 0.5, 0.1 * torch.randn((f,), generator=gen),
+              torch.randn((f, c), generator=gen) / f ** 0.5, 0.1 * torch.randn((c,), generator=gen)]
+    gamma, beta, w1, b1, w2, b2 = (t.to(dev).requires_grad_() for t in params)
+    dout = torch.randn((rows, c), generator=gen).to(dev)
+    xd, gd, bd, w1d, b1d, w2d, b2d = (t.detach() for t in (xr, gamma, beta, w1, b1, w2, b2))
+    _, y = mlp_cuda.ln_mlp_forward(xd, gd, bd, w1d, b1d, w2d, b2d, 1e-5)
+
+    def composition():
+        return torch.addmm(b2, F.gelu(torch.addmm(b1, F.layer_norm(
+            xr, (c,), gamma, beta, 1e-5), w1)), w2) + xr
+
+    saved_graph = composition()
+    leaves = (xr, gamma, beta, w1, b1, w2, b2)
+    route_fns = {
+        "saved": (lambda: mlp_cuda.ln_mlp_backward(xd, dout, y, gd, bd, w1d, b1d, w2d, 1e-5),
+                  lambda: mlp_cuda.ln_mlp_backward_plain(xd, dout, y, gd, bd, w1d, b1d, w2d,
+                                                         1e-5),
+                  lambda: torch.autograd.grad(saved_graph, leaves, dout, retain_graph=True)),
+        "recompute": (lambda: mlp_cuda.ln_mlp_backward_recompute(xd, dout, gd, bd, w1d, b1d,
+                                                                 w2d, 1e-5),
+                      lambda: mlp_cuda.ln_mlp_backward_recompute_plain(xd, dout, gd, bd, w1d,
+                                                                       b1d, w2d, 1e-5),
+                      lambda: torch.autograd.grad(composition(), leaves, dout)),
+        "pipe": (lambda: mlp_cuda.ln_mlp_backward_pipe(xd, dout, y, gd, bd, w1d, b1d, w2d, 1e-5),
+                 lambda: mlp_cuda.ln_mlp_backward_plain(xd, dout, y, gd, bd, w1d, b1d, w2d, 1e-5),
+                 lambda: torch.autograd.grad(saved_graph, leaves, dout, retain_graph=True)),
+    }
+    _, mlp_bwd_work = mlp_work(rows, c, f)
+    route_bounds = {"saved": bound(*mlp_bwd_work), "pipe": bound(*mlp_bwd_work),
+                    # one more R x C x F product; y is not read
+                    "recompute": bound(mlp_bwd_work[0] + 2 * rows * c * f,
+                                       mlp_bwd_work[1] - 4 * rows * f)}
+    route_t = {}
+    for route in ("saved", "pipe", "recompute", "pipe", "saved"):
+        kern, plain, lib = route_fns[route]
+        t = route_t.setdefault(route, {"kernel": []})
+        t["kernel"].append(time_ms(kern, 5, 2))
+        if "plain" not in t:
+            t["plain"], t["library"] = time_ms(plain, 5, 1), time_ms(lib, 5, 1)
+    for route, t in route_t.items():
+        b_ms, b_by = route_bounds[route]
+        print(f"phase times mlp route {route} [{smi}]: {route_kernel[route]} (R={rows}, C={c}, "
+              f"F={f}) kernel {'/'.join(f'{v:.4f}' for v in t['kernel'])} ms, plain "
+              f"{t['plain']:.4f} ms, library {t['library']:.4f} ms, bound {b_ms:.4f} ms ({b_by})",
+              flush=True)
+    del xr, dout, y, saved_graph, route_fns
+
+    # Phase A6: the forward and the train step at batch 64, the gate on and
+    # off, the step under each route; a profiled gated step.
+    xf = torch.from_numpy(xb).to(dev)
+    model = step_trainer.model
+    path_t = {}
+    for gate in ("1", "0", "1"):
+        os.environ["PGT_FUSED_ATTN"] = gate
+        set_mlp_route("saved")
+        with torch.no_grad():
+            path_t.setdefault(f"forward gate={gate}", []).append(time_ms(lambda: model(xf), 5, 2))
+        for route in MLP_ROUTES if gate == "1" else ("saved",):
+            set_mlp_route(route)
+            path_t.setdefault(f"step gate={gate} {route}", []).append(
+                time_ms(lambda: step_trainer.train_one_step(xb, None), 3, 1))
+    print(f"phase times gated C={c} [{smi}]: batch {BATCH}: " + "; ".join(
+        f"{k_} {'/'.join(f'{v:.3f}' for v in vs)} ms" for k_, vs in path_t.items()), flush=True)
+    os.environ["PGT_FUSED_ATTN"] = "1"
+    set_mlp_route("saved")
+    step = lambda: step_trainer.train_one_step(xb, None)
+    profile_steps(step, 2, min(path_t["step gate=1 saved"]), f"train step batch {BATCH}",
+                  (BATCH, "samples"), f"step gated C={c}", smi,
+                  ("attn_block", "gemm_kernel", "flash_bwd", "ln_bwd_rows", "ln_fwd"))
+    shutil.rmtree(step_trainer.log_dir, ignore_errors=True)
+    del os.environ["PGT_FUSED_ATTN"], os.environ["PGT_MLP_BWD"]
+
+    def entry(name, replaces, err, t_kernel, t_plain, t_lib, b):
+        return {"name": name, "route": "cuda",
+                "source": "pytorch_generative_tpu_torch/csrc/" + (
+                    "attn_block_fwd.cu" if name == attn_block_cuda.KERNEL else "mlp_bwd.cu"),
+                "replaces": replaces, "max_abs_err": err, "ms": t_kernel, "plain_ms": t_plain,
+                "bound_ms": b[0], "bound_by": b[1], "library_ms": t_lib}
+
+    return {"counts": [serve_counts, *train_counts], "kernels": [
+        entry(attn_block_cuda.KERNEL, "pytorch_generative_tpu/ops/attn_block_pallas.py:57",
+              block_err, block_t["kernel"], block_t["plain"], block_t["library"], block_bound),
+        *(entry(route_kernel[route], f"pytorch_generative_tpu/ops/mlp_pallas.py:{line}",
+                route_err[route], route_t[route]["kernel"][0], route_t[route]["plain"],
+                route_t[route]["library"], route_bounds[route])
+          for route, line in (("recompute", 112), ("pipe", 187)))]}
+
 
 def main():
     # Phase 1: device.
@@ -1316,6 +1642,7 @@ def main():
     from pytorch_generative_tpu_torch.ops import (
         _build,
         attention_cuda,
+        attn_block_cuda,
         decode_cuda,
         ln_cuda,
         mlp_cuda,
@@ -1340,7 +1667,8 @@ def main():
     # one nvcc per source, all started together.
     names = (attention_cuda.KERNEL, attention_cuda.BWD_KERNEL, decode_cuda.KERNEL,
              decode_cuda.DECODE_STEP_KERNEL, ln_cuda.KERNEL, ln_cuda.BWD_KERNEL,
-             mlp_cuda.KERNEL, mlp_cuda.BWD_KERNEL, snail_decode_cuda.KERNEL, vq_cuda.KERNEL)
+             mlp_cuda.KERNEL, mlp_cuda.BWD_KERNEL, snail_decode_cuda.KERNEL, vq_cuda.KERNEL,
+             attn_block_cuda.KERNEL)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         paths = dict(zip(names, pool.map(_build.build, names)))
@@ -1429,12 +1757,18 @@ def main():
             mod.launches = mod.bwd_launches = 0
         decode_cuda.launches = decode_cuda.step_launches = 0
         snail_decode_cuda.launches = vq_cuda.launches = 0
+        attn_block_cuda.launches = attn_block_cuda.project_launches = 0
+        mlp_cuda.recompute_launches = mlp_cuda.pipe_launches = 0
 
     def read_counts():
         counts = {decode_cuda.KERNEL: decode_cuda.launches,
                   decode_cuda.DECODE_STEP_KERNEL: decode_cuda.step_launches,
                   snail_decode_cuda.KERNEL: snail_decode_cuda.launches,
-                  vq_cuda.KERNEL: vq_cuda.launches}
+                  vq_cuda.KERNEL: vq_cuda.launches,
+                  attn_block_cuda.KERNEL: attn_block_cuda.launches,
+                  attn_block_cuda.PROJECT_KERNEL: attn_block_cuda.project_launches,
+                  mlp_cuda.RECOMPUTE_KERNEL: mlp_cuda.recompute_launches,
+                  mlp_cuda.PIPE_KERNEL: mlp_cuda.pipe_launches}
         for mod in pairs:
             counts[mod.KERNEL], counts[mod.BWD_KERNEL] = mod.launches, mod.bwd_launches
         return counts
@@ -1893,9 +2227,13 @@ def main():
     # ---- VQ-VAE (vq_vae_phases). ----
     vq = vq_vae_phases(dev, gen, smi, reset_counts, read_counts)
 
+    # ---- ImageGPT with the fused attention block, under the MLP
+    # backward's three routes (fused_attn_phases). ----
+    gated = fused_attn_phases(dev, gen, smi, reset_counts, read_counts)
+
     all_counts = (serve_counts, train_counts, big_serve_counts, big_train_counts,
                   *big_sample_counts, *route_counts, *snail["counts"], *wide["counts"],
-                  *vq["counts"])
+                  *vq["counts"], *gated["counts"])
     # The flash kernels' (d_k, d_v) instances this run held against the
     # plain version; ms, plain_ms and library_ms are reproduce()'s d = 32.
     instances = [f"{dk}x{dv}" for dk, dv in ((d, d), (db, db), (wide["d"], wide["d"]), (4, 32))]
@@ -1940,6 +2278,7 @@ def main():
               (mlp_cuda.BWD_KERNEL, "pytorch_generative_tpu/ops/mlp_pallas.py:102", mlp_bwd_err))),
         dict(snail["kernel"], launches=sum(cs[snail_decode_cuda.KERNEL] for cs in all_counts)),
         dict(vq["kernel"], launches=sum(cs[vq_cuda.KERNEL] for cs in all_counts)),
+        *(dict(k_, launches=sum(cs[k_["name"]] for cs in all_counts)) for k_ in gated["kernels"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -14,29 +14,22 @@
 // memory bandwidth, not by device memory. This first version keeps the
 // design simple: one CTA per (64-row query tile, head, batch), 2 threads per
 // query row, K/V tiles staged through shared memory with loads coalesced over
-// the packed row, and a k-loop that stops at the causal diagonal. The ragged
-// last tile (L % 64 != 0) is masked in the kernel. Tensor cores (wgmma) and
-// TMA pipelining are left to later work.
+// the packed row, and a k-loop that stops at the causal diagonal (the tile
+// pass of flash_fwd.cuh). Where d_k == d_v, one loop stages k and v, so that
+// both loads of an element are in flight at once: staging them in two loops
+// made the (32, 32) and (64, 64) instances 1.4x slower on an H100 at the
+// same bits.
+// Tensor cores (wgmma) and TMA pipelining are left to later work.
 //
 // Wide heads (d = 128, bench.py's C = 512 model with 4 heads) take their own
-// kernel, flash_fwd_wide_kernel: two threads a row would hold 128 q values
-// and 64 accumulators each, past the register file. There four threads
-// share a query row, q stays in shared memory, and each thread takes every
-// fourth key of a tile and every fourth output feature (so neighbouring
-// threads read neighbouring banks); 32 accumulators a thread. The narrower
-// instances keep the two-threads-a-row kernel above, bit for bit.
+// kernel, flash_fwd_wide_kernel, on flash_fwd.cuh's four-threads-a-row tile
+// pass.
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
+#include "flash_fwd.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kThreads = 2 * kBlockQ;  // two threads share one query row
-constexpr int kHalfK = kBlockK / 2;    // keys per thread per tile
-constexpr float kLn2 = 0.6931471805599453f;
+using namespace flash;
 
 template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads)
@@ -45,102 +38,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  float* __restrict__ lse, int L, int H,
                  int64_t q_bs, int64_t q_rs, int64_t k_bs, int64_t k_rs,
                  int64_t v_bs, int64_t v_rs, float scale_log2, int offset) {
-  static_assert(kBlockQ == kBlockK, "q is staged through the k tile");
-  constexpr int DH = DV / 2;  // output features per thread
   extern __shared__ float smem[];
-  float* ks = smem;                       // kBlockK x (DK + 1), padded rows
-  float* vs = ks + kBlockK * (DK + 1);    // kBlockK x DV
-  float* ps = vs + kBlockK * DV;          // kBlockQ x (kBlockK + 1)
-
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int r = tid >> 1, half = tid & 1;
-  const int qrow = qt * kBlockQ + r;
-  const bool row_ok = qrow < L;
-
-  // Stage the q tile through shared memory (coalesced), then keep each row,
-  // pre-scaled into the base-2 domain, in registers.
-  for (int idx = tid; idx < kBlockQ * DK; idx += kThreads) {
-    const int rr = idx / DK, cc = idx % DK;
-    const int row = qt * kBlockQ + rr;
-    ks[rr * (DK + 1) + cc] =
-        row < L ? q[b * q_bs + row * q_rs + h * DK + cc] * scale_log2 : 0.f;
-  }
-  __syncthreads();
-  float qreg[DK];
-#pragma unroll
-  for (int d = 0; d < DK; ++d) qreg[d] = ks[r * (DK + 1) + d];
-
-  float m = -CUDART_INF_F, l = 0.f;
-  float acc[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) acc[d] = 0.f;
-
-  // kBlockQ == kBlockK, so the diagonal of query tile qt lies in key tile qt.
-  for (int kt = 0; kt <= qt; ++kt) {
-    __syncthreads();  // every reader of the previous tile is done
-    for (int idx = tid; idx < kBlockK * DK; idx += kThreads) {
-      const int rr = idx / DK, cc = idx % DK;
-      const int key = kt * kBlockK + rr;
-      ks[rr * (DK + 1) + cc] =
-          key < L ? k[b * k_bs + key * k_rs + h * DK + cc] : 0.f;
-    }
-    for (int idx = tid; idx < kBlockK * DV; idx += kThreads) {
-      const int rr = idx / DV, cc = idx % DV;
-      const int key = kt * kBlockK + rr;
-      vs[rr * DV + cc] = key < L ? v[b * v_bs + key * v_rs + h * DV + cc] : 0.f;
-    }
-    __syncthreads();
-
-    float s[kHalfK];
-    float m_cur = -CUDART_INF_F;
-#pragma unroll
-    for (int j = 0; j < kHalfK; ++j) {
-      const int c = half * kHalfK + j;
-      const int key = kt * kBlockK + c;
-      float dot = 0.f;
-#pragma unroll
-      for (int d = 0; d < DK; ++d) dot += qreg[d] * ks[c * (DK + 1) + d];
-      const bool ok = row_ok && key < L && key + offset <= qrow;
-      s[j] = ok ? dot : -CUDART_INF_F;
-      m_cur = fmaxf(m_cur, s[j]);
-    }
-    m_cur = fmaxf(m_cur, __shfl_xor_sync(0xffffffffu, m_cur, 1));
-    const float m_new = fmaxf(m, m_cur);
-    const float m_safe = isinf(m_new) ? 0.f : m_new;
-    const float alpha = isinf(m) ? 0.f : exp2f(m - m_safe);
-    float p_sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kHalfK; ++j) {
-      const float p = exp2f(s[j] - m_safe);  // masked: exp2(-inf) == 0
-      p_sum += p;
-      ps[r * (kBlockK + 1) + half * kHalfK + j] = p;
-    }
-    p_sum += __shfl_xor_sync(0xffffffffu, p_sum, 1);
-    l = alpha * l + p_sum;
-    m = m_new;
-    __syncwarp();  // the row's two halves of p live in this warp
-
-#pragma unroll
-    for (int d = 0; d < DH; ++d) acc[d] *= alpha;
-    for (int c = 0; c < kBlockK; ++c) {
-      const float p = ps[r * (kBlockK + 1) + c];
-#pragma unroll
-      for (int d = 0; d < DH; ++d) acc[d] += p * vs[c * DV + half * DH + d];
-    }
-  }
-
-  if (row_ok) {
-    const float denom = l == 0.f ? 1.f : l;
-    float* op = out + (static_cast<int64_t>(b) * L + qrow) * H * DV + h * DV +
-                half * DH;
-#pragma unroll
-    for (int d = 0; d < DH; ++d) op[d] = acc[d] / denom;
-    if (half == 0) {
-      lse[(static_cast<int64_t>(b) * H + h) * L + qrow] =
-          l == 0.f ? -CUDART_INF_F : m * kLn2 + logf(fmaxf(l, 1e-38f));
-    }
-  }
+  tile<DK, DV>(q, k, v, out, lse, L, H, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs,
+               scale_log2, offset, smem, blockIdx.x, blockIdx.y, blockIdx.z);
 }
 
 template <int DK, int DV>
@@ -148,8 +48,7 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* out,
                    float* lse, int B, int L, int H, int64_t q_bs, int64_t q_rs,
                    int64_t k_bs, int64_t k_rs, int64_t v_bs, int64_t v_rs,
                    int mask_center, cudaStream_t stream) {
-  const size_t smem = sizeof(float) *
-      (kBlockK * (DK + 1) + kBlockK * DV + kBlockQ * (kBlockK + 1));
+  const size_t smem = sizeof(float) * tile_smem_floats<DK, DV>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -162,12 +61,6 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* out,
   return cudaGetLastError();
 }
 
-constexpr int kWideTpr = 4;                   // threads per query row
-constexpr int kWideThreads = kWideTpr * kBlockQ;
-constexpr int kWideKeys = kBlockK / kWideTpr;  // keys per thread per tile
-
-// Thread (r, part) owns query row r, the keys c = kWideTpr * j + part of
-// each tile and the output features kWideTpr * d + part.
 template <int DK, int DV>
 __global__ void __launch_bounds__(kWideThreads)
 flash_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -175,101 +68,9 @@ flash_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       float* __restrict__ lse, int L, int H,
                       int64_t q_bs, int64_t q_rs, int64_t k_bs, int64_t k_rs,
                       int64_t v_bs, int64_t v_rs, float scale_log2, int offset) {
-  static_assert(DK == DV, "k and v rows are staged by one loop");
-  static_assert(DV % kWideTpr == 0, "output features split over the row's threads");
-  constexpr int DH = DV / kWideTpr;  // output features per thread
   extern __shared__ float smem[];
-  float* qs = smem;                       // kBlockQ x (DK + 1), pre-scaled
-  float* ks = qs + kBlockQ * (DK + 1);    // kBlockK x (DK + 1)
-  float* vs = ks + kBlockK * (DK + 1);    // kBlockK x DV
-  float* ps = vs + kBlockK * DV;          // kBlockQ x (kBlockK + 1)
-
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int r = tid / kWideTpr, part = tid % kWideTpr;
-  const int qrow = qt * kBlockQ + r;
-  const bool row_ok = qrow < L;
-
-  for (int idx = tid; idx < kBlockQ * DK; idx += kWideThreads) {
-    const int rr = idx / DK, cc = idx % DK;
-    const int row = qt * kBlockQ + rr;
-    qs[rr * (DK + 1) + cc] =
-        row < L ? q[b * q_bs + row * q_rs + h * DK + cc] * scale_log2 : 0.f;
-  }
-
-  float m = -CUDART_INF_F, l = 0.f;
-  float acc[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) acc[d] = 0.f;
-
-  for (int kt = 0; kt <= qt; ++kt) {
-    __syncthreads();  // q is staged; every reader of the previous tile is done
-    // k and v together: both loads of an element in flight at once.
-    for (int idx = tid; idx < kBlockK * DK; idx += kWideThreads) {
-      const int rr = idx / DK, cc = idx % DK;
-      const int key = kt * kBlockK + rr;
-      float kval = 0.f, vval = 0.f;
-      if (key < L) {
-        kval = k[b * k_bs + key * k_rs + h * DK + cc];
-        vval = v[b * v_bs + key * v_rs + h * DV + cc];
-      }
-      ks[rr * (DK + 1) + cc] = kval;
-      vs[rr * DV + cc] = vval;
-    }
-    __syncthreads();
-
-    float s[kWideKeys];
-    float m_cur = -CUDART_INF_F;
-#pragma unroll
-    for (int j = 0; j < kWideKeys; ++j) {
-      const int c = kWideTpr * j + part;
-      const int key = kt * kBlockK + c;
-      float dot = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < DK; ++d) dot += qs[r * (DK + 1) + d] * ks[c * (DK + 1) + d];
-      const bool ok = row_ok && key < L && key + offset <= qrow;
-      s[j] = ok ? dot : -CUDART_INF_F;
-      m_cur = fmaxf(m_cur, s[j]);
-    }
-#pragma unroll
-    for (int o = 1; o < kWideTpr; o <<= 1)
-      m_cur = fmaxf(m_cur, __shfl_xor_sync(0xffffffffu, m_cur, o));
-    const float m_new = fmaxf(m, m_cur);
-    const float m_safe = isinf(m_new) ? 0.f : m_new;
-    const float alpha = isinf(m) ? 0.f : exp2f(m - m_safe);
-    float p_sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kWideKeys; ++j) {
-      const float p = exp2f(s[j] - m_safe);  // masked: exp2(-inf) == 0
-      p_sum += p;
-      ps[r * (kBlockK + 1) + kWideTpr * j + part] = p;
-    }
-#pragma unroll
-    for (int o = 1; o < kWideTpr; o <<= 1)
-      p_sum += __shfl_xor_sync(0xffffffffu, p_sum, o);
-    l = alpha * l + p_sum;
-    m = m_new;
-    __syncwarp();  // the row's four parts of p live in this warp
-
-#pragma unroll
-    for (int d = 0; d < DH; ++d) acc[d] *= alpha;
-    for (int c = 0; c < kBlockK; ++c) {
-      const float p = ps[r * (kBlockK + 1) + c];
-#pragma unroll
-      for (int d = 0; d < DH; ++d) acc[d] += p * vs[c * DV + kWideTpr * d + part];
-    }
-  }
-
-  if (row_ok) {
-    const float denom = l == 0.f ? 1.f : l;
-    float* op = out + (static_cast<int64_t>(b) * L + qrow) * H * DV + h * DV + part;
-#pragma unroll
-    for (int d = 0; d < DH; ++d) op[kWideTpr * d] = acc[d] / denom;
-    if (part == 0) {
-      lse[(static_cast<int64_t>(b) * H + h) * L + qrow] =
-          l == 0.f ? -CUDART_INF_F : m * kLn2 + logf(fmaxf(l, 1e-38f));
-    }
-  }
+  wide_tile<DK, DV>(q, k, v, out, lse, L, H, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs,
+                    scale_log2, offset, smem, blockIdx.x, blockIdx.y, blockIdx.z);
 }
 
 template <int DK, int DV>
@@ -277,8 +78,7 @@ cudaError_t launch_wide(const float* q, const float* k, const float* v, float* o
                         float* lse, int B, int L, int H, int64_t q_bs, int64_t q_rs,
                         int64_t k_bs, int64_t k_rs, int64_t v_bs, int64_t v_rs,
                         int mask_center, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (kBlockQ * (DK + 1) + kBlockK * (DK + 1) +
-                                       kBlockK * DV + kBlockQ * (kBlockK + 1));
+  const size_t smem = sizeof(float) * wide_tile_smem_floats<DK, DV>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_wide_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

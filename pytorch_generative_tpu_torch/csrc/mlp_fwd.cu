@@ -24,51 +24,7 @@
 // passed through erff once for each of the C / 128 column tiles that read
 // it.
 
-#include "rows.cuh"
-#include "sgemm.cuh"
-
-namespace {
-
-constexpr float kSqrtHalf = 0.7071067811865476f;
-
-__device__ __forceinline__ float gelu(float y) {
-  return 0.5f * y * (1.f + erff(y * kSqrtHalf));
-}
-
-// A(m = row, k = channel) = (x - mean) * rstd * gamma + beta.
-struct LnRows {
-  const float2* stats;
-  const float* gamma;
-  const float* beta;
-  __device__ float operator()(int m, int k, float v) const {
-    const float2 s = stats[m];
-    return (v - s.x) * s.y * gamma[k] + beta[k];
-  }
-};
-
-struct Gelu {
-  __device__ float operator()(int, int, float v) const { return gelu(v); }
-};
-
-// out[m][n..n+3] = acc + bias[n..n+3] (+ resid[m][n..n+3]).
-template <bool kResid>
-struct BiasStore {
-  const float* bias;
-  const float* resid;
-  float* out;
-  int64_t ld;
-  __device__ void operator()(int m, int n, float4 acc, int) const {
-    const float4 b = sgemm::ldg4(bias + n);
-    float4 o = make_float4(acc.x + b.x, acc.y + b.y, acc.z + b.z, acc.w + b.w);
-    if constexpr (kResid) {
-      const float4 r = sgemm::ldg4(resid + m * ld + n);
-      o = make_float4(o.x + r.x, o.y + r.y, o.z + r.z, o.w + r.w);
-    }
-    *reinterpret_cast<float4*>(out + m * ld + n) = o;
-  }
-};
-
-}  // namespace
+#include "mlp.cuh"
 
 // x (R, C), w1 (C, F), w2 (F, C), gamma/beta/b2 (C,), b1 (F,): contiguous
 // float32. Writes out (R, C) and y (R, F); stats is (R, 2) float32
@@ -79,12 +35,9 @@ extern "C" int mlp_fwd_f32(const float* x, const float* gamma, const float* beta
                            int R, int C, int F, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (F % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  float2* st = reinterpret_cast<float2*>(stats);
-  cudaError_t err = rows::row_stats(x, st, R, C, eps, s);
+  cudaError_t err = mlp::preact(x, gamma, beta, w1, b1, y,
+                                reinterpret_cast<float2*>(stats), R, C, F, eps, s);
   if (err != cudaSuccess) return err;
-  err = sgemm::gemm<false, false>(x, C, w1, F, R, F, C, 1, LnRows{st, gamma, beta},
-                                  BiasStore<false>{b1, nullptr, y, F}, s);
-  if (err != cudaSuccess) return err;
-  return sgemm::gemm<false, false>(y, F, w2, C, R, C, F, 1, Gelu{},
-                                   BiasStore<true>{b2, x, out, C}, s);
+  return sgemm::gemm<false, false>(y, F, w2, C, R, C, F, 1, mlp::Gelu{},
+                                   sgemm::BiasStore<true>{b2, x, out, C}, s);
 }

@@ -402,13 +402,14 @@ inline cudaError_t row_stats(const float* x, float2* stats, int R, int C, float 
   return cudaGetLastError();
 }
 
-// The LayerNorm backward over all rows: dx, then part (n_ctas, kAcc, C)
-// summed in order into sums (kAcc, C). resid may be null (kAcc = 2).
-inline cudaError_t ln_backward(const float* x, const float* dy, const float* gamma,
-                               const float* resid, float* dx, float* part, float* sums,
-                               int R, int C, int rows_per_cta, float eps,
-                               cudaStream_t stream) {
-  if (rows_per_cta <= 0) return cudaErrorInvalidValue;
+// The LayerNorm backward's first pass over R rows: dx and one partial
+// (kAcc, C) per CTA of rows_per_cta rows in part. resid may be null
+// (kAcc = 2).
+inline cudaError_t ln_backward_rows(const float* x, const float* dy, const float* gamma,
+                                    const float* resid, float* dx, float* part, int R,
+                                    int C, int rows_per_cta, float eps,
+                                    cudaStream_t stream) {
+  if (rows_per_cta <= 0 || R <= 0) return cudaErrorInvalidValue;
   const int n_ctas = (R + rows_per_cta - 1) / rows_per_cta;
   const int acc = resid ? 3 : 2;
   const size_t smem = sizeof(float) * acc * C;
@@ -442,9 +443,20 @@ inline cudaError_t ln_backward(const float* x, const float* dy, const float* gam
   }
 #undef PGT_LN_BWD
 #undef PGT_LN_BWD_WIDE
-  const cudaError_t err = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+// The LayerNorm backward over all rows: dx, then part (n_ctas, kAcc, C)
+// summed in order into sums (kAcc, C).
+inline cudaError_t ln_backward(const float* x, const float* dy, const float* gamma,
+                               const float* resid, float* dx, float* part, float* sums,
+                               int R, int C, int rows_per_cta, float eps,
+                               cudaStream_t stream) {
+  const cudaError_t err =
+      ln_backward_rows(x, dy, gamma, resid, dx, part, R, C, rows_per_cta, eps, stream);
   if (err != cudaSuccess) return err;
-  return sum_slices(part, sums, n_ctas, static_cast<int64_t>(acc) * C, stream);
+  const int n_ctas = (R + rows_per_cta - 1) / rows_per_cta;
+  return sum_slices(part, sums, n_ctas, static_cast<int64_t>(resid ? 3 : 2) * C, stream);
 }
 
 }  // namespace rows

@@ -1,6 +1,6 @@
 // A tiled float32 matrix product on the CUDA cores, with a transform on the
 // A operand as it is loaded and a functor as the epilogue; shared by
-// mlp_fwd.cu and mlp_bwd.cu.
+// mlp_fwd.cu, mlp_bwd.cu and attn_block_fwd.cu.
 //
 //   out(m, n) = sum over k in the CTA's split of A(m, k) * B(k, n),
 //   A(m, k) = pro(m, k, a[m * lda + k])  (kAT false: K contiguous)
@@ -164,18 +164,47 @@ gemm_kernel(const float* __restrict__ a, int64_t lda, const float* __restrict__ 
   }
 }
 
-// Launches the product over `splits` parts of K (blockIdx.z); a part may be
-// empty, and then its epilogue sees zeros.
+// Launches the product over `splits` parts of K of k_split each
+// (blockIdx.z); a part may be empty, and then its epilogue sees zeros.
 template <bool kAT, bool kBT, class Pro, class Epi>
-cudaError_t gemm(const float* a, int64_t lda, const float* b, int64_t ldb, int M,
-                 int N, int K, int splits, Pro pro, Epi epi, cudaStream_t stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || splits <= 0 || N % 4 != 0)
+cudaError_t gemm_parts(const float* a, int64_t lda, const float* b, int64_t ldb,
+                       int M, int N, int K, int splits, int k_split, Pro pro, Epi epi,
+                       cudaStream_t stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || splits <= 0 || k_split <= 0 || k_split % BK != 0
+      || N % 4 != 0)
     return cudaErrorInvalidValue;
-  const int k_split = ((K + splits - 1) / splits + BK - 1) / BK * BK;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
   gemm_kernel<kAT, kBT, Pro, Epi>
       <<<grid, kThreads, 0, stream>>>(a, lda, b, ldb, M, N, K, k_split, pro, epi);
   return cudaGetLastError();
 }
+
+// The product over `splits` parts of K of equal size, rounded up to BK.
+template <bool kAT, bool kBT, class Pro, class Epi>
+cudaError_t gemm(const float* a, int64_t lda, const float* b, int64_t ldb, int M,
+                 int N, int K, int splits, Pro pro, Epi epi, cudaStream_t stream) {
+  if (splits <= 0) return cudaErrorInvalidValue;
+  const int k_split = ((K + splits - 1) / splits + BK - 1) / BK * BK;
+  return gemm_parts<kAT, kBT>(a, lda, b, ldb, M, N, K, splits, k_split, pro, epi,
+                              stream);
+}
+
+// out[m][n..n+3] = acc + bias[n..n+3] (+ resid[m][n..n+3]).
+template <bool kResid>
+struct BiasStore {
+  const float* bias;
+  const float* resid;
+  float* out;
+  int64_t ld;
+  __device__ void operator()(int m, int n, float4 acc, int) const {
+    const float4 b = ldg4(bias + n);
+    float4 o = make_float4(acc.x + b.x, acc.y + b.y, acc.z + b.z, acc.w + b.w);
+    if constexpr (kResid) {
+      const float4 r = ldg4(resid + m * ld + n);
+      o = make_float4(o.x + r.x, o.y + r.y, o.z + r.z, o.w + r.w);
+    }
+    *reinterpret_cast<float4*>(out + m * ld + n) = o;
+  }
+};
 
 }  // namespace sgemm

@@ -1,14 +1,24 @@
 """Causal multi-head attention over image pixels and the image positional
 encoding (counterpart of ``pytorch_generative_tpu/nn/attention.py``:
-``CausalAttention``'s packed path and ``image_positional_encoding``)."""
+``CausalAttention``'s packed path, its fused-block gate and
+``image_positional_encoding``)."""
 
 from __future__ import annotations
+
+import os
 
 import torch
 from torch import nn
 
 from pytorch_generative_tpu_torch.nn.convolution import Conv2d
 from pytorch_generative_tpu_torch.ops.attention_cuda import causal_attention_packed
+from pytorch_generative_tpu_torch.ops.attn_block_cuda import attention_block_packed
+
+
+def _use_fused_block():
+    """PGT_FUSED_ATTN=1, read at every call as the JAX package reads it:
+    the whole attention block in one kernel call (``ops/attn_block_cuda``)."""
+    return os.environ.get("PGT_FUSED_ATTN") == "1"
 
 
 def image_positional_encoding(shape, device=None, dtype=torch.float32):
@@ -29,7 +39,10 @@ class CausalAttention(nn.Module):
     without shaping the attention pattern. With ``mask_center=True`` pixel i
     attends to pixels < i only and pixel 0's output is exactly 0. The packed
     (N, L, features) projections go straight into the flash kernel, which
-    carves out the heads itself.
+    carves out the heads itself. With ``PGT_FUSED_ATTN=1``, a flat sequence
+    and no ``extra_x``, the projections, the attention and the output
+    projection run as one fused block (``attention_block_packed``) on the
+    same parameters.
     """
 
     def __init__(self, in_channels: int, n_heads: int = 1,
@@ -51,6 +64,11 @@ class CausalAttention(nn.Module):
 
     def forward(self, x, extra_x=None):
         """Accepts NHWC images (N, H, W, C) or flat sequences (N, L, C)."""
+        if x.dim() == 3 and extra_x is None and _use_fused_block():
+            return attention_block_packed(
+                x, self.q_proj.weight, self.q_proj.bias, self.kv_proj.weight,
+                self.kv_proj.bias, self.out_proj.weight, self.out_proj.bias,
+                self.mask_center, self.n_heads)
         shape = x.shape
         q = self.q_proj(x)
         if extra_x is not None:

@@ -1,0 +1,180 @@
+"""The fused attention block: the QKV projection, causal flash attention and
+the output projection as one CUDA kernel call, ``csrc/attn_block_fwd.cu``,
+with its plain PyTorch version, its launch counts and the autograd Function
+around it (counterpart of ``pytorch_generative_tpu/ops/attn_block_pallas.py``,
+reached through ``PGT_FUSED_ATTN=1``).
+
+A CUDA tensor launches the kernel, or the wrapper raises; a CPU tensor takes
+the plain version. The Function saves x, the pre-Wo attention, lse and the
+weights, as the JAX package's ``_vjp_fwd`` does. Its backward recomputes q,
+k and v by the forward's own projection stage (``project``: on the card the
+kernel's projection launches, on the CPU the plain version's products), so
+that it differentiates through the forward's bits; the JAX package
+recomputes them at another precision than its forward (a defect not
+copied). The attention's backward is the flash backward kernel
+(``attention_cuda.flash_backward``), and the projection gradients and dx
+are ``torch.matmul``, as the JAX package leaves them to XLA.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from pytorch_generative_tpu_torch.ops import _build, attention_cuda
+
+KERNEL = "attn_block_fwd"
+# The backward's recompute of q, k and v: the kernel's projection stage, an
+# entry of the same source, counted apart.
+PROJECT_KERNEL = "attn_block_project"
+# The head widths (d_k == d_v) the kernel takes: reproduce()'s 32,
+# LARGE_CONFIG's 64 and bench.py's C = 512 model with 4 heads, 128.
+HEAD_DIMS = (32, 64, 128)
+
+# Kernel launches since the last reset; only _block_forward_cuda adds to
+# `launches` (one per call, which runs the projection stage and the tile
+# pass), only _project_cuda to `project_launches`.
+launches = 0
+project_launches = 0
+
+
+def _widths(x, wq, wkv, wo):
+    """(B, L, C, E, O, C') of the operands, without checking them."""
+    b, l, c = x.shape
+    e = wq.shape[-1]
+    return b, l, c, e, wkv.shape[-1] - e, wo.shape[-1]
+
+
+def project_plain(x, wq, bq, wkv, bkv):
+    """The projection stage's plain version: (x @ wq + bq, x @ wkv + bkv)."""
+    return x @ wq + bq, x @ wkv + bkv
+
+
+def attention_block_plain(x, wq, bq, wkv, bkv, wo, bo, mask_center: bool,
+                          n_heads: int):
+    """The kernel's plain version: x @ wq + bq and x @ wkv + bkv, the plain
+    flash forward over n_heads heads, then attn @ wo + bo. Returns (y
+    (B, L, C'), attn (B, L, O), lse (B, H, L)), C' = wo.shape[1]."""
+    e = wq.shape[-1]
+    q, kv = project_plain(x, wq, bq, wkv, bkv)
+    attn, lse = attention_cuda.flash_forward_plain(q, kv[..., :e], kv[..., e:],
+                                                   mask_center, n_heads)
+    return attn @ wo + bo, attn, lse
+
+
+def _check(kernel, x, wq, bq, wkv, bkv, wo=None, bo=None, n_heads=None):
+    """Raises unless the operands are contiguous float32 on x's device, of
+    shapes that fit x, at widths the kernel takes: every width a multiple
+    of 4 and, with n_heads, d_k == d_v in HEAD_DIMS."""
+    if x.dim() != 3:
+        raise ValueError(f"x must be (B, L, C), got {tuple(x.shape)}")
+    b, l, c, e, o, cout = _widths(x, wq, wkv, wq if wo is None else wo)
+    if n_heads is not None and (e % n_heads or o % n_heads or e != o
+                                or e // n_heads not in HEAD_DIMS):
+        raise ValueError(f"q/k width {e} and v width {o} over {n_heads} heads: the "
+                         f"{kernel} kernel takes d_k == d_v in {HEAD_DIMS}")
+    if any(w % 4 for w in (c, e, o, cout)):
+        raise ValueError(f"widths x {c}, q/k {e}, v {o}, y {cout}: the {kernel} kernel "
+                         "takes multiples of 4")
+    shapes = {"x": (b, l, c), "wq": (c, e), "bq": (e,), "wkv": (c, e + o),
+              "bkv": (e + o,), "wo": (o, cout), "bo": (cout,)}
+    operands = dict(x=x, wq=wq, bq=bq, wkv=wkv, bkv=bkv, wo=wo, bo=bo)
+    for name, t in operands.items():
+        if t is not None:
+            _build.check_tensor(name, t, shapes[name], x.device, kernel)
+
+
+def _block_forward_cuda(x, wq, bq, wkv, bkv, wo, bo, mask_center: bool,
+                        n_heads: int):
+    global launches
+    _check(KERNEL, x, wq, bq, wkv, bkv, wo, bo, n_heads)
+    b, l, c, e, _, cout = _widths(x, wq, wkv, wo)
+    dev = x.device
+    q = torch.empty((b, l, e), device=dev)          # scratch of the projection
+    kv = torch.empty((b, l, 2 * e), device=dev)     # stage, freed after the call
+    attn = torch.empty((b, l, e), device=dev)
+    lse = torch.empty((b, n_heads, l), device=dev)
+    y = torch.empty((b, l, cout), device=dev)
+    fn = _build.declare(_build.load(KERNEL).attn_block_fwd_f32,
+                        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    with torch.cuda.device(dev):
+        err = fn(*(t.data_ptr() for t in (x, wq, bq, wkv, bkv, wo, bo, q, kv, attn, lse, y)),
+                 b, l, c, n_heads, e // n_heads, cout, int(mask_center),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "attn_block_fwd_f32")
+    launches += 1
+    return y, attn, lse
+
+
+def _project_cuda(x, wq, bq, wkv, bkv):
+    global project_launches
+    _check(PROJECT_KERNEL, x, wq, bq, wkv, bkv)
+    b, l, c, e, o, _ = _widths(x, wq, wkv, wq)
+    dev = x.device
+    q = torch.empty((b, l, e), device=dev)
+    kv = torch.empty((b, l, e + o), device=dev)
+    fn = _build.declare(_build.load(KERNEL).attn_block_project_f32,
+                        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    with torch.cuda.device(dev):
+        err = fn(*(t.data_ptr() for t in (x, wq, bq, wkv, bkv, q, kv)), b * l, c, e, o,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "attn_block_project_f32")
+    project_launches += 1
+    return q, kv
+
+
+def attention_block_forward(x, wq, bq, wkv, bkv, wo, bo, mask_center: bool,
+                            n_heads: int):
+    """(y (B, L, C'), attn (B, L, O), lse (B, H, L)) of x (B, L, C): wq
+    (C, E), wkv (C, E + O), wo (O, C') with packed head-major features,
+    biases 1-D."""
+    return _build.dispatch(_block_forward_cuda, attention_block_plain, x, wq, bq,
+                           wkv, bkv, wo, bo, mask_center, n_heads)
+
+
+def project(x, wq, bq, wkv, bkv):
+    """(q, kv) of x (B, L, C) as the forward's projection stage computes
+    them."""
+    return _build.dispatch(_project_cuda, project_plain, x, wq, bq, wkv, bkv)
+
+
+class _AttentionBlockPacked(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, wq, bq, wkv, bkv, wo, bo, mask_center, n_heads):
+        y, attn, lse = attention_block_forward(x, wq, bq, wkv, bkv, wo, bo,
+                                               mask_center, n_heads)
+        ctx.save_for_backward(x, attn, lse, wq, bq, wkv, bkv, wo)
+        ctx.mask_center, ctx.n_heads = mask_center, n_heads
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, attn, lse, wq, bq, wkv, bkv, wo = ctx.saved_tensors
+        gy = gy.contiguous()
+        e = wq.shape[-1]
+        rows = lambda t: t.reshape(-1, t.shape[-1])
+        # The output projection, from the saved attention.
+        dwo = rows(attn).T @ rows(gy)
+        dbo = rows(gy).sum(0)
+        dattn = gy @ wo.T
+        # q, k and v as the forward computed them; then the flash backward.
+        q, kv = project(x, wq, bq, wkv, bkv)
+        dq, dk, dv = attention_cuda.flash_backward(
+            q, kv[..., :e], kv[..., e:], attn, lse, dattn, ctx.mask_center, ctx.n_heads)
+        dkv = torch.cat([dk, dv], dim=-1)
+        dwq = rows(x).T @ rows(dq)
+        dwkv = rows(x).T @ rows(dkv)
+        dx = dq @ wq.T + dkv @ wkv.T
+        return (dx, dwq, rows(dq).sum(0), dwkv, rows(dkv).sum(0), dwo, dbo, None,
+                None)
+
+
+def attention_block_packed(x, wq, bq, wkv, bkv, wo, bo, mask_center: bool,
+                           n_heads: int):
+    """``out_proj(flash_attention(q_proj(x), kv_proj(x)))``, differentiable,
+    in one kernel call on the card: x (B, L, C); wq (C, E), wkv (C, E + O),
+    wo (O, C') with packed head-major features; biases 1-D. Returns y
+    (B, L, C')."""
+    return _AttentionBlockPacked.apply(x.contiguous(), wq, bq, wkv, bkv, wo, bo,
+                                       mask_center, n_heads)

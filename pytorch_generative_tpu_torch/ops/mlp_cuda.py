@@ -1,19 +1,29 @@
 """Fused LayerNorm -> W1 -> exact GELU -> W2 -> residual: the CUDA kernels
 ``csrc/mlp_fwd.cu`` and ``csrc/mlp_bwd.cu``, their plain PyTorch versions,
 their launch counts and the autograd Function that joins them (counterpart
-of ``pytorch_generative_tpu/ops/mlp_pallas.py`` with its default saved
-pre-activation, ``_SAVE_PREACT = True``).
+of ``pytorch_generative_tpu/ops/mlp_pallas.py``).
 
 A CUDA tensor launches the kernel, or the wrapper raises; a CPU tensor takes
 the plain version. ``ln_mlp_residual`` is one autograd Function on both
-devices: its forward saves x, the (R, F) pre-activation y and the
-parameters, as the JAX package's ``_vjp_fwd`` does, and its backward starts
-from the saved y.
+devices, with the JAX package's three backward routes:
+
+- ``_SAVE_PREACT = True`` (the default): the forward saves x, the (R, F)
+  pre-activation y and the parameters, and the backward starts from the
+  saved y (``ln_mlp_backward``);
+- ``_SAVE_PREACT = False``: the forward keeps no y, and the backward
+  recomputes it (``ln_mlp_backward_recompute``);
+- ``PGT_MLP_BWD=pipe`` with a saved y, read when the backward runs: the
+  backward in two skewed stages (``ln_mlp_backward_pipe``), on two streams
+  on the card.
+
+All three give the same gradients: on the card bit for bit, from the same
+forward.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 import torch.nn.functional as F
@@ -22,6 +32,9 @@ from pytorch_generative_tpu_torch.ops import _build, ln_cuda
 
 KERNEL = "mlp_fwd"
 BWD_KERNEL = "mlp_bwd"
+# The backward's other routes: entries of csrc/mlp_bwd.cu.
+RECOMPUTE_KERNEL = "mlp_bwd_recompute"
+PIPE_KERNEL = "mlp_bwd_pipe"
 _SQRT_HALF = 0.7071067811865476
 _INV_SQRT_2PI = 0.3989422804014327
 # Rows per chunk of the backward's db1 = sum dy column sums.
@@ -31,18 +44,39 @@ ROWS_PER_CHUNK = 512
 # to reach this many CTAs.
 _TARGET_CTAS = 4 * 132
 
+# Whether the forward keeps the (R, F) pre-activation for the backward
+# (mlp_pallas.py's module constant of the same name).
+_SAVE_PREACT = True
+
 # Kernel launches since the last reset; only _mlp_forward_cuda adds to
-# `launches`, only _mlp_backward_cuda to `bwd_launches` (one per call,
-# which runs several launches on one stream).
+# `launches`, only _mlp_backward_cuda to `bwd_launches`,
+# _mlp_backward_recompute_cuda to `recompute_launches` and
+# _mlp_backward_pipe_cuda to `pipe_launches` (one per call, which runs
+# several launches).
 launches = 0
 bwd_launches = 0
+recompute_launches = 0
+pipe_launches = 0
+
+# The pipelined backward's second stream, one per device.
+_back_streams: dict = {}
+
+
+def _use_pipelined_bwd():
+    """PGT_MLP_BWD=pipe, read when the backward runs, and a saved y (as
+    ``mlp_pallas.py::_use_pipelined_bwd``)."""
+    return os.environ.get("PGT_MLP_BWD", "mono") == "pipe" and _SAVE_PREACT
+
+
+def _preact_plain(x2, gamma, beta, w1, b1, eps):
+    xhat, _ = ln_cuda.normalize(x2, eps)
+    return (xhat * gamma + beta) @ w1 + b1
 
 
 def ln_mlp_forward_plain(x2, gamma, beta, w1, b1, w2, b2, eps):
     """The forward kernel's plain version over (R, C) rows: (out, y), y the
     (R, F) pre-activation LN(x) W1 + b1 that the backward starts from."""
-    xhat, _ = ln_cuda.normalize(x2, eps)
-    y = (xhat * gamma + beta) @ w1 + b1
+    y = _preact_plain(x2, gamma, beta, w1, b1, eps)
     return F.gelu(y) @ w2 + b2 + x2, y
 
 
@@ -66,11 +100,37 @@ def ln_mlp_backward_plain(x2, do2, y2, gamma, beta, w1, b1, w2, eps):
             do2.sum(0))
 
 
-def _weight_splits(r, c, f):
-    """Parts of the R rows in the backward's dW products: (C/128)*(F/128)
-    output tiles each, at least 1024 rows a part."""
+def ln_mlp_backward_recompute_plain(x2, do2, gamma, beta, w1, b1, w2, eps):
+    """The recompute route's plain version: y = LN(x) W1 + b1 as the
+    forward's plain version computes it, then ``ln_mlp_backward_plain``."""
+    y2 = _preact_plain(x2, gamma, beta, w1, b1, eps)
+    return ln_mlp_backward_plain(x2, do2, y2, gamma, beta, w1, b1, w2, eps)
+
+
+def _part_rows(r, c, f):
+    """Rows in each part of the R rows of the backward's dW products: enough
+    parts for their (C/128)*(F/128) output tiles each to fill
+    _TARGET_CTAS, at least 1024 rows a part, rounded up to whole CTAs of the
+    LayerNorm backward (ln_cuda.ROWS_PER_CTA rows), so that every route
+    cuts its sums alike."""
     tiles = -(-c // 128) * -(-f // 128)
-    return max(1, min(r // 1024, _TARGET_CTAS // tiles))
+    splits = max(1, min(r // 1024, _TARGET_CTAS // tiles))
+    return -(-r // (splits * ln_cuda.ROWS_PER_CTA)) * ln_cuda.ROWS_PER_CTA
+
+
+def _bwd_scratch(r, c, f, dev, n_wparts):
+    """Scratch of one backward call: stats, dy, dln, n_wparts buffers of
+    per-part dW partials, the per-CTA and per-chunk partial sums; and the
+    rows per part."""
+    part_rows = _part_rows(r, c, f)
+    parts = -(-r // part_rows)
+    return part_rows, (
+        torch.empty((r, 2), device=dev),                                   # stats
+        torch.empty((r, f), device=dev),                                   # dy
+        torch.empty((r, c), device=dev),                                   # dln
+        *(torch.empty((parts, c * f), device=dev) for _ in range(n_wparts)),
+        torch.empty((-(-r // ln_cuda.ROWS_PER_CTA), 3, c), device=dev),    # rpart
+        torch.empty((-(-r // ROWS_PER_CHUNK), f), device=dev))             # cpart
 
 
 def _check(kernel, x2, w1, **operands):
@@ -104,33 +164,75 @@ def _mlp_forward_cuda(x2, gamma, beta, w1, b1, w2, b2, eps):
     return out, y
 
 
+def _bwd_outputs(x2, c, f):
+    dev = x2.device
+    return (torch.empty_like(x2), torch.empty((c, f), device=dev),
+            torch.empty((f,), device=dev), torch.empty((f, c), device=dev),
+            torch.empty((3, c), device=dev))  # dx, dw1, db1, dw2, (dgamma, dbeta, db2)
+
+
+def _ptrs(*tensors):
+    return [t.data_ptr() for t in tensors]
+
+
 def _mlp_backward_cuda(x2, do2, y2, gamma, beta, w1, b1, w2, eps):
     global bwd_launches
     r, c, f = _check(BWD_KERNEL, x2, w1, do=do2, y=y2, gamma=gamma, beta=beta,
                      b1=b1, w2=w2)
-    dev = x2.device
-    splits = _weight_splits(r, c, f)
-    dx = torch.empty_like(x2)
-    dw1 = torch.empty((c, f), device=dev)
-    db1 = torch.empty((f,), device=dev)
-    dw2 = torch.empty((f, c), device=dev)
-    sums = torch.empty((3, c), device=dev)  # dgamma, dbeta, db2
-    scratch = (torch.empty((r, 2), device=dev),                   # stats
-               torch.empty((r, f), device=dev),                   # dy
-               torch.empty((r, c), device=dev),                   # dln
-               torch.empty((splits, c * f), device=dev),          # dW partials
-               torch.empty((-(-r // ln_cuda.ROWS_PER_CTA), 3, c), device=dev),
-               torch.empty((-(-r // ROWS_PER_CHUNK), f), device=dev))
+    outs = _bwd_outputs(x2, c, f)
+    part_rows, scratch = _bwd_scratch(r, c, f, x2.device, 1)
     fn = _build.declare(_build.load(BWD_KERNEL).mlp_bwd_f32,
                         [ctypes.c_void_p] * 18 + [ctypes.c_int] * 6
                         + [ctypes.c_float, ctypes.c_void_p])
-    with torch.cuda.device(dev):
-        err = fn(*(t.data_ptr() for t in (x2, do2, y2, gamma, beta, w1, w2, dx, dw1,
-                                          db1, dw2, sums, *scratch)),
-                 r, c, f, splits, ln_cuda.ROWS_PER_CTA, ROWS_PER_CHUNK, eps,
-                 torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(x2.device):
+        err = fn(*_ptrs(x2, do2, y2, gamma, beta, w1, w2, *outs, *scratch),
+                 r, c, f, part_rows, ln_cuda.ROWS_PER_CTA, ROWS_PER_CHUNK, eps,
+                 torch.cuda.current_stream(x2.device).cuda_stream)
     _build.check(err, "mlp_bwd_f32")
     bwd_launches += 1
+    dx, dw1, db1, dw2, sums = outs
+    return dx, sums[0], sums[1], dw1, db1, dw2, sums[2]
+
+
+def _mlp_backward_recompute_cuda(x2, do2, gamma, beta, w1, b1, w2, eps):
+    global recompute_launches
+    r, c, f = _check(RECOMPUTE_KERNEL, x2, w1, do=do2, gamma=gamma, beta=beta,
+                     b1=b1, w2=w2)
+    outs = _bwd_outputs(x2, c, f)
+    part_rows, (stats, *scratch) = _bwd_scratch(r, c, f, x2.device, 1)
+    y = torch.empty((r, f), device=x2.device)  # lives only inside this call
+    fn = _build.declare(_build.load(BWD_KERNEL).mlp_bwd_recompute_f32,
+                        [ctypes.c_void_p] * 19 + [ctypes.c_int] * 6
+                        + [ctypes.c_float, ctypes.c_void_p])
+    with torch.cuda.device(x2.device):
+        err = fn(*_ptrs(x2, do2, gamma, beta, w1, b1, w2, *outs, stats, y, *scratch),
+                 r, c, f, part_rows, ln_cuda.ROWS_PER_CTA, ROWS_PER_CHUNK, eps,
+                 torch.cuda.current_stream(x2.device).cuda_stream)
+    _build.check(err, "mlp_bwd_recompute_f32")
+    recompute_launches += 1
+    dx, dw1, db1, dw2, sums = outs
+    return dx, sums[0], sums[1], dw1, db1, dw2, sums[2]
+
+
+def _mlp_backward_pipe_cuda(x2, do2, y2, gamma, beta, w1, b1, w2, eps):
+    global pipe_launches
+    r, c, f = _check(PIPE_KERNEL, x2, w1, do=do2, y=y2, gamma=gamma, beta=beta,
+                     b1=b1, w2=w2)
+    outs = _bwd_outputs(x2, c, f)
+    part_rows, scratch = _bwd_scratch(r, c, f, x2.device, 2)
+    back = _back_streams.get(x2.device)
+    if back is None:
+        back = _back_streams[x2.device] = torch.cuda.Stream(x2.device)
+    fn = _build.declare(_build.load(BWD_KERNEL).mlp_bwd_pipe_f32,
+                        [ctypes.c_void_p] * 19 + [ctypes.c_int] * 6
+                        + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+    with torch.cuda.device(x2.device):
+        err = fn(*_ptrs(x2, do2, y2, gamma, beta, w1, w2, *outs, *scratch),
+                 r, c, f, part_rows, ln_cuda.ROWS_PER_CTA, ROWS_PER_CHUNK, eps,
+                 torch.cuda.current_stream(x2.device).cuda_stream, back.cuda_stream)
+    _build.check(err, "mlp_bwd_pipe_f32")
+    pipe_launches += 1
+    dx, dw1, db1, dw2, sums = outs
     return dx, sums[0], sums[1], dw1, db1, dw2, sums[2]
 
 
@@ -141,9 +243,24 @@ def ln_mlp_forward(x2, gamma, beta, w1, b1, w2, b2, eps):
 
 
 def ln_mlp_backward(x2, do2, y2, gamma, beta, w1, b1, w2, eps):
-    """(dx, dgamma, dbeta, dw1, db1, dw2, db2) of (R, C) rows."""
+    """(dx, dgamma, dbeta, dw1, db1, dw2, db2) of (R, C) rows, from the
+    saved y."""
     return _build.dispatch(_mlp_backward_cuda, ln_mlp_backward_plain, x2, do2,
                            y2, gamma, beta, w1, b1, w2, eps)
+
+
+def ln_mlp_backward_recompute(x2, do2, gamma, beta, w1, b1, w2, eps):
+    """The same gradients without a saved y: it is recomputed."""
+    return _build.dispatch(_mlp_backward_recompute_cuda,
+                           ln_mlp_backward_recompute_plain, x2, do2, gamma, beta,
+                           w1, b1, w2, eps)
+
+
+def ln_mlp_backward_pipe(x2, do2, y2, gamma, beta, w1, b1, w2, eps):
+    """The same gradients from the saved y, in two skewed stages on two
+    streams; its plain version is ``ln_mlp_backward_plain``."""
+    return _build.dispatch(_mlp_backward_pipe_cuda, ln_mlp_backward_plain, x2,
+                           do2, y2, gamma, beta, w1, b1, w2, eps)
 
 
 class _LnMlpResidual(torch.autograd.Function):
@@ -152,15 +269,22 @@ class _LnMlpResidual(torch.autograd.Function):
         shape = x.shape
         x2 = x.reshape(-1, shape[-1])
         out, y = ln_mlp_forward(x2, gamma, beta, w1, b1, w2, b2, eps)
-        ctx.save_for_backward(x2, y, gamma, beta, w1, b1, w2, b2)
+        # Without _SAVE_PREACT, y is dropped here, once the forward's second
+        # product has read it.
+        ctx.save_for_backward(x2, y if _SAVE_PREACT else None, gamma, beta, w1, b1, w2)
         ctx.eps = eps
         return out.reshape(shape)
 
     @staticmethod
     def backward(ctx, dout):
-        x2, y, gamma, beta, w1, b1, w2, _ = ctx.saved_tensors
-        grads = ln_mlp_backward(x2, dout.reshape(x2.shape).contiguous(), y, gamma,
-                                beta, w1, b1, w2, ctx.eps)
+        x2, y, gamma, beta, w1, b1, w2 = ctx.saved_tensors
+        do2 = dout.reshape(x2.shape).contiguous()
+        if y is None:
+            grads = ln_mlp_backward_recompute(x2, do2, gamma, beta, w1, b1, w2, ctx.eps)
+        elif _use_pipelined_bwd():
+            grads = ln_mlp_backward_pipe(x2, do2, y, gamma, beta, w1, b1, w2, ctx.eps)
+        else:
+            grads = ln_mlp_backward(x2, do2, y, gamma, beta, w1, b1, w2, ctx.eps)
         return (grads[0].reshape(dout.shape), *grads[1:], None)
 
 

@@ -24,6 +24,7 @@ from pytorch_generative_tpu_torch.models import (  # noqa: E402
 from pytorch_generative_tpu_torch.models.autoregressive import image_gpt  # noqa: E402
 from pytorch_generative_tpu_torch.ops import (  # noqa: E402
     attention_cuda,
+    attn_block_cuda,
     decode_cuda,
     ln_cuda,
     mlp_cuda,
@@ -642,3 +643,171 @@ def test_vq_vae_on_cuda_runs_the_kernel_on_the_fused_route(dev, use_fused):
         torch.testing.assert_close(b.cpu(), bc, rtol=0, atol=1e-4, msg=name)
     for (name, p), (_, pc) in zip(model.named_parameters(), cpu.named_parameters()):
         torch.testing.assert_close(p.grad.cpu(), pc.grad, rtol=1e-3, atol=1e-5, msg=name)
+
+
+# The MLP backward's recompute (no saved y) and pipelined routes.
+@pytest.mark.parametrize("r", [8192, 8185])
+@pytest.mark.parametrize("c", [512, 1024])
+def test_mlp_backward_routes_match_plain_and_the_saved_y_route(dev, c, r):
+    """Both routes within MLP_RTOL of the saved-y route's plain version, and
+    bit for bit equal to the saved-y kernel from the forward kernel's y (the
+    recompute route rebuilds y by the forward's own launches; the pipelined
+    route cuts its sums as the saved-y route does)."""
+    x, gamma, beta, w1, b1, w2, b2 = _mlp_inputs(r, c, dev)
+    dout = _rand((r, c), 9, dev)
+    _, y = mlp_cuda.ln_mlp_forward(x, gamma, beta, w1, b1, w2, b2, 1e-5)
+    saved = mlp_cuda.ln_mlp_backward(x, dout, y, gamma, beta, w1, b1, w2, 1e-5)
+    before = (mlp_cuda.recompute_launches, mlp_cuda.pipe_launches)
+    routes = {"recompute": mlp_cuda.ln_mlp_backward_recompute(x, dout, gamma, beta, w1, b1,
+                                                              w2, 1e-5),
+              "pipe": mlp_cuda.ln_mlp_backward_pipe(x, dout, y, gamma, beta, w1, b1, w2,
+                                                    1e-5)}
+    torch.cuda.synchronize()
+    assert (mlp_cuda.recompute_launches, mlp_cuda.pipe_launches) == (before[0] + 1,
+                                                                    before[1] + 1)
+    want = mlp_cuda.ln_mlp_backward_plain(x, dout, y, gamma, beta, w1, b1, w2, 1e-5)
+    names = ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2")
+    for route, grads in routes.items():
+        for name, g, w, k in zip(names, grads, want, saved):
+            _assert_rel(g, w, MLP_RTOL, f"{route} {name}")
+            assert torch.equal(g, k), f"{route} {name} differs from the saved-y kernel"
+
+
+# The fused attention block.
+BLOCK_WIDTHS = [pytest.param(64, 2, id="C64-2heads"), pytest.param(512, 8, id="C512-8heads"),
+                pytest.param(512, 4, id="C512-4heads")]
+BLOCK_TOL = 1e-4  # y and attn, of each output's largest magnitude
+BLOCK_LSE_TOL = 5e-5
+
+
+def _block_inputs(b, l, c, dev, c_out=None, seed=0):
+    c_out = c_out or c
+    x = _rand((b, l, c), seed, dev)
+    wq = _rand((c, c_out), seed + 1, dev) / c ** 0.5
+    bq = 0.1 * _rand((c_out,), seed + 2, dev)
+    wkv = _rand((c, 2 * c_out), seed + 3, dev) / c ** 0.5
+    bkv = 0.1 * _rand((2 * c_out,), seed + 4, dev)
+    wo = _rand((c_out, c_out), seed + 5, dev) / c_out ** 0.5
+    bo = 0.1 * _rand((c_out,), seed + 6, dev)
+    return x, wq, bq, wkv, bkv, wo, bo
+
+
+@pytest.mark.parametrize("mask_center", [False, True])
+@pytest.mark.parametrize("l", [64, 200])
+@pytest.mark.parametrize("c,n_heads", BLOCK_WIDTHS)
+def test_attn_block_kernel_matches_plain(dev, c, n_heads, l, mask_center):
+    """y and attn within BLOCK_TOL of each one's largest magnitude, lse
+    within BLOCK_LSE_TOL; under mask_center row 0 is exactly 0 with lse
+    -inf. L = 200 ends on a ragged tile."""
+    ops = _block_inputs(2, l, c, dev)
+    before = attn_block_cuda.launches
+    got = attn_block_cuda.attention_block_forward(*ops, mask_center, n_heads)
+    torch.cuda.synchronize()
+    assert attn_block_cuda.launches == before + 1
+    want = attn_block_cuda.attention_block_plain(*ops, mask_center, n_heads)
+    _assert_rel(got[0], want[0], BLOCK_TOL, "y")
+    _assert_rel(got[1], want[1], BLOCK_TOL, "attn")
+    finite = torch.isfinite(want[2])
+    assert torch.equal(torch.isfinite(got[2]), finite)
+    assert float((got[2] - want[2])[finite].abs().max()) <= BLOCK_LSE_TOL
+    if mask_center:
+        assert bool((got[1][:, 0] == 0).all()) and bool(torch.isneginf(got[2][:, :, 0]).all())
+
+
+def test_attn_block_takes_a_y_width_other_than_x(dev):
+    """C' = wo.shape[1] (64 -> 128 here): the output is sized by Wo, not by
+    x (the JAX kernel's defect at attn_block_pallas.py:185)."""
+    ops = _block_inputs(2, 200, 64, dev, c_out=128)
+    got = attn_block_cuda.attention_block_forward(*ops, False, 2)
+    want = attn_block_cuda.attention_block_plain(*ops, False, 2)
+    assert got[0].shape == (2, 200, 128)
+    _assert_rel(got[0], want[0], BLOCK_TOL, "y")
+
+
+def test_attn_block_function_matches_the_cpu(dev):
+    """Gradients through _AttentionBlockPacked on the card (the block
+    kernel, its projection stage and the flash backward kernel) against
+    the same Function on the CPU (plain versions): within 1e-4 of each
+    gradient's largest magnitude."""
+    ops = _block_inputs(2, 200, 512, dev)
+    gy = _rand((2, 200, 512), 11, dev)
+    cpu = [t.cpu().requires_grad_() for t in ops]
+    card = [t.clone().requires_grad_() for t in ops]
+    before = (attn_block_cuda.project_launches, attention_cuda.bwd_launches)
+    for ts in (card, cpu):
+        attn_block_cuda.attention_block_packed(*ts, True, 8).backward(
+            gy.to(ts[0].device))
+    torch.cuda.synchronize()
+    assert (attn_block_cuda.project_launches, attention_cuda.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    for name, a, b in zip(("x", "wq", "bq", "wkv", "bkv", "wo", "bo"), card, cpu):
+        _assert_rel(a.grad.cpu(), b.grad, 1e-4, f"d{name}")
+
+
+def test_attn_block_and_mlp_route_wrappers_reject_what_the_kernels_do_not_take(dev):
+    ops = _block_inputs(2, 64, 64, dev)
+    with pytest.raises(ValueError, match=r"\(32, 64, 128\)"):
+        attn_block_cuda.attention_block_forward(*ops, False, 4)  # d = 16
+    x, wq, bq, wkv, bkv, wo, bo = ops
+    with pytest.raises(ValueError, match="d_k == d_v"):  # d_k 32, d_v 64
+        attn_block_cuda.attention_block_forward(
+            x, wq, bq, torch.cat([wkv, wkv[:, 64:]], 1), torch.cat([bkv, bkv[64:]]),
+            torch.cat([wo, wo]), bo, False, 2)
+    with pytest.raises(TypeError):
+        attn_block_cuda.attention_block_forward(x.double(), *ops[1:], False, 2)
+    with pytest.raises(ValueError):
+        attn_block_cuda.attention_block_forward(x, wq.cpu(), *ops[2:], False, 2)
+    x, gamma, beta, w1, b1, w2, b2 = _mlp_inputs(64, 128, dev)
+    wide = [torch.cat([t] * 33, dim=0 if t.dim() == 1 else -1) for t in (x, gamma, beta)]
+    with pytest.raises(ValueError, match="from 4 to 4096"):  # C = 4224
+        mlp_cuda.ln_mlp_backward_recompute(wide[0], wide[0], wide[1], wide[2], w1, b1, w2,
+                                           1e-5)
+    with pytest.raises(ValueError):
+        mlp_cuda.ln_mlp_backward_pipe(x, x, x, gamma, beta, w1, b1, w2, 1e-5)  # y not (R, F)
+    with pytest.raises(TypeError):
+        mlp_cuda.ln_mlp_backward_recompute(x, x, gamma, beta, w1.double(), b1, w2, 1e-5)
+
+
+@pytest.mark.parametrize("route", ["saved", "recompute", "pipe"])
+def test_imagegpt_with_the_fused_block_trains_through_the_kernels(dev, tmp_path, monkeypatch,
+                                                                  route):
+    """PGT_FUSED_ATTN=1 at C = 128, 2 heads of 64, 2 blocks: a forward runs
+    the block kernel twice and flash_fwd never; a Trainer step also runs
+    flash_bwd twice and the chosen MLP backward route twice; the loss
+    matches the CPU's plain path within 1e-4 relative."""
+    monkeypatch.setenv("PGT_FUSED_ATTN", "1")
+    if route == "recompute":
+        monkeypatch.setattr(mlp_cuda, "_SAVE_PREACT", False)
+    if route == "pipe":
+        monkeypatch.setenv("PGT_MLP_BWD", "pipe")
+    cfg = dict(in_channels=1, out_channels=1, in_size=8, n_transformer_blocks=2,
+               n_attention_heads=2, n_embedding_channels=128, in_shape=(8, 8, 1))
+    model = ImageGPT(**cfg, generator=torch.Generator().manual_seed(0), device=dev)
+    cpu = ImageGPT(**cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    x = (torch.rand((4, 8, 8, 1), generator=torch.Generator().manual_seed(1)) < 0.3).float()
+    counters = (attn_block_cuda, attention_cuda, mlp_cuda)
+    for mod in counters:
+        mod.launches = 0
+    attention_cuda.bwd_launches = mlp_cuda.bwd_launches = 0
+    mlp_cuda.recompute_launches = mlp_cuda.pipe_launches = attn_block_cuda.project_launches = 0
+    with torch.no_grad():
+        got = model(x.to(dev))
+    torch.cuda.synchronize()
+    assert (attn_block_cuda.launches, attention_cuda.launches) == (2, 0)
+    with torch.no_grad():
+        _assert_rel(got.cpu(), cpu(x), 1e-4, "logits")
+    t = trainer.Trainer(model, image_gpt.reproduce_loss, optim.adam(1e-3), [], [],
+                        log_dir=str(tmp_path), use_tensorboard=False, device=dev)
+    t_cpu = trainer.Trainer(cpu, image_gpt.reproduce_loss, optim.adam(1e-3), [], [],
+                            log_dir=str(tmp_path / "cpu"), use_tensorboard=False,
+                            device="cpu")
+    metrics, _ = t.train_one_step(x.numpy(), None)
+    ref, _ = t_cpu.train_one_step(x.numpy(), None)
+    torch.cuda.synchronize()
+    assert abs(float(metrics["loss"]) - float(ref["loss"])) <= 1e-4 * abs(float(ref["loss"]))
+    assert (attn_block_cuda.launches, attn_block_cuda.project_launches) == (4, 2)
+    assert (attention_cuda.launches, attention_cuda.bwd_launches) == (0, 2)
+    routes = {"saved": mlp_cuda.bwd_launches, "recompute": mlp_cuda.recompute_launches,
+              "pipe": mlp_cuda.pipe_launches}
+    assert routes == {k: (2 if k == route else 0) for k in routes}

@@ -98,7 +98,12 @@ def test_flash_backward_plain_matches_jax_kernel(monkeypatch, mask_center, l):
     """The backward's plain version against the JAX Pallas backward in
     interpret mode, each from its own forward's out and lse: dq, dk, dv
     within atol 1e-5 (f32, another summation order); the fully-masked row
-    gets an exactly-zero dq. L = 50 is a ragged tile."""
+    gets an exactly-zero dq. L = 50 is a ragged tile.
+
+    Each side is first held on its own against the same formula evaluated
+    in float64 (the plain forward and backward on float64 copies of the
+    inputs), at the same 1e-5, so that a failure names the side that
+    computed something else."""
     monkeypatch.setattr(attention_pallas, "_INTERPRET", True)
     n_heads, d = 2, 8
     rng = np.random.default_rng(l)
@@ -116,7 +121,18 @@ def test_flash_backward_plain_matches_jax_kernel(monkeypatch, mask_center, l):
     before = attention_cuda.bwd_launches
     got = attention_cuda.flash_backward(tq, tk, tv, out, lse, tg, mask_center, n_heads)
     assert attention_cuda.bwd_launches == before  # CPU tensors never launch
-    for a, b in zip(got, want):
+
+    f64 = [torch.from_numpy(a).double() for a in (q, k, v, g)]
+    out64, lse64 = attention_cuda.flash_forward_plain(*f64[:3], mask_center, n_heads)
+    exact = attention_cuda.flash_backward_plain(*f64[:3], out64, lse64, f64[3],
+                                                mask_center, n_heads)
+    for name, a, b, e in zip(("dq", "dk", "dv"), got, want, exact):
+        e = e.numpy()
+        np.testing.assert_allclose(np.asarray(b), e, rtol=0, atol=1e-5,
+                                   err_msg=f"{name}: the JAX kernel against float64")
+        np.testing.assert_allclose(a.numpy(), e, rtol=0, atol=1e-5,
+                                   err_msg=f"{name}: the port's plain backward "
+                                           "against float64")
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=1e-5)
     if mask_center:
         np.testing.assert_array_equal(got[0][:, 0].numpy(), 0.0)
