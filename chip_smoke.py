@@ -9,8 +9,9 @@ MLP kernels), then PixelSNAIL's at its reproduce() config.
 Phases, each printing one line or a few: the device (name and power limit
 from nvidia-smi, TF32 pinned off); the build of every kernel of the paths
 from ``pytorch_generative_tpu_torch/csrc``, one ``nvcc`` per source, all at
-once; each kernel against its plain PyTorch version at the paths' shapes;
-at C = 64 the serving path (``ImageGPT.forward`` with the reproduce() loss
+once; each kernel against its plain PyTorch version at the paths' shapes
+(the flash kernels' tensor-core instances run twice and must give equal
+bits); at C = 64 the serving path (``ImageGPT.forward`` with the reproduce() loss
 at batch 64, then ``ImageGPT.sample`` of 16 images) and the training path
 (``Trainer``: one epoch of 8 steps with eval, a checkpoint and a sample
 grid, then a second Trainer that resumes from the checkpoint and takes one
@@ -18,7 +19,9 @@ more epoch), each with its kernels' launch counts; the training gradients
 and a 3-step trajectory against the plain path on the CPU; CUDA-event times
 of each kernel beside its plain version, one PyTorch call (or, for the fused
 MLP, a composition of calls) that computes the same function
-(``library_ms``) and its bound; the train step's time and a
+(``library_ms``) and its bound (for the flash kernels both the bound at
+the 3xTF32 tensor-core rate, that of their d_k == d_v route, and the one
+at the f32 CUDA-core rate); the train step's time and a
 ``torch.profiler`` breakdown of it; then the same at C = 512: forward at
 batch 64, three train steps, gradients and a 3-step trajectory against the
 CPU at batch 2, times and the profiled train step. Then sampling on the
@@ -138,6 +141,9 @@ BLOCK_WIDTHS = ((64, 2), (512, 8), (512, 4))
 MLP_ROUTES = ("saved", "recompute", "pipe")
 # Bounds: NVIDIA's H100 SXM data sheet, at its 700 W limit.
 F32_FLOPS = 67e12   # f32 on the CUDA cores, FMA = 2 operations
+# f32-accurate products on the tensor cores: 3xTF32 (the flash kernels'
+# d_k == d_v instances) takes three TF32 products (495 TFLOP/s) per f32 one.
+TF32X3_FLOPS = 495e12 / 3
 HBM_BYTES = 3.35e12  # HBM3 bytes/s
 
 
@@ -189,11 +195,43 @@ def ptxas_summary(log):
     return " | ".join(out)
 
 
-def bound(flops, nbytes):
-    """(least ms, what binds): operations at the f32 rate vs bytes moved
-    once at the HBM rate."""
-    t_ops, t_bytes = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
+def bound(flops, nbytes, rate=F32_FLOPS):
+    """(least ms, what binds): operations at ``rate`` (f32 on the CUDA cores
+    unless given) vs bytes moved once at the HBM rate."""
+    t_ops, t_bytes = flops / rate * 1e3, nbytes / HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def flash_bounds(b, l, n_heads, d_k, d_v, mask_center, backward=False):
+    """(route's bound, f32 bound, 3xTF32 bound) of a flash kernel, each
+    (ms, what binds). The route's bound is the 3xTF32 one for the d_k ==
+    d_v instances, which run every product on the tensor cores, and the
+    f32 one for the others (d_k = 4 is under one mma's depth)."""
+    flops = flash_work(b, l, n_heads, d_k, d_v, mask_center, backward)
+    nbytes = flash_bytes(b, l, n_heads, d_k, d_v, backward)
+    f32, tc = bound(flops, nbytes), bound(flops, nbytes, TF32X3_FLOPS)
+    return (tc if d_k == d_v else f32), f32, tc
+
+
+def flash_bounds_text(b, l, n_heads, d_k, d_v, mask_center, backward=False):
+    """Both bounds of a flash kernel, the route's first."""
+    _, f32, tc = flash_bounds(b, l, n_heads, d_k, d_v, mask_center, backward)
+    f32_text = f"f32 bound {f32[0]:.4f} ms ({f32[1]})"
+    tc_text = f"3xTF32 bound {tc[0]:.4f} ms ({tc[1]})"
+    return f"{tc_text}, {f32_text}" if d_k == d_v else f"{f32_text}, {tc_text}"
+
+
+def check_flash_deterministic(q, k, v, dout, mask_center, n_heads, out, lse, grads, label):
+    """Runs the flash kernels again on the same inputs and fails unless out,
+    lse, dq, dk and dv equal the first call's bit for bit."""
+    from pytorch_generative_tpu_torch.ops import attention_cuda
+
+    out2, lse2 = attention_cuda.flash_forward(q, k, v, mask_center, n_heads)
+    grads2 = attention_cuda.flash_backward(q, k, v, out, lse, dout, mask_center, n_heads)
+    same = [torch.equal(a, b) for a, b in zip((out, lse, *grads), (out2, lse2, *grads2))]
+    print(f"phase flash {label}: two calls give equal bits (out, lse, dq, dk, dv): {same}",
+          flush=True)
+    check(all(same), f"the flash kernels gave other bits in a second call ({label})")
 
 
 def flash_work(b, l, n_heads, d_k, d_v, mask_center, backward=False):
@@ -606,14 +644,12 @@ def flash_times_line(label, smi, q, k, v, dout, n_heads):
     b, l, ck = q.shape
     d = ck // n_heads
     t = flash_times(q, k, v, dout, n_heads)
-    fwd = bound(flash_work(b, l, n_heads, d, d, False), flash_bytes(b, l, n_heads, d, d))
-    bwd = bound(flash_work(b, l, n_heads, d, d, False, backward=True),
-                flash_bytes(b, l, n_heads, d, d, backward=True))
     print(f"phase times {label} [{smi}]: flash_fwd (B={b}, L={l}, H={n_heads}, d={d}) "
           f"kernel {t['fwd']:.4f}/{t['fwd2']:.4f} ms, plain {t['fwd_plain']:.4f} ms, causal SDPA "
-          f"{t['fwd_lib']:.4f} ms, bound {fwd[0]:.4f} ms ({fwd[1]}); flash_bwd kernel "
-          f"{t['bwd']:.4f}/{t['bwd2']:.4f} ms, plain {t['bwd_plain']:.4f} ms, SDPA autograd.grad "
-          f"{t['bwd_lib']:.4f} ms, bound {bwd[0]:.4f} ms ({bwd[1]})", flush=True)
+          f"{t['fwd_lib']:.4f} ms, {flash_bounds_text(b, l, n_heads, d, d, False)}; flash_bwd "
+          f"kernel {t['bwd']:.4f}/{t['bwd2']:.4f} ms, plain {t['bwd_plain']:.4f} ms, SDPA "
+          f"autograd.grad {t['bwd_lib']:.4f} ms, "
+          f"{flash_bounds_text(b, l, n_heads, d, d, False, backward=True)}", flush=True)
 
 
 def profile_steps(step, n_steps, step_ms, what, per_call, label, smi, focus, host=False):
@@ -710,6 +746,8 @@ def wide_phases(dev, gen, smi, reset_counts, read_counts):
             check(bool((out[:, 0] == 0).all()) and bool(torch.isneginf(lse[:, :, 0]).all())
                   and bool((grads[0][:, 0] == 0).all()),
                   "row 0 under mask_center is not out 0, lse -inf, dq 0 at d = 128")
+        check_flash_deterministic(q, k, v, dout, mask_center, WIDE_HEADS, out, lse, grads,
+                                  f"d={d} L={ll} mask_center={mask_center}")
         del kv, out, lse, grads
     q = torch.randn((BATCH, l, c), generator=gen).to(dev)
     kv = torch.randn((BATCH, l, 2 * c), generator=gen).to(dev)
@@ -775,6 +813,9 @@ def wide_phases(dev, gen, smi, reset_counts, read_counts):
           f"({BATCH * 1000 / step_ms:.2f} samples/s)", flush=True)
     check(math.isfinite(step_loss), "the 4-head train step gave a non-finite loss")
     check(train_counts == want, f"4-head train launches {train_counts}, expected {want}")
+    profile_steps(lambda: step_trainer.train_one_step(xb, None), 2, step_ms,
+                  f"train step batch {BATCH}", (BATCH, "samples"), f"step C={c} H={WIDE_HEADS}",
+                  smi, ("gemm_kernel", "flash_bwd", "flash_fwd", "ln_bwd_rows", "ln_fwd"))
     shutil.rmtree(step_trainer.log_dir, ignore_errors=True)
     return {"d": d, "flash_err": flash_err, "bwd_err": bwd_err, "fused_errs": fused_errs,
             "counts": [serve_counts, train_counts]}
@@ -1256,16 +1297,13 @@ def pixel_snail_phases(dev, gen, smi, reset_counts, read_counts):
     # beside the bound and the latency floor; a profile of one n = 16
     # sample call.
     st = snail_flash_times
-    s_fwd_bound = bound(flash_work(SNAIL_BATCH, l, 1, s_dk, s_dv, True),
-                        flash_bytes(SNAIL_BATCH, l, 1, s_dk, s_dv))
-    s_bwd_bound = bound(flash_work(SNAIL_BATCH, l, 1, s_dk, s_dv, True, backward=True),
-                        flash_bytes(SNAIL_BATCH, l, 1, s_dk, s_dv, backward=True))
     print(f"phase times PixelSNAIL [{smi}]: flash_fwd (B={SNAIL_BATCH}, L={l}, H=1, d_k={s_dk}, "
           f"d_v={s_dv}, mask_center) kernel {st['fwd']:.4f}/{st['fwd2']:.4f} ms, plain "
-          f"{st['fwd_plain']:.4f} ms, masked SDPA {st['fwd_lib']:.4f} ms, bound "
-          f"{s_fwd_bound[0]:.4f} ms ({s_fwd_bound[1]}); flash_bwd kernel {st['bwd']:.4f}/"
-          f"{st['bwd2']:.4f} ms, plain {st['bwd_plain']:.4f} ms, SDPA autograd.grad "
-          f"{st['bwd_lib']:.4f} ms, bound {s_bwd_bound[0]:.4f} ms ({s_bwd_bound[1]})", flush=True)
+          f"{st['fwd_plain']:.4f} ms, masked SDPA {st['fwd_lib']:.4f} ms, "
+          f"{flash_bounds_text(SNAIL_BATCH, l, 1, s_dk, s_dv, True)}; flash_bwd kernel "
+          f"{st['bwd']:.4f}/{st['bwd2']:.4f} ms, plain {st['bwd_plain']:.4f} ms, SDPA "
+          f"autograd.grad {st['bwd_lib']:.4f} ms, "
+          f"{flash_bounds_text(SNAIL_BATCH, l, 1, s_dk, s_dv, True, backward=True)}", flush=True)
     def s_forward():
         with torch.no_grad():
             return snail(xs)
@@ -1715,6 +1753,8 @@ def main():
                   "row 0 under mask_center is not exactly 0 with lse -inf")
             check(bool((grads[0][:, 0] == 0).all()),
                   "row 0 under mask_center has a non-zero dq")
+        check_flash_deterministic(q, k, v, dout, mask_center, n_heads, out, lse, grads,
+                                  f"d={d} L={l} mask_center={mask_center}")
 
     # The model of the serving path: reproduce() widths, random seeded
     # weights, a non-zero positional embedding.
@@ -1874,19 +1914,18 @@ def main():
     times["sample"] = time_ms(lambda: decode_cuda.fused_sample_loop(*inputs), 3, 1)
     times["sample_plain"] = time_ms(lambda: decode_cuda.sample_loop_plain(*inputs), 1, 1)
 
-    fwd_bound = bound(flash_work(BATCH, l, n_heads, d, d, False),
-                      flash_bytes(BATCH, l, n_heads, d, d))
-    bwd_bound = bound(flash_work(BATCH, l, n_heads, d, d, False, backward=True),
-                      flash_bytes(BATCH, l, n_heads, d, d, backward=True))
+    fwd_bound, fwd_bound_f32, _ = flash_bounds(BATCH, l, n_heads, d, d, False)
+    bwd_bound, bwd_bound_f32, _ = flash_bounds(BATCH, l, n_heads, d, d, False, backward=True)
     weight_bytes = 4 * sum(t.numel() for t in inputs[3].values())
     sample_bound = bound(sampler_flops(N_SAMPLES, h, w, n_blocks, c),
                          weight_bytes + 4 * (2 * inputs[0].numel() + inputs[2].numel()))
     print(f"phase times [{smi}]: flash_fwd (B={BATCH}, L={l}, H={n_heads}, d={d}) "
           f"kernel {times['fwd']:.4f}/{times['fwd2']:.4f} ms, plain {times['fwd_plain']:.4f} ms, "
-          f"causal SDPA {times['fwd_lib']:.4f} ms, bound {fwd_bound[0]:.4f} ms ({fwd_bound[1]}); "
+          f"causal SDPA {times['fwd_lib']:.4f} ms, "
+          f"{flash_bounds_text(BATCH, l, n_heads, d, d, False)}; "
           f"flash_bwd kernel {times['bwd']:.4f}/{times['bwd2']:.4f} ms, "
           f"plain {times['bwd_plain']:.4f} ms, SDPA autograd.grad {times['bwd_lib']:.4f} ms, "
-          f"bound {bwd_bound[0]:.4f} ms ({bwd_bound[1]}); "
+          f"{flash_bounds_text(BATCH, l, n_heads, d, d, False, backward=True)}; "
           f"sample_loop n={N_SAMPLES} kernel {times['sample']:.2f} ms "
           f"({N_SAMPLES * 1000 / times['sample']:.2f} img/s), plain {times['sample_plain']:.2f} ms "
           f"({N_SAMPLES * 1000 / times['sample_plain']:.2f} img/s), bound "
@@ -1903,7 +1942,7 @@ def main():
     step_ms = time_ms(lambda: step_trainer.train_one_step(xb, None), 10, 3)
     profile_steps(lambda: step_trainer.train_one_step(xb, None), 3, step_ms,
                   f"train step batch {BATCH}", (BATCH, "samples"), "step", smi,
-                  ("flash_bwd",))
+                  ("flash_bwd", "flash_fwd"))
     shutil.rmtree(step_trainer.log_dir, ignore_errors=True)
 
     # ---- ImageGPT at LARGE_CONFIG (C = 512, 8 heads of 64): every block
@@ -1943,6 +1982,8 @@ def main():
               f"dk={e_grads[1]:.3e} dv={e_grads[2]:.3e} (tol {FLASH_BWD_TOL})", flush=True)
         check(e_out <= FLASH_TOL and e_lse <= FLASH_TOL, "flash forward kernel disagrees at d = 64")
         check(max(e_grads) <= FLASH_BWD_TOL, "flash backward kernel disagrees at d = 64")
+        check_flash_deterministic(q, k, v, dout, mask_center, hb, out, lse, grads,
+                                  f"d={db} L={l} mask_center={mask_center}")
         del q, kv, dout, k, v, out, lse, grads
 
     # Phase 13: serving at C = 512: forward at batch 64 with the reproduce
@@ -2235,7 +2276,8 @@ def main():
                   *big_sample_counts, *route_counts, *snail["counts"], *wide["counts"],
                   *vq["counts"], *gated["counts"])
     # The flash kernels' (d_k, d_v) instances this run held against the
-    # plain version; ms, plain_ms and library_ms are reproduce()'s d = 32.
+    # plain version; ms, plain_ms and library_ms are reproduce()'s d = 32,
+    # bound_ms its 3xTF32 bound and bound_f32_ms the f32 one beside it.
     instances = [f"{dk}x{dv}" for dk, dv in ((d, d), (db, db), (wide["d"], wide["d"]), (4, 32))]
     print(json.dumps({"kernels": [
         {"name": attention_cuda.KERNEL, "route": "cuda",
@@ -2244,14 +2286,14 @@ def main():
          "launches": sum(cs[attention_cuda.KERNEL] for cs in all_counts),
          "max_abs_err": flash_err, "ms": times["fwd"], "plain_ms": times["fwd_plain"],
          "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1], "library_ms": times["fwd_lib"],
-         "instances": instances},
+         "bound_f32_ms": fwd_bound_f32[0], "instances": instances},
         {"name": attention_cuda.BWD_KERNEL, "route": "cuda",
          "source": "pytorch_generative_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "pytorch_generative_tpu/ops/attention_pallas.py:205",
          "launches": sum(cs[attention_cuda.BWD_KERNEL] for cs in all_counts),
          "max_abs_err": bwd_err, "ms": times["bwd"], "plain_ms": times["bwd_plain"],
          "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1], "library_ms": times["bwd_lib"],
-         "instances": instances},
+         "bound_f32_ms": bwd_bound_f32[0], "instances": instances},
         {"name": decode_cuda.KERNEL, "route": "cuda",
          "source": "pytorch_generative_tpu_torch/csrc/sample_loop.cu",
          "replaces": "pytorch_generative_tpu/ops/decode_pallas.py:257",

@@ -1,6 +1,9 @@
-// The causal flash-attention forward's tile pass over packed float32
-// tensors, shared by flash_fwd.cu (one CTA a (query tile, head, batch)) and
-// attn_block_fwd.cu (one CTA a (query tile, batch), its heads in turn).
+// The causal flash-attention forward's SIMT tile pass over packed float32
+// tensors. flash_fwd.cu (one CTA a (query tile, head, batch)) runs tile<DK,
+// DV> only for its d_k != d_v instances, (4, 32) and (4, 8); its d_k == d_v
+// instances run on the tensor cores (flash_mma.cuh). attn_block_fwd.cu (one
+// CTA a (query tile, batch), its heads in turn) runs tile<D, D> at d = 32
+// and 64 and wide_tile<D, D> at d = 128, the only user of both.
 //
 // tile<DK, DV> runs query tile qt of head h of batch row b with kThreads
 // threads, two a query row: it stages the q tile through shared memory and
@@ -12,12 +15,12 @@
 // row 0) give exactly 0 with lse = -inf; lse is stored as a natural log,
 // (B, H, L). The ragged last tile (L % 64 != 0) is masked.
 //
-// Wide heads (d = 128) take wide_tile<DK, DV> with kWideThreads threads:
-// two threads a row would hold 128 q values and 64 accumulators each, past
-// the register file. There four threads share a query row, q stays in
-// shared memory, and each thread takes every fourth key of a tile and
-// every fourth output feature (so neighbouring threads read neighbouring
-// banks); 32 accumulators a thread.
+// Wide heads (d = 128, the block kernel) take wide_tile<DK, DV> with
+// kWideThreads threads: two threads a row would hold 128 q values and 64
+// accumulators each, past the register file. There four threads share a
+// query row, q stays in shared memory, and each thread takes every fourth
+// key of a tile and every fourth output feature (so neighbouring threads
+// read neighbouring banks); 32 accumulators a thread.
 //
 // Both start by writing shared memory: a caller that runs several tiles in
 // one CTA puts a barrier between them.

@@ -4,9 +4,16 @@ the autograd Function that joins them (counterpart of
 ``pytorch_generative_tpu/ops/attention_pallas.py``).
 
 A CUDA tensor launches the kernel, or the wrapper raises; a CPU tensor takes
-the plain version. ``causal_attention_packed`` is one autograd Function on
-both devices: its forward saves q, k, v, out and lse, as the JAX package's
-``_vjp_fwd`` does, and its backward is the flash backward.
+the plain version. The (d_k, d_v) pairs are those of ``HEAD_DIM_PAIRS``.
+The d_k == d_v instances run on the tensor cores (3xTF32,
+``csrc/flash_mma.cuh``) and stage their tiles 16 bytes at a time, so on the
+card each of their operands must start 16-byte aligned and have batch and
+row strides that are multiples of 4 elements (a contiguous tensor, or a
+column slice of one at a multiple of 4, passes); else the wrapper raises a
+ValueError. (4, 32) and (4, 8) run on the CUDA cores and take any view with
+unit feature stride. ``causal_attention_packed`` is one autograd Function
+on both devices: its forward saves q, k, v, out and lse, as the JAX
+package's ``_vjp_fwd`` does, and its backward is the flash backward.
 """
 
 from __future__ import annotations
@@ -22,8 +29,9 @@ from pytorch_generative_tpu_torch.ops.masks import causal_attention_mask
 KERNEL = "flash_fwd"
 BWD_KERNEL = "flash_bwd"
 # The (d_k, d_v) head widths the kernels are built for: ImageGPT's d_k ==
-# d_v (128: bench.py's C = 512 model with 4 heads, on the kernels' wide
-# instance), PixelSNAIL's (4, 32) and (4, 8) for small tests.
+# d_v on the tensor cores (128: bench.py's C = 512 model with 4 heads),
+# PixelSNAIL's (4, 32) and (4, 8) for small tests on the CUDA cores. The
+# d_k == d_v instances also need aligned operands (module docstring).
 HEAD_DIM_PAIRS = ((16, 16), (32, 32), (64, 64), (128, 128), (4, 32), (4, 8))
 
 # Kernel launches since the last reset; only _flash_forward_cuda adds to
@@ -99,6 +107,12 @@ def _check_operands(n_heads, **operands):
     if ck % n_heads or cv % n_heads or dims not in HEAD_DIM_PAIRS:
         raise ValueError(f"widths q/k {ck}, v {cv} over {n_heads} heads: "
                          f"(d_k, d_v) not one of {HEAD_DIM_PAIRS}")
+    if dims[0] == dims[1]:
+        for name, t in operands.items():  # the tensor-core kernels copy 16 bytes at a time
+            if t.data_ptr() % 16 or t.stride(0) % 4 or t.stride(1) % 4:
+                raise ValueError(f"{name}: the d_k == d_v kernels need a 16-byte aligned "
+                                 f"start and strides that are multiples of 4, got "
+                                 f"offset {t.data_ptr() % 16} bytes, strides {t.stride()}")
     return dims
 
 

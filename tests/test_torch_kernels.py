@@ -7,6 +7,7 @@ card run it as
     python -m pytest --noconftest tests/test_torch_kernels.py
 """
 
+import hashlib
 import os
 import sys
 
@@ -53,10 +54,14 @@ def _rand(shape, seed, dev):
 # Every (d_k, d_v) instance of the flash kernels: ImageGPT's d_k == d_v and
 # PixelSNAIL's d_k != d_v.
 PAIRS = [pytest.param(dk, dv, id=f"{dk}-{dv}") for dk, dv in attention_cuda.HEAD_DIM_PAIRS]
+# Lengths on every edge of the kernels' tiles (64-row query tiles, 32- and
+# 64-key or -row tiles): one row (fully masked under mask_center), part of
+# a tile, one past a tile, whole tiles, ragged, ImageGPT's 784.
+FLASH_LENGTHS = [1, 17, 33, 64, 65, 200, 784]
 
 
 @pytest.mark.parametrize("mask_center", [False, True])
-@pytest.mark.parametrize("l", [64, 200, 784])
+@pytest.mark.parametrize("l", FLASH_LENGTHS)
 @pytest.mark.parametrize("d_k,d_v", PAIRS)
 def test_flash_kernel_matches_plain(dev, mask_center, l, d_k, d_v):
     """out and lse within 5e-5 of the dense version (f32, another summation
@@ -93,6 +98,58 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError):
         attention_cuda.flash_forward(q, q.transpose(0, 1).contiguous().transpose(0, 1),
                                      q, False, 2)
+    wide = _rand((2, 64, 65), 1, dev)
+    with pytest.raises(ValueError, match="16-byte"):  # starts 4 bytes past an aligned one
+        attention_cuda.flash_forward(q, wide[..., 1:], q, False, 2)
+
+
+def _flash_operands(b, l, n_heads, d_k, d_v, seed, dev):
+    """q, k, v (k and v feature slices of one kv tensor) and dO, as
+    tools/torch_flash_times.py makes them."""
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((b, l, n_heads * d_k), generator=g).to(dev)
+    kv = torch.randn((b, l, n_heads * (d_k + d_v)), generator=g).to(dev)
+    dout = torch.randn((b, l, n_heads * d_v), generator=g).to(dev)
+    return q, kv[..., :n_heads * d_k], kv[..., n_heads * d_k:], dout
+
+
+@pytest.mark.parametrize("mask_center", [False, True])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_tensor_core_flash_kernels_give_equal_bits_twice(dev, mask_center, d):
+    """The d_k == d_v kernels sum every output element in one thread in a
+    fixed order (no atomics): two calls give out, lse, dq, dk and dv bit for
+    bit."""
+    q, k, v, dout = _flash_operands(3, 200, 2, d, d, d, dev)
+    first, second = [], []
+    for outs in (first, second):
+        out, lse = attention_cuda.flash_forward(q, k, v, mask_center, 2)
+        outs += [out, lse, *attention_cuda.flash_backward(q, k, v, out, lse, dout,
+                                                          mask_center, 2)]
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+# SHA-256 of out, lse, dq, dk and dv of the (4, 32) and (4, 8) instances at
+# tools/torch_flash_times.py --dump's inputs (B 4, L 200, H 2), as the SIMT
+# kernels gave them on an H100 before the d_k == d_v instances moved to the
+# tensor cores (commit b0bfa22): those kernels are unchanged, bit for bit.
+SIMT_DIGESTS = {
+    (4, 32, False): "476f5b8f1bfdb51fa9cb32d5171a4ec2dc9f19431922de748f86be26dc6f8ecd",
+    (4, 32, True): "8e6793671cc4660b085f09e73190bc9f8c8dae344ef75e7b754265ae2f4e8253",
+    (4, 8, False): "6d0f6cee29859b4e2b81e11c41b32df68b8b76f833b4991dd35ccd894f9e5d31",
+    (4, 8, True): "40dceb4c89800db1bb36ecd4034e67f9c9637d8c1bf990dcde7f02c4ed7bb3dd",
+}
+
+
+@pytest.mark.parametrize("d_k,d_v,mask_center", list(SIMT_DIGESTS))
+def test_simt_flash_instances_keep_their_bits(dev, d_k, d_v, mask_center):
+    q, k, v, dout = _flash_operands(4, 200, 2, d_k, d_v, d_k * 1000 + d_v, dev)
+    out, lse = attention_cuda.flash_forward(q, k, v, mask_center, 2)
+    grads = attention_cuda.flash_backward(q, k, v, out, lse, dout, mask_center, 2)
+    digest = hashlib.sha256(b"".join(t.cpu().contiguous().numpy().tobytes()
+                                     for t in (out, lse, *grads))).hexdigest()
+    assert digest == SIMT_DIGESTS[(d_k, d_v, mask_center)]
 
 
 def _model(dev, blocks=2, size=8, seed=0):
@@ -282,7 +339,7 @@ BWD_TOL = 1e-4
 
 
 @pytest.mark.parametrize("mask_center", [False, True])
-@pytest.mark.parametrize("l", [64, 200, 784])
+@pytest.mark.parametrize("l", FLASH_LENGTHS)
 @pytest.mark.parametrize("d_k,d_v", PAIRS)
 def test_flash_backward_kernel_matches_plain(dev, mask_center, l, d_k, d_v):
     """dq, dk, dv within BWD_TOL of the plain backward on the same saved out

@@ -92,9 +92,36 @@ def _records(log_dir, tag, key="train"):
 
 # (1) The flash backward ----------------------------------------------------
 
+def _flash_backward_failure_report(request, arrays, rerun, exact):
+    """What test_flash_backward_plain_matches_jax_kernel records when a
+    comparison fails (fault C.2): saves ``arrays`` with np.savez under the
+    test's tmp_path and describes ``rerun`` (the port's plain forward and
+    backward run again on the same inputs in this process) and this
+    process's torch CPU settings."""
+    path = request.getfixturevalue("tmp_path") / "flash_backward_failure.npz"
+    np.savez(path, **arrays)
+    again = all(np.array_equal(arrays[f"port_{name}"], t.numpy())
+                for name, t in rerun.items())
+    errs = ", ".join(  # equal infinities (lse = -inf) count as no error
+        f"{name} {np.abs(np.where(t.numpy() == e.numpy(), 0, t.numpy() - e.numpy())).max():.3e}"
+        for (name, t), e in zip(rerun.items(), exact))
+    mkldnn = torch.backends.mkldnn
+    settings = [f"mkldnn.{attr} {getattr(obj, 'fp32_precision')!r}"
+                for attr, obj in (("fp32_precision", mkldnn),
+                                  ("matmul.fp32_precision", getattr(mkldnn, "matmul", None)))
+                if hasattr(obj, "fp32_precision")]
+    return (f"rerun of the port's plain forward and backward in this process gives "
+            f"the failing values again: {again}; its largest error against float64: "
+            f"{errs}; torch.get_num_threads() {torch.get_num_threads()}, "
+            f"get_float32_matmul_precision() {torch.get_float32_matmul_precision()!r}, "
+            f"cpu capability {torch.backends.cpu.get_cpu_capability()!r}, "
+            + (", ".join(settings) or "no mkldnn fp32 precision setting")
+            + f"; inputs and outputs saved to {path}")
+
+
 @pytest.mark.parametrize("mask_center", [False, True])
 @pytest.mark.parametrize("l", [64, 50])
-def test_flash_backward_plain_matches_jax_kernel(monkeypatch, mask_center, l):
+def test_flash_backward_plain_matches_jax_kernel(monkeypatch, request, mask_center, l):
     """The backward's plain version against the JAX Pallas backward in
     interpret mode, each from its own forward's out and lse: dq, dk, dv
     within atol 1e-5 (f32, another summation order); the fully-masked row
@@ -103,7 +130,9 @@ def test_flash_backward_plain_matches_jax_kernel(monkeypatch, mask_center, l):
     Each side is first held on its own against the same formula evaluated
     in float64 (the plain forward and backward on float64 copies of the
     inputs), at the same 1e-5, so that a failure names the side that
-    computed something else."""
+    computed something else. On a failure the test saves its inputs and
+    both sides' outputs, reruns the port's side in the same process and
+    says what the rerun gave (fault C.2)."""
     monkeypatch.setattr(attention_pallas, "_INTERPRET", True)
     n_heads, d = 2, 8
     rng = np.random.default_rng(l)
@@ -126,14 +155,28 @@ def test_flash_backward_plain_matches_jax_kernel(monkeypatch, mask_center, l):
     out64, lse64 = attention_cuda.flash_forward_plain(*f64[:3], mask_center, n_heads)
     exact = attention_cuda.flash_backward_plain(*f64[:3], out64, lse64, f64[3],
                                                 mask_center, n_heads)
-    for name, a, b, e in zip(("dq", "dk", "dv"), got, want, exact):
-        e = e.numpy()
-        np.testing.assert_allclose(np.asarray(b), e, rtol=0, atol=1e-5,
-                                   err_msg=f"{name}: the JAX kernel against float64")
-        np.testing.assert_allclose(a.numpy(), e, rtol=0, atol=1e-5,
-                                   err_msg=f"{name}: the port's plain backward "
-                                           "against float64")
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=1e-5)
+    try:
+        for name, a, b, e in zip(("dq", "dk", "dv"), got, want, exact):
+            e = e.numpy()
+            np.testing.assert_allclose(np.asarray(b), e, rtol=0, atol=1e-5,
+                                       err_msg=f"{name}: the JAX kernel against float64")
+            np.testing.assert_allclose(a.numpy(), e, rtol=0, atol=1e-5,
+                                       err_msg=f"{name}: the port's plain backward "
+                                               "against float64")
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=1e-5)
+    except AssertionError as failure:
+        arrays = dict(q=q, k=k, v=v, g=g, port_out=out.numpy(), port_lse=lse.numpy(),
+                      f64_out=out64.numpy(), f64_lse=lse64.numpy())
+        for name, a, b, e in zip(("dq", "dk", "dv"), got, want, exact):
+            arrays.update({f"port_{name}": a.numpy(), f"jax_{name}": np.asarray(b),
+                           f"f64_{name}": e.numpy()})
+        out2, lse2 = attention_cuda.flash_forward(tq, tk, tv, mask_center, n_heads)
+        grads2 = attention_cuda.flash_backward(tq, tk, tv, out2, lse2, tg, mask_center,
+                                               n_heads)
+        rerun = dict(zip(("out", "lse", "dq", "dk", "dv"), (out2, lse2, *grads2)))
+        report = _flash_backward_failure_report(request, arrays, rerun,
+                                                (out64, lse64, *exact))
+        raise AssertionError(f"{failure}\n{report}") from failure
     if mask_center:
         np.testing.assert_array_equal(got[0][:, 0].numpy(), 0.0)
 

@@ -1,32 +1,46 @@
 """Times the PyTorch port's flash kernels of one checkout of this repository
 on a CUDA card, so that two checkouts can be compared in one run:
 
-    python3 tools/torch_flash_times.py CHECKOUT LABEL [--dump FILE]
+    python3 tools/torch_flash_times.py CHECKOUT LABEL [--dump FILE] [--steps]
     python3 tools/torch_flash_times.py --compare FILE_A FILE_B
 
 CHECKOUT is the root of a checkout (its ``pytorch_generative_tpu_torch`` is
 imported, and its kernels built there); LABEL names it in the output. Prints
-one line: the forward and backward ms (CUDA events, 20 calls after 3
-warm-ups) at ImageGPT's (B 64, L 784) with (H 2, d 32) and (H 8, d 64); then
-the registers and spills of the checkout's forward kernels (its nvcc
--Xptxas -v log). Run two checkouts in turns (A, B, B, A) in one process tree
-on one card. ``--dump`` also saves the forward's out and lse for every
-(d_k, d_v) the checkout builds, at (B 4, L 200, H 2), with and without
-mask_center, from inputs made from one seed; ``--compare`` says, for the
-widths two dumps share, whether they are equal bit for bit.
+one line of forward and backward ms (CUDA events, 20 calls after 3
+warm-ups) at ImageGPT's (B 64, L 784) with (H 2, d 32), (H 8, d 64) and
+(H 4, d 128), and at PixelSNAIL's (B 128, L 784, H 1, d_k 4, d_v 32,
+mask_center); then the registers and spills of the checkout's forward and
+backward kernels (their nvcc -Xptxas -v logs). Run two checkouts in turns
+(A, B, B, A) in one process tree on one card. ``--dump`` also saves the
+forward's out and lse and the backward's dq, dk and dv for every (d_k, d_v)
+the checkout builds, at (B 4, L 200, H 2), and the fused attention block's
+y, attn and lse at (B 2, L 200) for C 64 / 2 heads, C 512 / 8 and C 512 /
+4, with and without mask_center, from inputs made from one seed;
+``--compare`` says, for the entries two dumps share, whether they are
+equal bit for bit. ``--steps`` also times the
+checkout's ImageGPT train step (``Trainer.train_one_step``, batch 64, 5
+steps after 3 warm-ups, CUDA events) at the reproduce() config (C = 64, 2
+heads) and at C = 512 with 8 and with 4 heads, TF32 off.
 """
 
+import argparse
+import shutil
 import sys
+import tempfile
+
+# (batch, heads, d_k, d_v, mask_center) of the timed shapes, all at L = 784.
+SHAPES = ((64, 2, 32, 32, False), (64, 8, 64, 64, False), (64, 4, 128, 128, False),
+          (128, 1, 4, 32, True))
 
 
 def _pairs(ac):
     return getattr(ac, "HEAD_DIM_PAIRS", None) or [(d, d) for d in ac.HEAD_DIMS]
 
 
-def _ptxas(ac):
-    """'kernel: N registers, spills' of each entry function in the forward
+def _ptxas(ac, kernel):
+    """'entry: N registers, spills' of each entry function in one kernel
     library's build log."""
-    log = ac._build.library_path(ac.KERNEL).with_suffix(".log").read_text()
+    log = ac._build.library_path(kernel).with_suffix(".log").read_text()
     out, name = [], None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
@@ -40,13 +54,25 @@ def _ptxas(ac):
     return out
 
 
-def main(checkout, label, dump=None):
+def _operands(b, l, h, d_k, d_v, seed, dev):
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((b, l, h * d_k), generator=g).to(dev)
+    kv = torch.randn((b, l, h * (d_k + d_v)), generator=g).to(dev)
+    do = torch.randn((b, l, h * d_v), generator=g).to(dev)
+    return q, kv[..., :h * d_k], kv[..., h * d_k:], do
+
+
+def main(checkout, label, dump=None, steps=False):
     sys.path.insert(0, checkout)
     import torch
 
     from pytorch_generative_tpu_torch.ops import attention_cuda as ac
 
     dev = torch.device("cuda:0")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     def time_ms(fn, n=20):
         for _ in range(3):
@@ -62,30 +88,77 @@ def main(checkout, label, dump=None):
         return start.elapsed_time(end) / n
 
     out = []
-    for h, d in ((2, 32), (8, 64)):
-        g = torch.Generator().manual_seed(0)
-        c = h * d
-        q = torch.randn((64, 784, c), generator=g).to(dev)
-        kv = torch.randn((64, 784, 2 * c), generator=g).to(dev)
-        do = torch.randn((64, 784, c), generator=g).to(dev)
-        k, v = kv[..., :c], kv[..., c:]
-        o, lse = ac.flash_forward(q, k, v, False, h)
-        f = time_ms(lambda: ac.flash_forward(q, k, v, False, h))
-        b = time_ms(lambda: ac.flash_backward(q, k, v, o, lse, do, False, h))
-        out.append(f"d={d}: fwd {f:.4f} ms bwd {b:.4f} ms")
+    for b, h, d_k, d_v, mask_center in SHAPES:
+        q, k, v, do = _operands(b, 784, h, d_k, d_v, 0, dev)
+        o, lse = ac.flash_forward(q, k, v, mask_center, h)
+        f = time_ms(lambda: ac.flash_forward(q, k, v, mask_center, h))
+        bw = time_ms(lambda: ac.flash_backward(q, k, v, o, lse, do, mask_center, h))
+        out.append(f"(B {b}, H {h}, d {d_k}/{d_v}{', mask_center' if mask_center else ''}): "
+                   f"fwd {f:.4f} ms bwd {bw:.4f} ms")
     print(f"flash times {label} ({ac.__file__}): " + "; ".join(out), flush=True)
-    print(f"flash_fwd ptxas {label}: " + " | ".join(_ptxas(ac)), flush=True)
+    for kernel in (ac.KERNEL, ac.BWD_KERNEL):
+        print(f"{kernel} ptxas {label}: " + " | ".join(_ptxas(ac, kernel)), flush=True)
     if dump:
         results = {}
         for d_k, d_v in _pairs(ac):
-            g = torch.Generator().manual_seed(d_k * 1000 + d_v)
-            q = torch.randn((4, 200, 2 * d_k), generator=g).to(dev)
-            kv = torch.randn((4, 200, 2 * (d_k + d_v)), generator=g).to(dev)
-            k, v = kv[..., :2 * d_k], kv[..., 2 * d_k:]
+            q, k, v, do = _operands(4, 200, 2, d_k, d_v, d_k * 1000 + d_v, dev)
             for mask_center in (False, True):
                 o, lse = ac.flash_forward(q, k, v, mask_center, 2)
-                results[f"{d_k}x{d_v} mask_center={mask_center}"] = (o.cpu(), lse.cpu())
+                grads = ac.flash_backward(q, k, v, o, lse, do, mask_center, 2)
+                results[f"{d_k}x{d_v} mask_center={mask_center}"] = dict(
+                    zip(("out", "lse", "dq", "dk", "dv"), (t.cpu() for t in (o, lse, *grads))))
+        results.update(_block_outputs(dev))
         torch.save(results, dump)
+    if steps:
+        print(f"train steps {label}: " + "; ".join(
+            f"{name} {ms:.3f} ms" for name, ms in step_times(dev, time_ms)), flush=True)
+
+
+def _block_outputs(dev):
+    """{entry: {name: tensor}} of the fused attention block's forward."""
+    import torch
+
+    from pytorch_generative_tpu_torch.ops import attn_block_cuda
+
+    out = {}
+    for c, h in ((64, 2), (512, 8), (512, 4)):
+        g = torch.Generator().manual_seed(c + h)
+        x = torch.randn((2, 200, c), generator=g)
+        ws = [torch.randn(shape, generator=g) * s for shape, s in (
+            ((c, c), c ** -0.5), ((c,), 0.1), ((c, 2 * c), c ** -0.5), ((2 * c,), 0.1),
+            ((c, c), c ** -0.5), ((c,), 0.1))]
+        x, *ws = (t.to(dev) for t in (x, *ws))
+        for mask_center in (False, True):
+            y, attn, lse = attn_block_cuda.attention_block_forward(x, *ws, mask_center, h)
+            out[f"block C={c} H={h} mask_center={mask_center}"] = {
+                "y": y.cpu(), "attn": attn.cpu(), "lse": lse.cpu()}
+    return out
+
+
+def step_times(dev, time_ms):
+    """(config name, ms) of one ImageGPT train step at batch 64 per config."""
+    import torch
+
+    from pytorch_generative_tpu_torch import optim, trainer
+    from pytorch_generative_tpu_torch.models import ImageGPT
+    from pytorch_generative_tpu_torch.models.autoregressive import image_gpt
+
+    g = torch.Generator().manual_seed(0)
+    out = []
+    for name, cfg in (("C=64 H=2", image_gpt.REPRODUCE_CONFIG),
+                      ("C=512 H=8", image_gpt.LARGE_CONFIG),
+                      ("C=512 H=4", dict(image_gpt.LARGE_CONFIG, n_attention_heads=4))):
+        model = ImageGPT(**cfg, generator=g, device=dev)
+        t = trainer.Trainer(model, image_gpt.reproduce_loss,
+                            optim.adam_multiplicative(5e-3, 0.999977), [], [],
+                            log_dir=tempfile.mkdtemp(prefix="flash_times_"),
+                            use_tensorboard=False, device=dev)
+        h, w, _ = cfg["in_shape"]
+        xb = (torch.rand((64, h, w, 1), generator=g) < 0.13).float().numpy()
+        out.append((name, time_ms(lambda: t.train_one_step(xb, None), n=5)))
+        shutil.rmtree(t.log_dir, ignore_errors=True)
+        del model, t
+    return out
 
 
 def compare(file_a, file_b):
@@ -93,13 +166,19 @@ def compare(file_a, file_b):
 
     a, b = torch.load(file_a), torch.load(file_b)
     for key in sorted(set(a) & set(b)):
-        same = all(torch.equal(x, y) for x, y in zip(a[key], b[key]))
-        print(f"flash_fwd bits {key}: out and lse {'equal' if same else 'DIFFER'}",
-              flush=True)
+        same = [name for name in a[key] if torch.equal(a[key][name], b[key][name])]
+        print(f"bits {key}: equal {', '.join(same) or 'none'} of {len(a[key])} outputs"
+              f"{'' if len(same) == len(a[key]) else ' (DIFFER)'}", flush=True)
 
 
 if __name__ == "__main__":
     if sys.argv[1] == "--compare":
         compare(sys.argv[2], sys.argv[3])
     else:
-        main(sys.argv[1], sys.argv[2], sys.argv[4] if len(sys.argv) > 4 else None)
+        parser = argparse.ArgumentParser()
+        parser.add_argument("checkout")
+        parser.add_argument("label")
+        parser.add_argument("--dump")
+        parser.add_argument("--steps", action="store_true")
+        args = parser.parse_args()
+        main(args.checkout, args.label, args.dump, args.steps)
