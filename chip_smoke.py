@@ -46,11 +46,13 @@ call). Then the widths the JAX package runs (``wide_phases``), VQ-VAE
 (``vq_vae_phases``) and ImageGPT at ``LARGE_CONFIG`` with the fused
 attention block (``PGT_FUSED_ATTN=1``) under the MLP backward's saved-y,
 recompute and pipelined routes (``fused_attn_phases``): the block kernel
-and both routes against their plain versions, the forward and a train
-step a route with their launches, gradients and 3 Adam steps against the
-CPU, times. The line before the last is the per-kernel JSON summary; the last
-line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
-before that line; without a CUDA device it fails at once.
+(two calls giving equal bits) and both routes against their plain
+versions, the forward and a train step a route with their launches,
+gradients and 3 Adam steps against the CPU, times (the block at its three
+widths beside its composition, and its 3xTF32 GEMM beside
+``torch.addmm``). The line before the last is the per-kernel JSON summary;
+the last line is ``{"ok": true, "device": {...}}``. Any failure exits
+non-zero before that line; without a CUDA device it fails at once.
 """
 
 import concurrent.futures
@@ -129,8 +131,8 @@ VQ_NEAR_TIE = 1e-5
 # matrix product.
 VQ_SUMS_RTOL = 1e-5
 # The fused attention block (PGT_FUSED_ATTN=1) against its plain version:
-# y and attn as a share of each one's largest magnitude (f32 sums over C =
-# 512 and the keys in another order than cuBLAS's), lse absolutely, as the
+# y and attn as a share of each one's largest magnitude (3xTF32 sums over C
+# = 512 and the keys in another order than cuBLAS's), lse absolutely, as the
 # flash forward's. Its widths: reproduce()'s C = 64 with 2 heads,
 # LARGE_CONFIG's C = 512 with 8 and bench.py's C = 512 with 4.
 BLOCK_RTOL = 1e-4
@@ -1409,16 +1411,17 @@ def fused_attn_phases(dev, gen, smi, reset_counts, read_counts):
     """ImageGPT at LARGE_CONFIG with the fused attention block
     (PGT_FUSED_ATTN=1) under the MLP backward's three routes: the block
     kernel against its plain version at its three widths (B 64, L 784, and
-    L 200 with mask_center); the recompute and pipelined MLP backwards
-    against the saved-y route's plain version at R = 50,176, C = 512 and
-    1024, and bit for bit against the saved-y kernel; the forward at batch
-    64 against the CPU with its launches; one train step a route with its
-    launches; gradients and 3 Adam steps a route against the CPU at batch
-    2; times of the new kernels beside their plain versions, bounds and
-    library yardsticks, of the forward and the step with the gate on and
-    off and under each route; a profiled gated step. Returns the launch
-    counts of its main path runs and the three kernels' entries of the
-    per-kernel summary."""
+    L 200 with mask_center), two calls giving equal bits; the recompute and
+    pipelined MLP backwards against the saved-y route's plain version at R =
+    50,176, C = 512 and 1024, and bit for bit against the saved-y kernel;
+    the forward at batch 64 against the CPU with its launches; one train
+    step a route with its launches; gradients and 3 Adam steps a route
+    against the CPU at batch 2; times of the new kernels beside their plain
+    versions, bounds and library yardsticks (the block at its three widths,
+    and its 3xTF32 GEMM beside torch.addmm), of the forward and the step
+    with the gate on and off and under each route; a profiled gated step.
+    Returns the launch counts of its main path runs and the three kernels'
+    entries of the per-kernel summary."""
     from pytorch_generative_tpu_torch import optim, trainer
     from pytorch_generative_tpu_torch.models import ImageGPT
     from pytorch_generative_tpu_torch.models.autoregressive import image_gpt
@@ -1443,20 +1446,25 @@ def fused_attn_phases(dev, gen, smi, reset_counts, read_counts):
         for ll, mask_center in ((l, False), (200, True)):
             ops = block_operands(BATCH, ll, cw, gen, dev)
             y, attn, lse = attn_block_cuda.attention_block_forward(*ops, mask_center, heads)
+            again = attn_block_cuda.attention_block_forward(*ops, mask_center, heads)
             ry, rattn, rlse = attn_block_cuda.attention_block_plain(*ops, mask_center, heads)
             torch.cuda.synchronize()
+            same = [torch.equal(a_, b_) for a_, b_ in zip((y, attn, lse), again)]
             (e_y, m_y), (e_a, m_a) = rel_err(y, ry), rel_err(attn, rattn)
             e_l = max_err(lse, rlse)
             block_err = max(block_err, e_y, e_a, e_l)
             print(f"phase block C={cw} H={heads}: B={BATCH} L={ll} mask_center={mask_center} "
                   f"max_abs_err y={e_y:.3e} ({m_y:.3e}) attn={e_a:.3e} ({m_a:.3e}) (tol "
-                  f"{BLOCK_RTOL} x max |plain|) lse={e_l:.3e} (tol {BLOCK_LSE_TOL})", flush=True)
+                  f"{BLOCK_RTOL} x max |plain|) lse={e_l:.3e} (tol {BLOCK_LSE_TOL}); two calls "
+                  f"give equal bits (y, attn, lse): {same}", flush=True)
             check(e_y <= BLOCK_RTOL * m_y and e_a <= BLOCK_RTOL * m_a and e_l <= BLOCK_LSE_TOL,
                   f"the block kernel disagrees at C = {cw}, {heads} heads")
+            check(all(same), f"the block kernel gave other bits in a second call at C = {cw}, "
+                  f"{heads} heads")
             if mask_center:
                 check(bool((attn[:, 0] == 0).all()) and bool(torch.isneginf(lse[:, :, 0]).all()),
                       "row 0 under mask_center is not attn 0 with lse -inf in the block")
-            del ops, y, attn, lse, ry, rattn, rlse
+            del ops, y, attn, lse, again, ry, rattn, rlse
 
     # Phase A2: the recompute and pipelined MLP backwards at the path's rows
     # and C = 1024, from the forward kernel's y: within MLP_RTOL of the
@@ -1562,23 +1570,48 @@ def fused_attn_phases(dev, gen, smi, reset_counts, read_counts):
                     for _ in range(3)], f" gated C={c} route {route}")
     del big, cpu_big
 
-    # Phase A5: times. The new kernels at the path's shapes beside their
-    # plain versions, bounds and library yardsticks; the saved-y kernel
-    # beside the pipelined one in the same call.
-    ops = block_operands(BATCH, l, c, gen, dev)
-    block_t = {"kernel": time_ms(lambda: attn_block_cuda.attention_block_forward(
-                   *ops, False, hb), 10, 2),
-               "plain": time_ms(lambda: attn_block_cuda.attention_block_plain(
-                   *ops, False, hb), 5, 1),
-               "library": time_ms(lambda: block_composition(*ops, hb), 10, 2),
-               "kernel2": time_ms(lambda: attn_block_cuda.attention_block_forward(
-                   *ops, False, hb), 10, 2)}
-    block_bound = bound(*block_work(BATCH, l, c, c, c, hb, False))
-    print(f"phase times block [{smi}]: attn_block_fwd (B={BATCH}, L={l}, C={c}, H={hb}) kernel "
-          f"{block_t['kernel']:.4f}/{block_t['kernel2']:.4f} ms, plain {block_t['plain']:.4f} ms, "
-          f"addmm -> causal SDPA -> addmm {block_t['library']:.4f} ms, bound "
-          f"{block_bound[0]:.4f} ms ({block_bound[1]})", flush=True)
-    del ops
+    # Phase A5: times. The block at its three widths beside its plain
+    # version, the composition it replaces and its bounds (the 3xTF32 rate
+    # of its route, the f32 one beside it); its GEMM alone at the
+    # projection's shape (the projection stage: x (B L, C) by wq and wkv,
+    # N = E and 2E) beside the same two products by torch.addmm in f32
+    # (TF32 off); the MLP backward routes at the path's shapes, the saved-y
+    # kernel beside the pipelined one in the same call.
+    block_t = {}
+    for cw, heads in BLOCK_WIDTHS:
+        ops = block_operands(BATCH, l, cw, gen, dev)
+        t_ = {"kernel": time_ms(lambda: attn_block_cuda.attention_block_forward(
+                  *ops, False, heads), 10, 2),
+              "plain": time_ms(lambda: attn_block_cuda.attention_block_plain(
+                  *ops, False, heads), 5, 1),
+              "library": time_ms(lambda: block_composition(*ops, heads), 10, 2),
+              "kernel2": time_ms(lambda: attn_block_cuda.attention_block_forward(
+                  *ops, False, heads), 10, 2)}
+        work = block_work(BATCH, l, cw, cw, cw, heads, False)
+        t_["bound"], t_["bound_f32"] = bound(*work, TF32X3_FLOPS), bound(*work)
+        block_t[(cw, heads)] = t_
+        print(f"phase times block [{smi}]: attn_block_fwd (B={BATCH}, L={l}, C={cw}, H={heads}) "
+              f"kernel {t_['kernel']:.4f}/{t_['kernel2']:.4f} ms, plain {t_['plain']:.4f} ms, "
+              f"addmm -> causal SDPA -> addmm {t_['library']:.4f} ms, 3xTF32 bound "
+              f"{t_['bound'][0]:.4f} ms ({t_['bound'][1]}), f32 bound {t_['bound_f32'][0]:.4f} "
+              f"ms ({t_['bound_f32'][1]}); {work[0] / 1e9:.1f} GFLOP, "
+              f"{work[0] / t_['kernel'] / 1e9:.1f} TFLOP/s", flush=True)
+        if (cw, heads) == (c, hb):
+            x2 = ops[0].reshape(-1, cw)
+            gemm_flops = 2 * x2.shape[0] * cw * 3 * cw
+            gemm_t = [time_ms(lambda: attn_block_cuda.project(*ops[:5]), 10, 2),
+                      time_ms(lambda: (torch.addmm(ops[2], x2, ops[1]),
+                                       torch.addmm(ops[4], x2, ops[3])), 10, 2),
+                      time_ms(lambda: attn_block_cuda.project(*ops[:5]), 10, 2)]
+            gemm_bound = bound(gemm_flops, 4 * (x2.numel() + 3 * cw * cw + 3 * cw
+                                                + 3 * x2.shape[0] * cw), TF32X3_FLOPS)
+            print(f"phase times gemm [{smi}]: gemm_tf32x3 at the projection (M={x2.shape[0]}, "
+                  f"K={cw}, N={cw} and {2 * cw}) {gemm_t[0]:.4f}/{gemm_t[2]:.4f} ms ("
+                  f"{gemm_flops / min(gemm_t[0], gemm_t[2]) / 1e9:.1f} TFLOP/s), torch.addmm f32 "
+                  f"{gemm_t[1]:.4f} ms ({gemm_flops / gemm_t[1] / 1e9:.1f} TFLOP/s), 3xTF32 bound "
+                  f"{gemm_bound[0]:.4f} ms ({gemm_bound[1]})", flush=True)
+            del x2
+        del ops
     f = 4 * c
     xr = torch.randn((rows, c), generator=gen).to(dev).requires_grad_()
     params = [(1.0 + 0.1 * torch.randn((c,), generator=gen)), 0.1 * torch.randn((c,), generator=gen),
@@ -1650,7 +1683,8 @@ def fused_attn_phases(dev, gen, smi, reset_counts, read_counts):
     step = lambda: step_trainer.train_one_step(xb, None)
     profile_steps(step, 2, min(path_t["step gate=1 saved"]), f"train step batch {BATCH}",
                   (BATCH, "samples"), f"step gated C={c}", smi,
-                  ("attn_block", "gemm_kernel", "flash_bwd", "ln_bwd_rows", "ln_fwd"))
+                  ("gemm3::gemm_kernel", "flash_fwd_mma", "sgemm::gemm_kernel", "flash_bwd",
+                   "ln_bwd_rows", "ln_fwd"))
     shutil.rmtree(step_trainer.log_dir, ignore_errors=True)
     del os.environ["PGT_FUSED_ATTN"], os.environ["PGT_MLP_BWD"]
 
@@ -1661,9 +1695,13 @@ def fused_attn_phases(dev, gen, smi, reset_counts, read_counts):
                 "replaces": replaces, "max_abs_err": err, "ms": t_kernel, "plain_ms": t_plain,
                 "bound_ms": b[0], "bound_by": b[1], "library_ms": t_lib}
 
+    # Row 9 at LARGE_CONFIG's width: bound_ms at the 3xTF32 rate of its
+    # route, bound_f32_ms the f32 one beside it.
+    bt = block_t[(c, hb)]
     return {"counts": [serve_counts, *train_counts], "kernels": [
-        entry(attn_block_cuda.KERNEL, "pytorch_generative_tpu/ops/attn_block_pallas.py:57",
-              block_err, block_t["kernel"], block_t["plain"], block_t["library"], block_bound),
+        dict(entry(attn_block_cuda.KERNEL, "pytorch_generative_tpu/ops/attn_block_pallas.py:57",
+                   block_err, bt["kernel"], bt["plain"], bt["library"], bt["bound"]),
+             bound_f32_ms=bt["bound_f32"][0]),
         *(entry(route_kernel[route], f"pytorch_generative_tpu/ops/mlp_pallas.py:{line}",
                 route_err[route], route_t[route]["kernel"][0], route_t[route]["plain"],
                 route_t[route]["library"], route_bounds[route])

@@ -1,9 +1,7 @@
 // The causal flash-attention forward's SIMT tile pass over packed float32
-// tensors. flash_fwd.cu (one CTA a (query tile, head, batch)) runs tile<DK,
-// DV> only for its d_k != d_v instances, (4, 32) and (4, 8); its d_k == d_v
-// instances run on the tensor cores (flash_mma.cuh). attn_block_fwd.cu (one
-// CTA a (query tile, batch), its heads in turn) runs tile<D, D> at d = 32
-// and 64 and wide_tile<D, D> at d = 128, the only user of both.
+// tensors, for flash_fwd.cu's d_k != d_v instances, (4, 32) and (4, 8)
+// (PixelSNAIL; one CTA a (query tile, head, batch)). The d_k == d_v
+// instances run on the tensor cores (flash_fwd_mma.cuh).
 //
 // tile<DK, DV> runs query tile qt of head h of batch row b with kThreads
 // threads, two a query row: it stages the q tile through shared memory and
@@ -14,16 +12,6 @@
 // accumulators. Fully-masked rows (`offset` = 1, the mask_center shift, at
 // row 0) give exactly 0 with lse = -inf; lse is stored as a natural log,
 // (B, H, L). The ragged last tile (L % 64 != 0) is masked.
-//
-// Wide heads (d = 128, the block kernel) take wide_tile<DK, DV> with
-// kWideThreads threads: two threads a row would hold 128 q values and 64
-// accumulators each, past the register file. There four threads share a
-// query row, q stays in shared memory, and each thread takes every fourth
-// key of a tile and every fourth output feature (so neighbouring threads
-// read neighbouring banks); 32 accumulators a thread.
-//
-// Both start by writing shared memory: a caller that runs several tiles in
-// one CTA puts a barrier between them.
 
 #pragma once
 
@@ -39,18 +27,10 @@ constexpr int kThreads = 2 * kBlockQ;  // two threads share one query row
 constexpr int kHalfK = kBlockK / 2;    // keys per thread per tile
 constexpr float kLn2 = 0.6931471805599453f;
 
-constexpr int kWideTpr = 4;                    // threads per query row
-constexpr int kWideThreads = kWideTpr * kBlockQ;
-constexpr int kWideKeys = kBlockK / kWideTpr;  // keys per thread per tile
-
-// Floats of dynamic shared memory that a tile pass takes.
+// Floats of dynamic shared memory that the tile pass takes.
 template <int DK, int DV>
 constexpr int tile_smem_floats() {
   return kBlockK * (DK + 1) + kBlockK * DV + kBlockQ * (kBlockK + 1);
-}
-template <int DK, int DV>
-constexpr int wide_tile_smem_floats() {
-  return kBlockQ * (DK + 1) + tile_smem_floats<DK, DV>();
 }
 
 // q, k: rows of H * DK features, v and out: rows of H * DV, with the given
@@ -93,31 +73,16 @@ __device__ __forceinline__ void tile(
   // kBlockQ == kBlockK, so the diagonal of query tile qt lies in key tile qt.
   for (int kt = 0; kt <= qt; ++kt) {
     __syncthreads();  // every reader of the previous tile is done
-    if constexpr (DK == DV) {
-      // k and v together: both loads of an element in flight at once.
-      for (int idx = tid; idx < kBlockK * DK; idx += kThreads) {
-        const int rr = idx / DK, cc = idx % DK;
-        const int key = kt * kBlockK + rr;
-        float kval = 0.f, vval = 0.f;
-        if (key < L) {
-          kval = k[b * k_bs + key * k_rs + h * DK + cc];
-          vval = v[b * v_bs + key * v_rs + h * DV + cc];
-        }
-        ks[rr * (DK + 1) + cc] = kval;
-        vs[rr * DV + cc] = vval;
-      }
-    } else {
-      for (int idx = tid; idx < kBlockK * DK; idx += kThreads) {
-        const int rr = idx / DK, cc = idx % DK;
-        const int key = kt * kBlockK + rr;
-        ks[rr * (DK + 1) + cc] =
-            key < L ? k[b * k_bs + key * k_rs + h * DK + cc] : 0.f;
-      }
-      for (int idx = tid; idx < kBlockK * DV; idx += kThreads) {
-        const int rr = idx / DV, cc = idx % DV;
-        const int key = kt * kBlockK + rr;
-        vs[rr * DV + cc] = key < L ? v[b * v_bs + key * v_rs + h * DV + cc] : 0.f;
-      }
+    for (int idx = tid; idx < kBlockK * DK; idx += kThreads) {
+      const int rr = idx / DK, cc = idx % DK;
+      const int key = kt * kBlockK + rr;
+      ks[rr * (DK + 1) + cc] =
+          key < L ? k[b * k_bs + key * k_rs + h * DK + cc] : 0.f;
+    }
+    for (int idx = tid; idx < kBlockK * DV; idx += kThreads) {
+      const int rr = idx / DV, cc = idx % DV;
+      const int key = kt * kBlockK + rr;
+      vs[rr * DV + cc] = key < L ? v[b * v_bs + key * v_rs + h * DV + cc] : 0.f;
     }
     __syncthreads();
 
@@ -166,110 +131,6 @@ __device__ __forceinline__ void tile(
 #pragma unroll
     for (int d = 0; d < DH; ++d) op[d] = acc[d] / denom;
     if (half == 0) {
-      lse[(static_cast<int64_t>(b) * H + h) * L + qrow] =
-          l == 0.f ? -CUDART_INF_F : m * kLn2 + logf(fmaxf(l, 1e-38f));
-    }
-  }
-}
-
-// Thread (r, part) owns query row r, the keys c = kWideTpr * j + part of
-// each tile and the output features kWideTpr * d + part.
-template <int DK, int DV>
-__device__ __forceinline__ void wide_tile(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ out, float* __restrict__ lse,
-    int L, int H, int64_t q_bs, int64_t q_rs, int64_t k_bs, int64_t k_rs,
-    int64_t v_bs, int64_t v_rs, float scale_log2, int offset, float* smem, int qt,
-    int h, int b) {
-  static_assert(DK == DV, "k and v rows are staged by one loop");
-  static_assert(DV % kWideTpr == 0, "output features split over the row's threads");
-  constexpr int DH = DV / kWideTpr;  // output features per thread
-  float* qs = smem;                       // kBlockQ x (DK + 1), pre-scaled
-  float* ks = qs + kBlockQ * (DK + 1);    // kBlockK x (DK + 1)
-  float* vs = ks + kBlockK * (DK + 1);    // kBlockK x DV
-  float* ps = vs + kBlockK * DV;          // kBlockQ x (kBlockK + 1)
-
-  const int tid = threadIdx.x;
-  const int r = tid / kWideTpr, part = tid % kWideTpr;
-  const int qrow = qt * kBlockQ + r;
-  const bool row_ok = qrow < L;
-
-  for (int idx = tid; idx < kBlockQ * DK; idx += kWideThreads) {
-    const int rr = idx / DK, cc = idx % DK;
-    const int row = qt * kBlockQ + rr;
-    qs[rr * (DK + 1) + cc] =
-        row < L ? q[b * q_bs + row * q_rs + h * DK + cc] * scale_log2 : 0.f;
-  }
-
-  float m = -CUDART_INF_F, l = 0.f;
-  float acc[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) acc[d] = 0.f;
-
-  for (int kt = 0; kt <= qt; ++kt) {
-    __syncthreads();  // q is staged; every reader of the previous tile is done
-    // k and v together: both loads of an element in flight at once.
-    for (int idx = tid; idx < kBlockK * DK; idx += kWideThreads) {
-      const int rr = idx / DK, cc = idx % DK;
-      const int key = kt * kBlockK + rr;
-      float kval = 0.f, vval = 0.f;
-      if (key < L) {
-        kval = k[b * k_bs + key * k_rs + h * DK + cc];
-        vval = v[b * v_bs + key * v_rs + h * DV + cc];
-      }
-      ks[rr * (DK + 1) + cc] = kval;
-      vs[rr * DV + cc] = vval;
-    }
-    __syncthreads();
-
-    float s[kWideKeys];
-    float m_cur = -CUDART_INF_F;
-#pragma unroll
-    for (int j = 0; j < kWideKeys; ++j) {
-      const int c = kWideTpr * j + part;
-      const int key = kt * kBlockK + c;
-      float dot = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < DK; ++d) dot += qs[r * (DK + 1) + d] * ks[c * (DK + 1) + d];
-      const bool ok = row_ok && key < L && key + offset <= qrow;
-      s[j] = ok ? dot : -CUDART_INF_F;
-      m_cur = fmaxf(m_cur, s[j]);
-    }
-#pragma unroll
-    for (int o = 1; o < kWideTpr; o <<= 1)
-      m_cur = fmaxf(m_cur, __shfl_xor_sync(0xffffffffu, m_cur, o));
-    const float m_new = fmaxf(m, m_cur);
-    const float m_safe = isinf(m_new) ? 0.f : m_new;
-    const float alpha = isinf(m) ? 0.f : exp2f(m - m_safe);
-    float p_sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kWideKeys; ++j) {
-      const float p = exp2f(s[j] - m_safe);  // masked: exp2(-inf) == 0
-      p_sum += p;
-      ps[r * (kBlockK + 1) + kWideTpr * j + part] = p;
-    }
-#pragma unroll
-    for (int o = 1; o < kWideTpr; o <<= 1)
-      p_sum += __shfl_xor_sync(0xffffffffu, p_sum, o);
-    l = alpha * l + p_sum;
-    m = m_new;
-    __syncwarp();  // the row's four parts of p live in this warp
-
-#pragma unroll
-    for (int d = 0; d < DH; ++d) acc[d] *= alpha;
-    for (int c = 0; c < kBlockK; ++c) {
-      const float p = ps[r * (kBlockK + 1) + c];
-#pragma unroll
-      for (int d = 0; d < DH; ++d) acc[d] += p * vs[c * DV + kWideTpr * d + part];
-    }
-  }
-
-  if (row_ok) {
-    const float denom = l == 0.f ? 1.f : l;
-    float* op = out + (static_cast<int64_t>(b) * L + qrow) * H * DV + h * DV + part;
-#pragma unroll
-    for (int d = 0; d < DH; ++d) op[kWideTpr * d] = acc[d] / denom;
-    if (part == 0) {
       lse[(static_cast<int64_t>(b) * H + h) * L + qrow] =
           l == 0.f ? -CUDART_INF_F : m * kLn2 + logf(fmaxf(l, 1e-38f));
     }

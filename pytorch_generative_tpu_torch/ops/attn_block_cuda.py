@@ -1,8 +1,10 @@
 """The fused attention block: the QKV projection, causal flash attention and
-the output projection as one CUDA kernel call, ``csrc/attn_block_fwd.cu``,
-with its plain PyTorch version, its launch counts and the autograd Function
-around it (counterpart of ``pytorch_generative_tpu/ops/attn_block_pallas.py``,
-reached through ``PGT_FUSED_ATTN=1``).
+the output projection from one C call, ``csrc/attn_block_fwd.cu`` (its
+products on ``csrc/gemm_tf32x3.cuh``, its attention the tensor-core flash
+forward of ``csrc/flash_fwd_mma.cuh``, all by 3xTF32), with its plain
+PyTorch version, its launch counts and the autograd Function around it
+(counterpart of ``pytorch_generative_tpu/ops/attn_block_pallas.py``, reached
+through ``PGT_FUSED_ATTN=1``).
 
 A CUDA tensor launches the kernel, or the wrapper raises; a CPU tensor takes
 the plain version. The Function saves x, the pre-Wo attention, lse and the
@@ -33,8 +35,9 @@ PROJECT_KERNEL = "attn_block_project"
 HEAD_DIMS = (32, 64, 128)
 
 # Kernel launches since the last reset; only _block_forward_cuda adds to
-# `launches` (one per call, which runs the projection stage and the tile
-# pass), only _project_cuda to `project_launches`.
+# `launches` (one per call, which launches the projection stage's two
+# products, the flash forward and the output projection), only
+# _project_cuda to `project_launches` (one per call: the two products).
 launches = 0
 project_launches = 0
 

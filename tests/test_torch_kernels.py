@@ -771,6 +771,52 @@ def test_attn_block_kernel_matches_plain(dev, c, n_heads, l, mask_center):
         assert bool((got[1][:, 0] == 0).all()) and bool(torch.isneginf(got[2][:, :, 0]).all())
 
 
+@pytest.mark.parametrize("mask_center", [False, True])
+@pytest.mark.parametrize("c,n_heads", BLOCK_WIDTHS)
+def test_attn_block_kernel_gives_equal_bits_twice(dev, c, n_heads, mask_center):
+    """The block's products and attention sum each output in one fixed
+    order: two calls on the same inputs give y, attn and lse bit for bit
+    (L = 200, a ragged tile)."""
+    ops = _block_inputs(2, 200, c, dev, seed=5)
+    first = attn_block_cuda.attention_block_forward(*ops, mask_center, n_heads)
+    second = attn_block_cuda.attention_block_forward(*ops, mask_center, n_heads)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("y", "attn", "lse"), first, second):
+        assert torch.equal(a, b), name
+
+
+# (B, L, C, E) of the projection stage's two products (N = E and 2E, K = C,
+# M = B L): M off the 128-row tile, N = 64 (one half tile), N = 68 (not a
+# multiple of 8), K = 64 and 512 (under and over the 32-deep k-step), and a
+# single row.
+GEMM_SHAPES = [pytest.param(3, 61, 64, 64, id="M183-K64-N64"),
+               pytest.param(2, 200, 512, 64, id="M400-K512-N64"),
+               pytest.param(2, 200, 512, 512, id="M400-K512-N512"),
+               pytest.param(3, 61, 64, 68, id="M183-K64-N68"),
+               pytest.param(1, 1, 512, 4, id="M1-K512-N4")]
+
+
+@pytest.mark.parametrize("b,l,c,e", GEMM_SHAPES)
+def test_gemm_tf32x3_matches_addmm(dev, b, l, c, e):
+    """The 3xTF32 GEMM (through the projection stage, which is two of its
+    launches) against torch.addmm in f32 (TF32 off): within 1e-5 of each
+    output's largest magnitude (both sum at most 512 products to f32
+    accuracy, in other orders; the GEMM's error against float64 is ~3e-7
+    of it), and equal bits from two calls."""
+    x = _rand((b, l, c), 20, dev)
+    wq, wkv = _rand((c, e), 21, dev) / c ** 0.5, _rand((c, 2 * e), 22, dev) / c ** 0.5
+    bq, bkv = _rand((e,), 23, dev), _rand((2 * e,), 24, dev)
+    before = attn_block_cuda.project_launches
+    q, kv = attn_block_cuda.project(x, wq, bq, wkv, bkv)
+    q2, kv2 = attn_block_cuda.project(x, wq, bq, wkv, bkv)
+    torch.cuda.synchronize()
+    assert attn_block_cuda.project_launches == before + 2
+    x2 = x.reshape(-1, c)
+    _assert_rel(q.reshape(-1, e), torch.addmm(bq, x2, wq), 1e-5, "q")
+    _assert_rel(kv.reshape(-1, 2 * e), torch.addmm(bkv, x2, wkv), 1e-5, "kv")
+    assert torch.equal(q, q2) and torch.equal(kv, kv2)
+
+
 def test_attn_block_takes_a_y_width_other_than_x(dev):
     """C' = wo.shape[1] (64 -> 128 here): the output is sized by Wo, not by
     x (the JAX kernel's defect at attn_block_pallas.py:185)."""
