@@ -19,9 +19,9 @@ more epoch), each with its kernels' launch counts; the training gradients
 and a 3-step trajectory against the plain path on the CPU; CUDA-event times
 of each kernel beside its plain version, one PyTorch call (or, for the fused
 MLP, a composition of calls) that computes the same function
-(``library_ms``) and its bound (for the flash kernels both the bound at
-the 3xTF32 tensor-core rate, that of their d_k == d_v route, and the one
-at the f32 CUDA-core rate); the train step's time and a
+(``library_ms``) and its bound (for the flash kernels, the fused block and
+the fused MLP both the bound at the 3xTF32 tensor-core rate, that of their
+route, and the one at the f32 CUDA-core rate); the train step's time and a
 ``torch.profiler`` breakdown of it; then the same at C = 512: forward at
 batch 64, three train steps, gradients and a 3-step trajectory against the
 CPU at batch 2, times and the profiled train step. Then sampling on the
@@ -144,7 +144,8 @@ MLP_ROUTES = ("saved", "recompute", "pipe")
 # Bounds: NVIDIA's H100 SXM data sheet, at its 700 W limit.
 F32_FLOPS = 67e12   # f32 on the CUDA cores, FMA = 2 operations
 # f32-accurate products on the tensor cores: 3xTF32 (the flash kernels'
-# d_k == d_v instances) takes three TF32 products (495 TFLOP/s) per f32 one.
+# d_k == d_v instances, the fused block's and the fused MLP's products)
+# takes three TF32 products (495 TFLOP/s) per f32 one.
 TF32X3_FLOPS = 495e12 / 3
 HBM_BYTES = 3.35e12  # HBM3 bytes/s
 
@@ -501,8 +502,10 @@ def fused_times_at(r, c, gen, dev, smi):
     beside their plain versions, their bounds and a library yardstick the
     port never calls (F.layer_norm; for the MLP the composition F.layer_norm
     -> addmm -> F.gelu -> addmm -> + x, since no one PyTorch call computes
-    it), each backward as autograd.grad through the yardstick. Returns
-    ({kernel: {plain, kernel, library, kernel2}}, {kernel: bound})."""
+    it), each backward as autograd.grad through the yardstick. The MLP
+    kernels' bound is the 3xTF32 one (their route: every product on the
+    tensor cores), printed beside the f32 one. Returns ({kernel: {plain,
+    kernel, library, kernel2}}, {kernel: bound}, {MLP kernel: f32 bound})."""
     from pytorch_generative_tpu_torch.ops import ln_cuda, mlp_cuda
 
     f = 4 * c
@@ -551,15 +554,21 @@ def fused_times_at(r, c, gen, dev, smi):
                        "library": time_ms(lib, iters, 2), "kernel2": time_ms(kern, iters, 2)}
     (ln_fwd_work, ln_bwd_work), (mlp_fwd_work, mlp_bwd_work) = ln_work(r, c), mlp_work(r, c, f)
     bounds = {"ln_fwd": bound(*ln_fwd_work), "ln_bwd": bound(*ln_bwd_work),
-              "mlp_fwd": bound(*mlp_fwd_work), "mlp_bwd": bound(*mlp_bwd_work)}
+              "mlp_fwd": bound(*mlp_fwd_work, TF32X3_FLOPS),
+              "mlp_bwd": bound(*mlp_bwd_work, TF32X3_FLOPS)}
+    bounds_f32 = {"mlp_fwd": bound(*mlp_fwd_work), "mlp_bwd": bound(*mlp_bwd_work)}
     lib_names = {"ln_fwd": "F.layer_norm", "ln_bwd": "autograd.grad through F.layer_norm",
                  "mlp_fwd": "composition", "mlp_bwd": "autograd.grad through the composition"}
     for name, t in times.items():
         b_ms, b_by = bounds[name]
+        f32 = (f", f32 bound {bounds_f32[name][0]:.4f} ms ({bounds_f32[name][1]})"
+               if name in bounds_f32 else "")
         print(f"phase times C={c} [{smi}]: {name} (R={r}, C={c}, F={f}) kernel "
               f"{t['kernel']:.4f}/{t['kernel2']:.4f} ms, plain {t['plain']:.4f} ms, "
-              f"{lib_names[name]} {t['library']:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
-    return times, bounds
+              f"{lib_names[name]} {t['library']:.4f} ms, "
+              f"{'3xTF32 ' if name in bounds_f32 else ''}bound {b_ms:.4f} ms ({b_by}){f32}",
+              flush=True)
+    return times, bounds, bounds_f32
 
 
 def grads_vs_cpu(model, cpu_model, xg, label):
@@ -1643,10 +1652,14 @@ def fused_attn_phases(dev, gen, smi, reset_counts, read_counts):
                  lambda: torch.autograd.grad(saved_graph, leaves, dout, retain_graph=True)),
     }
     _, mlp_bwd_work = mlp_work(rows, c, f)
-    route_bounds = {"saved": bound(*mlp_bwd_work), "pipe": bound(*mlp_bwd_work),
-                    # one more R x C x F product; y is not read
-                    "recompute": bound(mlp_bwd_work[0] + 2 * rows * c * f,
-                                       mlp_bwd_work[1] - 4 * rows * f)}
+    # The routes' work: the recompute route does one more R x C x F product
+    # and reads no y. Their bound is the 3xTF32 one (every product on the
+    # tensor cores), with the f32 one beside it.
+    route_work = {"saved": mlp_bwd_work, "pipe": mlp_bwd_work,
+                  "recompute": (mlp_bwd_work[0] + 2 * rows * c * f,
+                                mlp_bwd_work[1] - 4 * rows * f)}
+    route_bounds = {k_: bound(*w_, TF32X3_FLOPS) for k_, w_ in route_work.items()}
+    route_bounds_f32 = {k_: bound(*w_) for k_, w_ in route_work.items()}
     route_t = {}
     for route in ("saved", "pipe", "recompute", "pipe", "saved"):
         kern, plain, lib = route_fns[route]
@@ -1658,8 +1671,9 @@ def fused_attn_phases(dev, gen, smi, reset_counts, read_counts):
         b_ms, b_by = route_bounds[route]
         print(f"phase times mlp route {route} [{smi}]: {route_kernel[route]} (R={rows}, C={c}, "
               f"F={f}) kernel {'/'.join(f'{v:.4f}' for v in t['kernel'])} ms, plain "
-              f"{t['plain']:.4f} ms, library {t['library']:.4f} ms, bound {b_ms:.4f} ms ({b_by})",
-              flush=True)
+              f"{t['plain']:.4f} ms, library {t['library']:.4f} ms, 3xTF32 bound {b_ms:.4f} ms "
+              f"({b_by}), f32 bound {route_bounds_f32[route][0]:.4f} ms; "
+              f"{route_work[route][0] / min(t['kernel']) / 1e9:.1f} TFLOP/s", flush=True)
     del xr, dout, y, saved_graph, route_fns
 
     # Phase A6: the forward and the train step at batch 64, the gate on and
@@ -1683,8 +1697,8 @@ def fused_attn_phases(dev, gen, smi, reset_counts, read_counts):
     step = lambda: step_trainer.train_one_step(xb, None)
     profile_steps(step, 2, min(path_t["step gate=1 saved"]), f"train step batch {BATCH}",
                   (BATCH, "samples"), f"step gated C={c}", smi,
-                  ("gemm3::gemm_kernel", "flash_fwd_mma", "sgemm::gemm_kernel", "flash_bwd",
-                   "ln_bwd_rows", "ln_fwd"))
+                  ("gemm3::gemm_kernel", "mlp::", "flash_fwd_mma", "flash_bwd", "ln_bwd_rows",
+                   "ln_fwd"))
     shutil.rmtree(step_trainer.log_dir, ignore_errors=True)
     del os.environ["PGT_FUSED_ATTN"], os.environ["PGT_MLP_BWD"]
 
@@ -1695,16 +1709,17 @@ def fused_attn_phases(dev, gen, smi, reset_counts, read_counts):
                 "replaces": replaces, "max_abs_err": err, "ms": t_kernel, "plain_ms": t_plain,
                 "bound_ms": b[0], "bound_by": b[1], "library_ms": t_lib}
 
-    # Row 9 at LARGE_CONFIG's width: bound_ms at the 3xTF32 rate of its
-    # route, bound_f32_ms the f32 one beside it.
+    # Row 9 at LARGE_CONFIG's width and rows 6c, 6d: bound_ms at the 3xTF32
+    # rate of their route, bound_f32_ms the f32 one beside it.
     bt = block_t[(c, hb)]
     return {"counts": [serve_counts, *train_counts], "kernels": [
         dict(entry(attn_block_cuda.KERNEL, "pytorch_generative_tpu/ops/attn_block_pallas.py:57",
                    block_err, bt["kernel"], bt["plain"], bt["library"], bt["bound"]),
              bound_f32_ms=bt["bound_f32"][0]),
-        *(entry(route_kernel[route], f"pytorch_generative_tpu/ops/mlp_pallas.py:{line}",
-                route_err[route], route_t[route]["kernel"][0], route_t[route]["plain"],
-                route_t[route]["library"], route_bounds[route])
+        *(dict(entry(route_kernel[route], f"pytorch_generative_tpu/ops/mlp_pallas.py:{line}",
+                     route_err[route], route_t[route]["kernel"][0], route_t[route]["plain"],
+                     route_t[route]["library"], route_bounds[route]),
+               bound_f32_ms=route_bounds_f32[route][0])
           for route, line in (("recompute", 112), ("pipe", 187)))]}
 
 
@@ -2095,7 +2110,7 @@ def main():
     # Phase 17: times at C = 512: each fused kernel at the path's shapes
     # beside its plain version, its bound and a library yardstick the port
     # never calls; then the flash kernels at d = 64.
-    fused_times, fused_bounds = fused_times_at(rows_big, cb, gen, dev, smi)
+    fused_times, fused_bounds, fused_bounds_f32 = fused_times_at(rows_big, cb, gen, dev, smi)
     q = torch.randn((BATCH, h * w, cb), generator=gen).to(dev)
     kv = torch.randn((BATCH, h * w, 2 * cb), generator=gen).to(dev)
     dout = torch.randn((BATCH, h * w, cb), generator=gen).to(dev)
@@ -2350,7 +2365,8 @@ def main():
            "launches": sum(cs[kern] for cs in all_counts), "max_abs_err": err,
            "ms": fused_times[kern]["kernel"], "plain_ms": fused_times[kern]["plain"],
            "bound_ms": fused_bounds[kern][0], "bound_by": fused_bounds[kern][1],
-           "library_ms": fused_times[kern]["library"]}
+           "library_ms": fused_times[kern]["library"],
+           **({"bound_f32_ms": fused_bounds_f32[kern][0]} if kern in fused_bounds_f32 else {})}
           for kern, replaces, err in (
               (ln_cuda.KERNEL, "pytorch_generative_tpu/ops/ln_pallas.py:41", ln_err),
               (ln_cuda.BWD_KERNEL, "pytorch_generative_tpu/ops/ln_pallas.py:48", ln_bwd_err),

@@ -14,80 +14,15 @@
 // memory; eight rows per CTA of 256 threads keep enough loads in flight.
 // Rows wider than 512 channels (up to rows::kMaxChannels) take one CTA of
 // 256 threads a row instead (ln_fwd_wide_kernel), the statistics summed
-// through shared memory in a fixed order.
+// through shared memory in a fixed order. The kernels live in rows.cuh,
+// where the fused MLP runs them for its LN(x).
 
 #include "rows.cuh"
-
-namespace {
-
-template <int NV>
-__global__ void __launch_bounds__(rows::kThreads)
-ln_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
-              const float* __restrict__ beta, float* __restrict__ out, int R, int C,
-              float eps) {
-  const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * rows::kWarps + (threadIdx.x >> 5);
-  if (r >= R) return;
-  const int64_t base = static_cast<int64_t>(r) * C;
-  float4 v[NV];
-  rows::load_row<NV>(v, x + base, C, lane);
-  const float2 st = rows::row_stats<NV>(v, C, lane, eps);
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    const int c = rows::col(lane, i);
-    if (c >= C) continue;
-    const float4 g = rows::ld4(gamma + c), b = rows::ld4(beta + c);
-    rows::st4(out + base + c,
-              make_float4((v[i].x - st.x) * st.y * g.x + b.x,
-                          (v[i].y - st.x) * st.y * g.y + b.y,
-                          (v[i].z - st.x) * st.y * g.z + b.z,
-                          (v[i].w - st.x) * st.y * g.w + b.w));
-  }
-}
-
-template <int NVC>
-__global__ void __launch_bounds__(rows::kThreads)
-ln_fwd_wide_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
-                   const float* __restrict__ beta, float* __restrict__ out, int C,
-                   float eps) {
-  __shared__ float red[rows::kWarps];
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * C;
-  float4 v[NVC];
-  rows::load_row_wide<NVC>(v, x + base, C);
-  const float2 st = rows::row_stats_wide<NVC>(v, C, eps, red);
-#pragma unroll
-  for (int i = 0; i < NVC; ++i) {
-    const int c = rows::wcol(threadIdx.x, i);
-    if (c >= C) continue;
-    const float4 g = rows::ld4(gamma + c), b = rows::ld4(beta + c);
-    rows::st4(out + base + c,
-              make_float4((v[i].x - st.x) * st.y * g.x + b.x,
-                          (v[i].y - st.x) * st.y * g.y + b.y,
-                          (v[i].z - st.x) * st.y * g.z + b.z,
-                          (v[i].w - st.x) * st.y * g.w + b.w));
-  }
-}
-
-}  // namespace
 
 // x, out (R, C), gamma, beta (C,): contiguous float32; C a multiple of 4,
 // at most rows::kMaxChannels (4096).
 extern "C" int ln_fwd_f32(const float* x, const float* gamma, const float* beta,
                           float* out, int R, int C, float eps, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((R + rows::kWarps - 1) / rows::kWarps);
-  switch (rows::vecs_per_lane(C)) {
-    case 1: ln_fwd_kernel<1><<<grid, rows::kThreads, 0, s>>>(x, gamma, beta, out, R, C, eps); break;
-    case 2: ln_fwd_kernel<2><<<grid, rows::kThreads, 0, s>>>(x, gamma, beta, out, R, C, eps); break;
-    case 4: ln_fwd_kernel<4><<<grid, rows::kThreads, 0, s>>>(x, gamma, beta, out, R, C, eps); break;
-    default:
-      if (R <= 0) return static_cast<int>(cudaErrorInvalidValue);
-      switch (rows::vecs_per_thread(C)) {
-        case 1: ln_fwd_wide_kernel<1><<<R, rows::kThreads, 0, s>>>(x, gamma, beta, out, C, eps); break;
-        case 2: ln_fwd_wide_kernel<2><<<R, rows::kThreads, 0, s>>>(x, gamma, beta, out, C, eps); break;
-        case 4: ln_fwd_wide_kernel<4><<<R, rows::kThreads, 0, s>>>(x, gamma, beta, out, C, eps); break;
-        default: return static_cast<int>(cudaErrorInvalidValue);
-      }
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      rows::layer_norm(x, gamma, beta, out, R, C, eps, static_cast<cudaStream_t>(stream)));
 }

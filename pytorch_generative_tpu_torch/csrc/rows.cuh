@@ -85,18 +85,31 @@ __device__ __forceinline__ float2 row_stats(const float4 (&v)[NV], int C, int la
   return make_float2(mu, rsqrtf(warp_sum(q) / C + eps));
 }
 
-// Per-row (mean, rstd) of an (R, C) matrix, one warp per row.
+// out = (x - mean) * rstd * gamma + beta over (R, C) rows, one warp per
+// row (ln_fwd.cu, and the fused MLP's LN(x)).
 template <int NV>
 __global__ void __launch_bounds__(kThreads)
-row_stats_kernel(const float* __restrict__ x, float2* __restrict__ stats, int R,
-                 int C, float eps) {
+ln_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
+              const float* __restrict__ beta, float* __restrict__ out, int R, int C,
+              float eps) {
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (r >= R) return;
+  const int64_t base = static_cast<int64_t>(r) * C;
   float4 v[NV];
-  load_row<NV>(v, x + static_cast<int64_t>(r) * C, C, lane);
+  load_row<NV>(v, x + base, C, lane);
   const float2 st = row_stats<NV>(v, C, lane, eps);
-  if (lane == 0) stats[r] = st;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = col(lane, i);
+    if (c >= C) continue;
+    const float4 g = ld4(gamma + c), b = ld4(beta + c);
+    st4(out + base + c,
+        make_float4((v[i].x - st.x) * st.y * g.x + b.x,
+                    (v[i].y - st.x) * st.y * g.y + b.y,
+                    (v[i].z - st.x) * st.y * g.z + b.z,
+                    (v[i].w - st.x) * st.y * g.w + b.w));
+  }
 }
 
 // LayerNorm backward over the rows [r0, r0 + rows_per_cta) of one CTA:
@@ -281,16 +294,28 @@ __device__ __forceinline__ float2 row_stats_wide(const float4 (&v)[NVC], int C,
   return make_float2(mu, rsqrtf(block_sum(q, red) / C + eps));
 }
 
-// Per-row (mean, rstd) of an (R, C) matrix, one CTA per row.
+// ln_fwd_kernel for wide rows, one CTA a row.
 template <int NVC>
 __global__ void __launch_bounds__(kThreads)
-row_stats_wide_kernel(const float* __restrict__ x, float2* __restrict__ stats, int C,
-                      float eps) {
+ln_fwd_wide_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
+                   const float* __restrict__ beta, float* __restrict__ out, int C,
+                   float eps) {
   __shared__ float red[kWarps];
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * C;
   float4 v[NVC];
-  load_row_wide<NVC>(v, x + static_cast<int64_t>(blockIdx.x) * C, C);
+  load_row_wide<NVC>(v, x + base, C);
   const float2 st = row_stats_wide<NVC>(v, C, eps, red);
-  if (threadIdx.x == 0) stats[blockIdx.x] = st;
+#pragma unroll
+  for (int i = 0; i < NVC; ++i) {
+    const int c = wcol(threadIdx.x, i);
+    if (c >= C) continue;
+    const float4 g = ld4(gamma + c), b = ld4(beta + c);
+    st4(out + base + c,
+        make_float4((v[i].x - st.x) * st.y * g.x + b.x,
+                    (v[i].y - st.x) * st.y * g.y + b.y,
+                    (v[i].z - st.x) * st.y * g.z + b.z,
+                    (v[i].w - st.x) * st.y * g.w + b.w));
+  }
 }
 
 // ln_bwd_rows_kernel for wide rows: the CTA walks its rows one at a time,
@@ -383,19 +408,21 @@ inline int vecs_per_thread(int C) {
   return 4;
 }
 
-inline cudaError_t row_stats(const float* x, float2* stats, int R, int C, float eps,
-                             cudaStream_t stream) {
+// out = LN(x) over (R, C) rows: warp-per-row kernels up to C = 512, a CTA
+// a row above.
+inline cudaError_t layer_norm(const float* x, const float* gamma, const float* beta,
+                              float* out, int R, int C, float eps, cudaStream_t stream) {
   const dim3 grid((R + kWarps - 1) / kWarps);
   switch (vecs_per_lane(C)) {
-    case 1: row_stats_kernel<1><<<grid, kThreads, 0, stream>>>(x, stats, R, C, eps); break;
-    case 2: row_stats_kernel<2><<<grid, kThreads, 0, stream>>>(x, stats, R, C, eps); break;
-    case 4: row_stats_kernel<4><<<grid, kThreads, 0, stream>>>(x, stats, R, C, eps); break;
+    case 1: ln_fwd_kernel<1><<<grid, kThreads, 0, stream>>>(x, gamma, beta, out, R, C, eps); break;
+    case 2: ln_fwd_kernel<2><<<grid, kThreads, 0, stream>>>(x, gamma, beta, out, R, C, eps); break;
+    case 4: ln_fwd_kernel<4><<<grid, kThreads, 0, stream>>>(x, gamma, beta, out, R, C, eps); break;
     default:
       if (R <= 0) return cudaErrorInvalidValue;
       switch (vecs_per_thread(C)) {
-        case 1: row_stats_wide_kernel<1><<<R, kThreads, 0, stream>>>(x, stats, C, eps); break;
-        case 2: row_stats_wide_kernel<2><<<R, kThreads, 0, stream>>>(x, stats, C, eps); break;
-        case 4: row_stats_wide_kernel<4><<<R, kThreads, 0, stream>>>(x, stats, C, eps); break;
+        case 1: ln_fwd_wide_kernel<1><<<R, kThreads, 0, stream>>>(x, gamma, beta, out, C, eps); break;
+        case 2: ln_fwd_wide_kernel<2><<<R, kThreads, 0, stream>>>(x, gamma, beta, out, C, eps); break;
+        case 4: ln_fwd_wide_kernel<4><<<R, kThreads, 0, stream>>>(x, gamma, beta, out, C, eps); break;
         default: return cudaErrorInvalidValue;
       }
   }

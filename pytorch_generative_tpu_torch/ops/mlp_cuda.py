@@ -39,10 +39,13 @@ _SQRT_HALF = 0.7071067811865476
 _INV_SQRT_2PI = 0.3989422804014327
 # Rows per chunk of the backward's db1 = sum dy column sums.
 ROWS_PER_CHUNK = 512
-# CTAs that fill an H100 twice over at two 256-thread CTAs per SM: the
-# backward cuts the R rows of its dW1 and dW2 products into enough parts
-# to reach this many CTAs.
-_TARGET_CTAS = 4 * 132
+# The products' CTA tile (csrc/mlp.cuh's kBM x kBN) and the CTAs of one
+# wave of it on an H100: 132 SMs, two 4-warp CTAs an SM.
+GEMM_TILE = (64, 128)
+_WAVE_CTAS = 2 * 132
+# The backward's dW1 and dW2 grids: the R rows are cut into enough slices
+# for each grid to reach this many CTAs (four waves).
+_TARGET_CTAS = 4 * _WAVE_CTAS
 
 # Whether the forward keeps the (R, F) pre-activation for the backward
 # (mlp_pallas.py's module constant of the same name).
@@ -107,28 +110,47 @@ def ln_mlp_backward_recompute_plain(x2, do2, gamma, beta, w1, b1, w2, eps):
     return ln_mlp_backward_plain(x2, do2, y2, gamma, beta, w1, b1, w2, eps)
 
 
-def _part_rows(r, c, f):
-    """Rows in each part of the R rows of the backward's dW products: enough
-    parts for their (C/128)*(F/128) output tiles each to fill
-    _TARGET_CTAS, at least 1024 rows a part, rounded up to whole CTAs of the
-    LayerNorm backward (ln_cuda.ROWS_PER_CTA rows), so that every route
-    cuts its sums alike."""
-    tiles = -(-c // 128) * -(-f // 128)
-    splits = max(1, min(r // 1024, _TARGET_CTAS // tiles))
-    return -(-r // (splits * ln_cuda.ROWS_PER_CTA)) * ln_cuda.ROWS_PER_CTA
+def _dw_tiles(c, f):
+    """CTA tiles of one slice's dW2 (F x C) or dW1 (C x F) product, the
+    larger count of the two."""
+    bm, bn = GEMM_TILE
+    return max(-(-f // bm) * -(-c // bn), -(-c // bm) * -(-f // bn))
+
+
+def backward_plan(r, c, f):
+    """How every backward route cuts the R rows: (part_rows, slices,
+    granule).
+
+    The dW products run a part of their grid for each slice of part_rows
+    rows: enough slices for one grid over all of them to reach
+    _TARGET_CTAS (at least 1024 rows a slice), each a multiple of
+    ln_cuda.ROWS_PER_CTA (64, whole CTAs of the LayerNorm backward's
+    partial sums) and so of the GEMM's k-step (32). The saved-y and
+    recompute routes launch all slices in one grid; the pipelined route
+    launches `granule` consecutive slices at a time, as many as one wave
+    of CTAs holds (at least one), so that each of its dW launches fills
+    the card. Every route adds the slices' partials in slice order, so they
+    give the same bits. Each partial buffer holds slices x C x F floats: at
+    most max(C F, _TARGET_CTAS x 64 x 128) (33 MiB below C F = 8.65M).
+    At R 50,176: C 512 gives 8 slices of 6,272 rows in granules of 2; C
+    1024 2 slices of 25,088 rows, granules of 1."""
+    tiles = _dw_tiles(c, f)
+    slices = max(1, min(r // 1024, _TARGET_CTAS // tiles))
+    part_rows = -(-r // (slices * ln_cuda.ROWS_PER_CTA)) * ln_cuda.ROWS_PER_CTA
+    return part_rows, -(-r // part_rows), max(1, _WAVE_CTAS // tiles)
 
 
 def _bwd_scratch(r, c, f, dev, n_wparts):
-    """Scratch of one backward call: stats, dy, dln, n_wparts buffers of
-    per-part dW partials, the per-CTA and per-chunk partial sums; and the
-    rows per part."""
-    part_rows = _part_rows(r, c, f)
-    parts = -(-r // part_rows)
-    return part_rows, (
-        torch.empty((r, 2), device=dev),                                   # stats
+    """Scratch of one backward call: LN(x), gelu(y), dy, dln, n_wparts
+    buffers of per-slice dW partials, the per-CTA and per-chunk partial
+    sums; and the plan (``backward_plan``)."""
+    plan = backward_plan(r, c, f)
+    return plan, (
+        torch.empty((r, c), device=dev),                                   # xn
+        torch.empty((r, f), device=dev),                                   # g
         torch.empty((r, f), device=dev),                                   # dy
         torch.empty((r, c), device=dev),                                   # dln
-        *(torch.empty((parts, c * f), device=dev) for _ in range(n_wparts)),
+        *(torch.empty((plan[1], c * f), device=dev) for _ in range(n_wparts)),
         torch.empty((-(-r // ln_cuda.ROWS_PER_CTA), 3, c), device=dev),    # rpart
         torch.empty((-(-r // ROWS_PER_CHUNK), f), device=dev))             # cpart
 
@@ -151,13 +173,12 @@ def _mlp_forward_cuda(x2, gamma, beta, w1, b1, w2, b2, eps):
     dev = x2.device
     out = torch.empty_like(x2)
     y = torch.empty((r, f), device=dev)
-    stats = torch.empty((r, 2), device=dev)
+    xn, g = torch.empty_like(x2), torch.empty_like(y)  # LN(x) and gelu(y), scratch
     fn = _build.declare(_build.load(KERNEL).mlp_fwd_f32,
-                        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
+                        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
                         + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(dev):
-        err = fn(*(t.data_ptr() for t in (x2, gamma, beta, w1, b1, w2, b2, out, y,
-                                          stats)),
+        err = fn(*_ptrs(x2, gamma, beta, w1, b1, w2, b2, out, y, xn, g),
                  r, c, f, eps, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "mlp_fwd_f32")
     launches += 1
@@ -180,9 +201,9 @@ def _mlp_backward_cuda(x2, do2, y2, gamma, beta, w1, b1, w2, eps):
     r, c, f = _check(BWD_KERNEL, x2, w1, do=do2, y=y2, gamma=gamma, beta=beta,
                      b1=b1, w2=w2)
     outs = _bwd_outputs(x2, c, f)
-    part_rows, scratch = _bwd_scratch(r, c, f, x2.device, 1)
+    (part_rows, _, _), scratch = _bwd_scratch(r, c, f, x2.device, 1)
     fn = _build.declare(_build.load(BWD_KERNEL).mlp_bwd_f32,
-                        [ctypes.c_void_p] * 18 + [ctypes.c_int] * 6
+                        [ctypes.c_void_p] * 19 + [ctypes.c_int] * 6
                         + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(x2.device):
         err = fn(*_ptrs(x2, do2, y2, gamma, beta, w1, w2, *outs, *scratch),
@@ -199,13 +220,13 @@ def _mlp_backward_recompute_cuda(x2, do2, gamma, beta, w1, b1, w2, eps):
     r, c, f = _check(RECOMPUTE_KERNEL, x2, w1, do=do2, gamma=gamma, beta=beta,
                      b1=b1, w2=w2)
     outs = _bwd_outputs(x2, c, f)
-    part_rows, (stats, *scratch) = _bwd_scratch(r, c, f, x2.device, 1)
+    (part_rows, _, _), (xn, g, *scratch) = _bwd_scratch(r, c, f, x2.device, 1)
     y = torch.empty((r, f), device=x2.device)  # lives only inside this call
     fn = _build.declare(_build.load(BWD_KERNEL).mlp_bwd_recompute_f32,
-                        [ctypes.c_void_p] * 19 + [ctypes.c_int] * 6
+                        [ctypes.c_void_p] * 20 + [ctypes.c_int] * 6
                         + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(x2.device):
-        err = fn(*_ptrs(x2, do2, gamma, beta, w1, b1, w2, *outs, stats, y, *scratch),
+        err = fn(*_ptrs(x2, do2, gamma, beta, w1, b1, w2, *outs, xn, g, y, *scratch),
                  r, c, f, part_rows, ln_cuda.ROWS_PER_CTA, ROWS_PER_CHUNK, eps,
                  torch.cuda.current_stream(x2.device).cuda_stream)
     _build.check(err, "mlp_bwd_recompute_f32")
@@ -219,16 +240,16 @@ def _mlp_backward_pipe_cuda(x2, do2, y2, gamma, beta, w1, b1, w2, eps):
     r, c, f = _check(PIPE_KERNEL, x2, w1, do=do2, y=y2, gamma=gamma, beta=beta,
                      b1=b1, w2=w2)
     outs = _bwd_outputs(x2, c, f)
-    part_rows, scratch = _bwd_scratch(r, c, f, x2.device, 2)
+    (part_rows, _, granule), scratch = _bwd_scratch(r, c, f, x2.device, 2)
     back = _back_streams.get(x2.device)
     if back is None:
         back = _back_streams[x2.device] = torch.cuda.Stream(x2.device)
     fn = _build.declare(_build.load(BWD_KERNEL).mlp_bwd_pipe_f32,
-                        [ctypes.c_void_p] * 19 + [ctypes.c_int] * 6
+                        [ctypes.c_void_p] * 20 + [ctypes.c_int] * 7
                         + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
     with torch.cuda.device(x2.device):
         err = fn(*_ptrs(x2, do2, y2, gamma, beta, w1, w2, *outs, *scratch),
-                 r, c, f, part_rows, ln_cuda.ROWS_PER_CTA, ROWS_PER_CHUNK, eps,
+                 r, c, f, part_rows, ln_cuda.ROWS_PER_CTA, ROWS_PER_CHUNK, granule, eps,
                  torch.cuda.current_stream(x2.device).cuda_stream, back.cuda_stream)
     _build.check(err, "mlp_bwd_pipe_f32")
     pipe_launches += 1

@@ -470,6 +470,30 @@ def test_mlp_kernels_match_plain(dev, c, r):
         _assert_rel(g, w, MLP_RTOL, name)
 
 
+@pytest.mark.parametrize("r,c", [(4097, 512), (1031, 640), (4097, 1024)])
+def test_mlp_backward_routes_give_equal_bits(dev, r, c):
+    """The recompute and pipelined backwards give the saved-y route's bits
+    (one cut of the rows into slices, partials added in slice order; at
+    4,097 rows and C = 512 four slices in two pipelined granules), and two
+    calls of the forward and of each backward give the same bits."""
+    x, gamma, beta, w1, b1, w2, b2 = _mlp_inputs(r, c, dev)
+    dout = _rand((r, c), 8, dev)
+    fwd = [mlp_cuda.ln_mlp_forward(x, gamma, beta, w1, b1, w2, b2, 1e-5) for _ in range(2)]
+    y = fwd[0][1]
+    routes = {
+        "saved": lambda: mlp_cuda.ln_mlp_backward(x, dout, y, gamma, beta, w1, b1, w2, 1e-5),
+        "recompute": lambda: mlp_cuda.ln_mlp_backward_recompute(x, dout, gamma, beta, w1, b1,
+                                                                w2, 1e-5),
+        "pipe": lambda: mlp_cuda.ln_mlp_backward_pipe(x, dout, y, gamma, beta, w1, b1, w2, 1e-5),
+    }
+    grads = {name: (fn(), fn()) for name, fn in routes.items()}
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*fwd))
+    for name, (first, second) in grads.items():
+        assert all(torch.equal(a, b) for a, b in zip(first, second)), f"{name} twice"
+        assert all(torch.equal(a, b) for a, b in zip(first, grads["saved"][0])), name
+
+
 def test_ln_and_mlp_wrappers_reject_what_the_kernels_do_not_take(dev):
     x, gamma, beta, w1, b1, w2, b2 = _mlp_inputs(64, 128, dev)
     with pytest.raises(TypeError):

@@ -1,7 +1,8 @@
-"""Times the fused attention block's 3xTF32 GEMM (``csrc/gemm_tf32x3.cuh``)
-at other tilings and ring depths, and a trial of the same product on
-Hopper's warpgroup instruction (``tools/gemm_wgmma_trial.cuh``), beside
-``torch.addmm`` in f32 (TF32 off), on one CUDA card:
+"""Times the port's 3xTF32 GEMM (``csrc/gemm_tf32x3.cuh``, the products of
+the fused attention block and of the fused MLP), its bias product
+``gemm3::gemm``, at other tilings and ring depths, and a trial of the same
+product on Hopper's warpgroup instruction (``tools/gemm_wgmma_trial.cuh``),
+beside ``torch.addmm`` in f32 (TF32 off), on one CUDA card:
 
     python3 tools/torch_gemm_variants.py
 
