@@ -11,13 +11,17 @@ from nvidia-smi, TF32 pinned off); the build of every kernel of the paths
 from ``pytorch_generative_tpu_torch/csrc``, one ``nvcc`` per source, all at
 once; each kernel against its plain PyTorch version at the paths' shapes
 (the flash kernels' tensor-core instances run twice and must give equal
-bits); at C = 64 the serving path (``ImageGPT.forward`` with the reproduce() loss
+bits; the whole-loop sampler's cluster kernel at n = 16 and 64, free and
+inpainted, twice, after a line of its plan, registers, shared memory and
+cudaOccupancyMaxActiveClusters at n = 16, 64 and 256); at C = 64 the serving path (``ImageGPT.forward`` with the reproduce() loss
 at batch 64, then ``ImageGPT.sample`` of 16 images) and the training path
 (``Trainer``: one epoch of 8 steps with eval, a checkpoint and a sample
 grid, then a second Trainer that resumes from the checkpoint and takes one
 more epoch), each with its kernels' launch counts; the training gradients
 and a 3-step trajectory against the plain path on the CPU; CUDA-event times
-of each kernel beside its plain version, one PyTorch call (or, for the fused
+of each kernel beside its plain version (the sampler's at n = 16, 64 and
+256, with the plain version, bound and latency floor at 16), one PyTorch
+call (or, for the fused
 MLP, a composition of calls) that computes the same function
 (``library_ms``) and its bound (for the flash kernels, the fused block and
 the fused MLP both the bound at the 3xTF32 tensor-core rate, that of their
@@ -73,6 +77,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda:0"
 SEED = 0
 N_SAMPLES = 16
+# The whole-loop sampler is also checked at bench.py's n = 64 and timed at
+# 16, 64 and 256 (its three cells).
+SAMPLER_NS = (N_SAMPLES, 64, 256)
 BATCH = 64
 FLASH_TOL = 5e-5  # f32, another summation order than the dense version
 # f32 too, but each gradient sums up to 784 rows or keys of p * dO or
@@ -265,12 +272,14 @@ def sampler_flops(n, h, w, n_blocks, c):
 
 
 def sampler_latency_floor_ms(h, w, n_blocks):
-    """A rough floor from the sampler's dependency chain, not a measurement:
-    per position and block 13 dependent phases (two LayerNorms of two
-    reductions each, the QKV matvec, the scores, the softmax's max and sum,
-    PV, the out proj, two MLP matvecs), each at least one L2 round trip and
-    one CTA barrier, taken as 0.3 us at the card's ~1.7 GHz."""
-    return h * w * n_blocks * 13 * 0.3e-3
+    """A rough floor from the cluster sampler's dependency chain, not a
+    measurement: per position and block 4 cluster barriers, each behind
+    stores into the other ranks' shared memory (QKV, attention partials,
+    out and MLP partials; 0.3 us each), one round of cache loads from L2
+    (0.5 us), and 12 dependent CTA phases between them (products, their
+    reductions, the merges, two LayerNorms; 0.05 us each, a shared-memory
+    round trip and a CTA barrier)."""
+    return h * w * n_blocks * (4 * 0.3 + 0.5 + 12 * 0.05) * 1e-3
 
 
 def snail_work(n, h, w, n_blocks, n_rb, c, d_k, d_v):
@@ -1816,8 +1825,8 @@ def main():
         model.pos.copy_(0.1 * torch.randn(model.pos.shape, generator=gen))
     model.eval()
 
-    # Phase 4: the sampler kernel against its plain version, n = 16, free
-    # and inpainted.
+    # Phase 4: the sampler kernel against its plain version, n = 16 and 64,
+    # free and inpainted; two calls give equal bits; its plan on this card.
     def sampler_inputs(cond, u):
         return sampling.sample_loop_inputs(model, cond, u)
 
@@ -1826,22 +1835,66 @@ def main():
 
     free = -torch.ones((N_SAMPLES, h, w, 1), device=dev)
     sample_err = 0.0
-    for mode in ("free", "inpaint"):
-        cond = free.clone()
-        if mode == "inpaint":
-            cond[:, : h // 2] = (torch.rand((N_SAMPLES, h // 2, w, 1), generator=gen) < 0.3).float().to(dev)
-        u = torch.rand((h * w, N_SAMPLES, 1), generator=gen).to(dev)
-        plain = to_image(decode_cuda.sample_loop_plain(*sampler_inputs(cond, u)))
-        u, n_nudged = nudged_uniforms(model, plain, u, cond)
-        plain = to_image(decode_cuda.sample_loop_plain(*sampler_inputs(cond, u)))
-        kern = to_image(decode_cuda.fused_sample_loop(*sampler_inputs(cond, u)))
-        torch.cuda.synchronize()
-        mismatched = int((kern != plain).sum())
-        sample_err = max(sample_err, float((kern - plain).abs().max()))
-        kept = bool((kern[:, : h // 2] == cond[:, : h // 2]).all()) if mode == "inpaint" else True
-        print(f"phase sampler: {mode} n={N_SAMPLES} nudged={n_nudged} mismatched_pixels={mismatched} "
-              f"kept_pixels_ok={kept}", flush=True)
-        check(mismatched == 0 and kept, f"sampler kernel disagrees ({mode})")
+    for n in SAMPLER_NS:
+        inputs = sampler_inputs(-torch.ones((n, h, w, 1), device=dev),
+                                torch.rand((h * w, n, 1), generator=gen).to(dev))
+        plan = decode_cuda.plan_for(*inputs)
+        _, dims = decode_cuda.check_sample_loop(*inputs)
+        max_clusters, regs = decode_cuda.occupancy(dims[5], dims[6], plan.samples, plan.cluster,
+                                                   plan.smem)
+        print(f"phase sampler plan n={n}: cluster {plan.cluster} CTAs, {plan.clusters} clusters, "
+              f"{plan.samples} samples a cluster, {plan.groups} groups, weights "
+              f"{'resident' if plan.resident else f'streamed ({plan.stage} floats a stage)'}; "
+              f"{regs} registers, {plan.smem} bytes of shared memory a CTA, "
+              f"cudaOccupancyMaxActiveClusters {max_clusters}", flush=True)
+        check(plan.clusters <= max_clusters, "the plan launches more clusters than fit at once")
+    for n in SAMPLER_NS[:2]:
+        for mode in ("free", "inpaint"):
+            cond = -torch.ones((n, h, w, 1), device=dev)
+            if mode == "inpaint":
+                cond[:, : h // 2] = (torch.rand((n, h // 2, w, 1), generator=gen) < 0.3).float().to(dev)
+            u = torch.rand((h * w, n, 1), generator=gen).to(dev)
+            plain = to_image(decode_cuda.sample_loop_plain(*sampler_inputs(cond, u)))
+            u, n_nudged = nudged_uniforms(model, plain, u, cond)
+            plain = to_image(decode_cuda.sample_loop_plain(*sampler_inputs(cond, u)))
+            kern = to_image(decode_cuda.fused_sample_loop(*sampler_inputs(cond, u)))
+            again = to_image(decode_cuda.fused_sample_loop(*sampler_inputs(cond, u)))
+            torch.cuda.synchronize()
+            mismatched = int((kern != plain).sum())
+            sample_err = max(sample_err, float((kern - plain).abs().max()))
+            kept = bool((kern[:, : h // 2] == cond[:, : h // 2]).all()) if mode == "inpaint" else True
+            same = torch.equal(kern, again)
+            print(f"phase sampler: {mode} n={n} nudged={n_nudged} mismatched_pixels={mismatched} "
+                  f"kept_pixels_ok={kept} two_calls_equal_bits={same}", flush=True)
+            check(mismatched == 0 and kept, f"sampler kernel disagrees ({mode}, n={n})")
+            check(same, f"the sampler kernel gave other bits in a second call ({mode}, n={n})")
+    # A streamed plan whose ring stages hold a few rows of a slice, so the
+    # products take each slice in chunks (MLP 1 in 3 or more): C = 128, 4
+    # heads, 3 blocks on 8x8 images at n = 256, inpainted.
+    wide = ImageGPT(in_channels=1, out_channels=1, in_size=8, n_transformer_blocks=3,
+                    n_attention_heads=4, n_embedding_channels=128,
+                    generator=torch.Generator().manual_seed(SEED + 5), device=dev).eval()
+    wgen = torch.Generator().manual_seed(SEED + 6)  # leaves gen's draws to later phases
+    cond = -torch.ones((256, 8, 8, 1), device=dev)
+    cond[:, :4] = (torch.rand((256, 4, 8, 1), generator=wgen) < 0.3).float().to(dev)
+    u = torch.rand((64, 256, 1), generator=wgen).to(dev)
+    plain = sampling.canvas_to_images(decode_cuda.sample_loop_plain(
+        *sampling.sample_loop_inputs(wide, cond, u)), 8, 8)
+    u, n_nudged = nudged_uniforms(wide, plain, u, cond)
+    wide_inputs = sampling.sample_loop_inputs(wide, cond, u)
+    plan = decode_cuda.plan_for(*wide_inputs)
+    _, dims = decode_cuda.check_sample_loop(*wide_inputs)
+    mlp1_cols = decode_cuda._slices(dims, plan.cluster)[2][1]
+    chunks = -(-dims[3] // min(dims[3], max(plan.stage, 1) // mlp1_cols))
+    plain = decode_cuda.sample_loop_plain(*wide_inputs)
+    kern = decode_cuda.fused_sample_loop(*wide_inputs)
+    torch.cuda.synchronize()
+    mismatched = int((kern != plain).sum())
+    sample_err = max(sample_err, float((kern - plain).abs().max()))
+    print(f"phase sampler: streamed C=128 n=256 stage={plan.stage} mlp1_chunks={chunks} "
+          f"nudged={n_nudged} mismatched_pixels={mismatched}", flush=True)
+    check(not plan.resident and chunks >= 3, "the wide model's plan does not take chunks")
+    check(mismatched == 0, "sampler kernel disagrees (streamed in chunks)")
 
     pairs = (attention_cuda, ln_cuda, mlp_cuda)  # modules with a forward and a backward
 
@@ -1966,6 +2019,11 @@ def main():
     inputs = sampler_inputs(free, torch.rand((h * w, N_SAMPLES, 1), generator=gen).to(dev))
     times["sample"] = time_ms(lambda: decode_cuda.fused_sample_loop(*inputs), 3, 1)
     times["sample_plain"] = time_ms(lambda: decode_cuda.sample_loop_plain(*inputs), 1, 1)
+    sample_ms = {N_SAMPLES: times["sample"]}
+    for n in SAMPLER_NS[1:]:
+        n_inputs = sampler_inputs(-torch.ones((n, h, w, 1), device=dev),
+                                  torch.rand((h * w, n, 1), generator=gen).to(dev))
+        sample_ms[n] = time_ms(lambda: decode_cuda.fused_sample_loop(*n_inputs), 3, 1)
 
     fwd_bound, fwd_bound_f32, _ = flash_bounds(BATCH, l, n_heads, d, d, False)
     bwd_bound, bwd_bound_f32, _ = flash_bounds(BATCH, l, n_heads, d, d, False, backward=True)
@@ -1979,8 +2037,9 @@ def main():
           f"flash_bwd kernel {times['bwd']:.4f}/{times['bwd2']:.4f} ms, "
           f"plain {times['bwd_plain']:.4f} ms, SDPA autograd.grad {times['bwd_lib']:.4f} ms, "
           f"{flash_bounds_text(BATCH, l, n_heads, d, d, False, backward=True)}; "
-          f"sample_loop n={N_SAMPLES} kernel {times['sample']:.2f} ms "
-          f"({N_SAMPLES * 1000 / times['sample']:.2f} img/s), plain {times['sample_plain']:.2f} ms "
+          "sample_loop kernel " + ", ".join(
+              f"n={n} {ms:.2f} ms ({n * 1000 / ms:.2f} img/s)" for n, ms in sample_ms.items())
+          + f"; n={N_SAMPLES}: plain {times['sample_plain']:.2f} ms "
           f"({N_SAMPLES * 1000 / times['sample_plain']:.2f} img/s), bound "
           f"{sample_bound[0]:.4f} ms ({sample_bound[1]}), latency floor estimate "
           f"{sampler_latency_floor_ms(h, w, n_blocks):.1f} ms", flush=True)

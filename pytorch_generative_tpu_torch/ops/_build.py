@@ -91,9 +91,20 @@ def declare(fn, argtypes, restype=ctypes.c_int):
     return fn
 
 
-def check_tensor(name, t, shape, device, kernel, dtype=torch.float32):
+def check_aligned(name, t, kernel):
+    """Raises unless ``t`` starts on a 16-byte boundary, for a kernel that
+    reads it 16 bytes at a time (``float4`` or 16-byte ``cp.async``). A
+    contiguous view at an offset, e.g. of a flat parameter buffer, may not:
+    ``contiguous()`` returns it unchanged."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: the {kernel} kernel reads 16 bytes at a time and needs "
+                         f"a 16-byte aligned start, got offset {t.data_ptr() % 16} bytes")
+
+
+def check_tensor(name, t, shape, device, kernel, dtype=torch.float32, aligned=False):
     """Raises unless ``t`` is a contiguous tensor of ``dtype`` (float32 by
-    default) and ``shape`` on ``device``: what the kernels take."""
+    default) and ``shape`` on ``device``, with ``aligned`` also starting on
+    a 16-byte boundary: what the kernels take."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -102,6 +113,8 @@ def check_tensor(name, t, shape, device, kernel, dtype=torch.float32):
         raise ValueError(f"{name}: expected {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if aligned:
+        check_aligned(name, t, kernel)
 
 
 def dispatch(cuda_fn, plain_fn, *args):

@@ -68,7 +68,8 @@ def attention_block_plain(x, wq, bq, wkv, bkv, wo, bo, mask_center: bool,
 
 def _check(kernel, x, wq, bq, wkv, bkv, wo=None, bo=None, n_heads=None):
     """Raises unless the operands are contiguous float32 on x's device, of
-    shapes that fit x, at widths the kernel takes: every width a multiple
+    shapes that fit x, each starting on a 16-byte boundary (the GEMM copies
+    16 bytes at a time), at widths the kernel takes: every width a multiple
     of 4 and, with n_heads, d_k == d_v in HEAD_DIMS."""
     if x.dim() != 3:
         raise ValueError(f"x must be (B, L, C), got {tuple(x.shape)}")
@@ -85,7 +86,7 @@ def _check(kernel, x, wq, bq, wkv, bkv, wo=None, bo=None, n_heads=None):
     operands = dict(x=x, wq=wq, bq=bq, wkv=wkv, bkv=bkv, wo=wo, bo=bo)
     for name, t in operands.items():
         if t is not None:
-            _build.check_tensor(name, t, shapes[name], x.device, kernel)
+            _build.check_tensor(name, t, shapes[name], x.device, kernel, aligned=True)
 
 
 def _block_forward_cuda(x, wq, bq, wkv, bkv, wo, bo, mask_center: bool,

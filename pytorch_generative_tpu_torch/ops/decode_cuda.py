@@ -15,11 +15,17 @@ embedding ``(Hp*Wp, 1)``; ``uniforms`` are ``(H*W, N, 1)``; the step's K/V
 cache is packed ``(n_blocks, N, L, c_k + c_v)``, K and V side by side. A
 CUDA tensor launches the kernel, or the wrapper raises; a CPU tensor takes
 the plain version.
+
+The whole-loop kernel runs on thread-block clusters of ``CLUSTER`` CTAs;
+``sample_plan`` (pure Python) picks the samples a cluster serves together
+and whether every block's weight slices stay in shared memory, from what
+the card says fits at once (``cudaOccupancyMaxActiveClusters``).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -36,10 +42,29 @@ STEP_WEIGHT_ORDER = WEIGHT_ORDER[4:]
 # The K/V cache types the step kernel takes (its template instances).
 CACHE_DTYPES = (torch.float32, torch.bfloat16)
 
+# The whole-loop kernel's weights that it copies 16 bytes at a time.
+SAMPLE_LOOP_ALIGNED = ("qkv_w", "out_w", "mlp1_w", "mlp2_w")
+# CTAs a cluster; dynamic shared memory a CTA may take: Hopper's 227 KB
+# less 1 KB for the kernel's static shared memory (its weight feed).
+CLUSTER = 8
+SMEM_LIMIT = 232448 - 1024
+_RING = 3  # stages of the streamed weights' ring
+
 # Kernel launches since the last reset: only _sample_loop_cuda adds to
 # ``launches``, only _decode_step_cuda to ``step_launches``.
 launches = 0
 step_launches = 0
+
+
+class SamplePlan(NamedTuple):
+    """How ``csrc/sample_loop.cu`` runs n samples."""
+    cluster: int    # CTAs a cluster
+    clusters: int   # clusters launched: at most as many as the card holds at once
+    samples: int    # samples a cluster serves together (a group)
+    groups: int     # ceil(n / samples); a cluster takes groups in turn
+    resident: bool  # every block's weight slices stay in shared memory
+    stage: int      # floats a ring stage when the slices are streamed, else 0
+    smem: int       # bytes of shared memory a CTA
 
 
 def stack_image_gpt_weights(model):
@@ -104,6 +129,78 @@ def _weight_shapes(weights, n_heads):
     }
 
 
+def _up4(v):
+    return (v + 3) & ~3
+
+
+def _max_cols(j, cluster):
+    """Most columns of a J-column product a rank owns (units of 4 when J %
+    4 == 0, else of 1, spread as evenly as they go)."""
+    unit = 4 if j % 4 == 0 else 1
+    return -(-(j // unit) // cluster) * unit
+
+
+def _slices(dims, cluster):
+    """(rows, columns) of each product's slice on the rank that owns the
+    most: QKV by columns, out by rows (value features), MLP 1 by columns
+    and MLP 2 by rows (hidden units)."""
+    _, _, _, c, n_heads, d_k, d_v, m = dims
+    c_k, c_v = n_heads * d_k, n_heads * d_v
+    return ((c, _max_cols(2 * c_k + c_v, cluster)), (_max_cols(c_v, cluster), c),
+            (c, _max_cols(m, cluster)), (_max_cols(m, cluster), c))
+
+
+def sample_plan(n, dims, max_clusters_for, smem_for, smem_limit=SMEM_LIMIT, cluster=CLUSTER):
+    """The whole-loop kernel's plan for n samples of a model of ``dims`` =
+    (h, w, n_blocks, C, n_heads, d_k, d_v, M).
+
+    ``max_clusters_for(smem, samples)`` is how many clusters of ``cluster``
+    CTAs the card holds at once at ``smem`` bytes a CTA, for the kernel
+    instance of ``samples`` a group (cudaOccupancyMaxActiveClusters on the
+    card); ``smem_for(samples, resident, stage)`` is the shared memory a
+    CTA of such a plan takes (the kernel's ``sample_loop_smem_bytes`` on
+    the card; a stage of 0 gives what the ring leaves). The plan takes the fewest samples a cluster that serve all
+    n in one wave of clusters, with every block's weight slices resident in
+    shared memory if they fit, else streamed through a ring of ``_RING``
+    stages (a stage holds a product's slice, or as many of its rows as
+    fit). Where no
+    plan serves n in one wave, it takes the one of fewest waves: each
+    cluster then serves several groups in turn. It never plans more
+    clusters than ``max_clusters_for`` gives; it raises where no plan fits.
+    """
+    if n < 1:
+        raise ValueError(f"n = {n}: the sampler needs at least one sample")
+    slices = [_up4(k * j) for k, j in _slices(dims, cluster)]
+    widest = max(j for _, j in _slices(dims, cluster))
+    best = None
+    for resident in (True, False):
+        for samples in range(1, n + 1):
+            stage = 0
+            if not resident:
+                room = (smem_limit - smem_for(samples, False, 0)) // (4 * _RING)
+                room = room // 4 * 4
+                stage = min(max(slices), room)
+                if stage < widest:
+                    break
+            smem = smem_for(samples, resident, stage)
+            if smem > smem_limit:
+                break
+            cap = max_clusters_for(smem, samples)
+            if cap < 1:
+                break
+            groups = -(-n // samples)
+            plan = SamplePlan(cluster, min(cap, groups), samples, groups, resident, stage, smem)
+            if groups <= cap:
+                return plan
+            waves = lambda p: -(-p.groups // p.clusters)
+            if best is None or waves(plan) < waves(best):
+                best = plan
+    if best is None:
+        raise ValueError(f"the whole-loop kernel has no plan for dims {dims}: no cluster of "
+                         f"{cluster} CTAs fits in {smem_limit} bytes of shared memory a CTA")
+    return best
+
+
 def sample_loop_plain(canvas0, pos_pad, uniforms, weights, n_heads, h, w):
     """The kernel's plain version: KV-cache decoding, one position at a time
     over the whole batch (the JAX package's ``sampling._image_gpt_decode``)."""
@@ -145,33 +242,84 @@ def sample_loop_plain(canvas0, pos_pad, uniforms, weights, n_heads, h, w):
 def _lib():
     lib = _build.load(KERNEL)
     _build.declare(lib.sample_loop_f32,
-                   [ctypes.c_void_p] * 24 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+                   [ctypes.c_void_p] * 23 + [ctypes.c_int] * 15 + [ctypes.c_void_p])
+    _build.declare(lib.sample_loop_occupancy,
+                   [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2)
+    _build.declare(lib.sample_loop_smem_bytes, [ctypes.c_int] * 12, ctypes.c_longlong)
     return lib
+
+
+def occupancy(d_k, d_v, samples, cluster, smem):
+    """(cudaOccupancyMaxActiveClusters, registers a thread) of the kernel
+    instance for (d_k, d_v) and ``samples`` a group at ``cluster`` CTAs a
+    cluster and ``smem`` bytes a CTA, on the current device."""
+    clusters, regs = ctypes.c_int(), ctypes.c_int()
+    err = _lib().sample_loop_occupancy(d_k, d_v, samples, cluster, smem,
+                                       ctypes.byref(clusters), ctypes.byref(regs))
+    _build.check(err, "sample_loop_occupancy")
+    return clusters.value, regs.value
+
+
+_max_clusters: dict = {}
+
+
+def check_sample_loop(canvas0, pos_pad, uniforms, weights, n_heads, h, w):
+    """Raises unless the operands are what the whole-loop kernel takes:
+    contiguous float32 on canvas0's device, of matching shapes, the weights
+    it copies 16 bytes at a time (``SAMPLE_LOOP_ALIGNED``) starting on a
+    16-byte boundary; returns n and the plan's dims (h, w, n_blocks, C,
+    n_heads, d_k, d_v, M)."""
+    lp, n = canvas0.shape
+    expected = _weight_shapes(weights, n_heads)
+    n_blocks, c, c_k, c_v, m = _dims(weights, n_heads)
+    expected.update(canvas0=((h + 2) * (w + 2), n), pos_pad=(lp, 1), uniforms=(h * w, n, 1))
+    operands = dict(weights, canvas0=canvas0, pos_pad=pos_pad, uniforms=uniforms)
+    for k in ("canvas0", "pos_pad", "uniforms", *WEIGHT_ORDER):
+        _build.check_tensor(k, operands[k], expected[k], canvas0.device, KERNEL,
+                            aligned=k in SAMPLE_LOOP_ALIGNED)
+    return n, (h, w, n_blocks, c, n_heads, c_k // n_heads, c_v // n_heads, m)
+
+
+def plan_for(canvas0, pos_pad, uniforms, weights, n_heads, h, w):
+    """``sample_plan`` for these operands on their card."""
+    n, dims = check_sample_loop(canvas0, pos_pad, uniforms, weights, n_heads, h, w)
+    return _card_plan(n, dims, canvas0.device)
+
+
+def _card_plan(n, dims, dev):
+    def max_clusters_for(smem, samples):
+        # The kernel's instances: 1, 2, or 3 and more samples a group.
+        key = (dev, dims[5], dims[6], min(samples, 3), CLUSTER, smem)
+        if key not in _max_clusters:
+            with torch.cuda.device(dev):
+                _max_clusters[key] = occupancy(dims[5], dims[6], samples, CLUSTER, smem)[0]
+        return _max_clusters[key]
+
+    def smem_for(samples, resident, stage):
+        return _lib().sample_loop_smem_bytes(*dims, CLUSTER, samples, int(resident), stage)
+
+    return sample_plan(n, dims, max_clusters_for, smem_for)
 
 
 def _sample_loop_cuda(canvas0, pos_pad, uniforms, weights, n_heads, h, w):
     global launches
-    lp, n = canvas0.shape
-    seq_len = h * w
-    expected = _weight_shapes(weights, n_heads)
-    n_blocks, c, c_k, c_v, m = _dims(weights, n_heads)
+    n, dims = check_sample_loop(canvas0, pos_pad, uniforms, weights, n_heads, h, w)
+    _, _, n_blocks, c, _, d_k, d_v, m = dims
     dev = canvas0.device
-    expected.update(canvas0=((h + 2) * (w + 2), n), pos_pad=(lp, 1),
-                    uniforms=(seq_len, n, 1))
-    operands = dict(weights, canvas0=canvas0, pos_pad=pos_pad, uniforms=uniforms)
-    for k in ("canvas0", "pos_pad", "uniforms", *WEIGHT_ORDER):
-        _build.check_tensor(k, operands[k], expected[k], dev, KERNEL)
+    plan = _card_plan(n, dims, dev)
     canvas = torch.empty_like(canvas0)
-    k_cache = torch.empty((n_blocks, n, seq_len, c_k), device=dev)
-    v_cache = torch.empty((n_blocks, n, seq_len, c_v), device=dev)
+    # The K/V cache, laid out as each rank reads it: rank r's positions
+    # l = r (mod cluster) of every block and sample side by side.
+    kv = torch.empty((n_blocks, n, plan.cluster, -(-(h * w) // plan.cluster),
+                      n_heads * (d_k + d_v)), device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = _lib().sample_loop_f32(
             canvas0.data_ptr(), pos_pad.data_ptr(), uniforms.data_ptr(),
-            canvas.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            canvas.data_ptr(), kv.data_ptr(),
             *[weights[k].data_ptr() for k in WEIGHT_ORDER],
-            n, h, w, n_blocks, c, n_heads, c_k // n_heads, c_v // n_heads, m,
-            stream)
+            n, h, w, n_blocks, c, n_heads, d_k, d_v, m, plan.cluster, plan.clusters,
+            plan.samples, plan.groups, int(plan.resident), plan.stage, stream)
     _build.check(err, "sample_loop_f32")
     launches += 1
     return canvas

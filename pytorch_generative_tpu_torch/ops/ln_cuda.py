@@ -68,12 +68,20 @@ def check_rows(x2):
     return r, c
 
 
+def _check(kernel, x2, **operands):
+    """Raises unless x2 and the operands are what the row kernels take:
+    contiguous float32 on x2's device, of x2's shapes, each starting on a
+    16-byte boundary (they are read by ``float4``); returns (R, C)."""
+    r, c = check_rows(x2)
+    shapes = {"x": (r, c), "dy": (r, c), "gamma": (c,), "beta": (c,)}
+    for name, t in dict(x=x2, **operands).items():
+        _build.check_tensor(name, t, shapes[name], x2.device, kernel, aligned=True)
+    return r, c
+
+
 def _ln_forward_cuda(x2, gamma, beta, eps):
     global launches
-    r, c = check_rows(x2)
-    for name, t, shape in (("x", x2, (r, c)), ("gamma", gamma, (c,)),
-                           ("beta", beta, (c,))):
-        _build.check_tensor(name, t, shape, x2.device, KERNEL)
+    r, c = _check(KERNEL, x2, gamma=gamma, beta=beta)
     out = torch.empty_like(x2)
     fn = _build.declare(_build.load(KERNEL).ln_fwd_f32,
                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
@@ -88,10 +96,7 @@ def _ln_forward_cuda(x2, gamma, beta, eps):
 
 def _ln_backward_cuda(x2, dy2, gamma, eps):
     global bwd_launches
-    r, c = check_rows(x2)
-    for name, t, shape in (("x", x2, (r, c)), ("dy", dy2, (r, c)),
-                           ("gamma", gamma, (c,))):
-        _build.check_tensor(name, t, shape, x2.device, BWD_KERNEL)
+    r, c = _check(BWD_KERNEL, x2, dy=dy2, gamma=gamma)
     dx = torch.empty_like(x2)
     sums = torch.empty((2, c), device=x2.device)
     part = torch.empty((-(-r // ROWS_PER_CTA), 2, c), device=x2.device)

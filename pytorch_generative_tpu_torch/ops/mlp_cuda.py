@@ -156,6 +156,9 @@ def _bwd_scratch(r, c, f, dev, n_wparts):
 
 
 def _check(kernel, x2, w1, **operands):
+    """Raises unless the operands are contiguous float32 on x2's device, of
+    shapes that fit x2 and w1, each starting on a 16-byte boundary (the
+    LayerNorm reads by ``float4``, the GEMM by 16-byte ``cp.async``)."""
     r, c = ln_cuda.check_rows(x2)
     f = w1.shape[-1] if w1.dim() == 2 else -1
     if f <= 0 or f % 4:
@@ -163,7 +166,7 @@ def _check(kernel, x2, w1, **operands):
     shapes = {"x": (r, c), "do": (r, c), "y": (r, f), "gamma": (c,),
               "beta": (c,), "w1": (c, f), "b1": (f,), "w2": (f, c), "b2": (c,)}
     for name, t in dict(operands, x=x2, w1=w1).items():
-        _build.check_tensor(name, t, shapes[name], x2.device, kernel)
+        _build.check_tensor(name, t, shapes[name], x2.device, kernel, aligned=True)
     return r, c, f
 
 

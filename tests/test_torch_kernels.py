@@ -189,6 +189,118 @@ def test_sampler_kernel_matches_plain(dev, inpaint):
     torch.testing.assert_close(kern, plain, rtol=0, atol=0)
 
 
+def _nudged_sampler_inputs(model, n, h, w, inpaint, dev, seed=3):
+    """fused_sample_loop's inputs for n images, the uniforms moved 2e-3 off
+    the plain sample's decision boundary (as in the test above)."""
+    gen = torch.Generator().manual_seed(seed)
+    cond = -torch.ones((n, h, w, 1), device=dev)
+    if inpaint:
+        cond[:, : h // 2] = (torch.rand((n, h // 2, w, 1), generator=gen) < 0.5).float().to(dev)
+    u = torch.rand((h * w, n, 1), generator=gen).to(dev)
+    plain = decode_cuda.sample_loop_plain(*sampling.sample_loop_inputs(model, cond, u))
+    with torch.no_grad():
+        p = torch.sigmoid(model(sampling.canvas_to_images(plain, h, w))).reshape(n, -1).T[..., None]
+    d = u - p
+    u = torch.where(d.abs() < 1e-3, (p + 2e-3 * torch.where(d >= 0, 1.0, -1.0)).clamp(0, 1), u)
+    return sampling.sample_loop_inputs(model, cond, u)
+
+
+def _wide_model(dev, blocks=3):
+    """C = 128, 4 heads: at 3 blocks its weight slices do not stay in
+    shared memory beside a sample's state, so the kernel streams them."""
+    model = ImageGPT(in_channels=1, out_channels=1, in_size=8, n_transformer_blocks=blocks,
+                     n_attention_heads=4, n_embedding_channels=128,
+                     generator=torch.Generator().manual_seed(5), device=dev)
+    with torch.no_grad():
+        model.pos.copy_(0.1 * torch.randn(model.pos.shape,
+                                          generator=torch.Generator().manual_seed(6)))
+    return model.eval()
+
+
+@pytest.mark.parametrize("n,inpaint", [(1, False), (5, True), (17, False)])
+def test_sampler_kernel_at_any_n(dev, n, inpaint):
+    """n = 1, an n the plan's groups do not divide (5 over the card's
+    clusters, 17 as groups of 2), one launch a call, pixel-equal."""
+    inputs = _nudged_sampler_inputs(_model(dev), n, 8, 8, inpaint, dev)
+    plan = decode_cuda.plan_for(*inputs)
+    assert plan.groups * plan.samples >= n and plan.clusters <= plan.groups
+    before = decode_cuda.launches
+    kern = decode_cuda.fused_sample_loop(*inputs)
+    torch.cuda.synchronize()
+    assert decode_cuda.launches == before + 1
+    torch.testing.assert_close(kern, decode_cuda.sample_loop_plain(*inputs), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n,mlp1_chunks", [(3, 1), (256, 3)])
+def test_sampler_kernel_streams_wide_weights(dev, n, mlp1_chunks):
+    """The wide model streams its weight slices. At n = 3 a ring stage holds
+    a whole slice; at n = 256 only a few of its rows, so the products take
+    each slice in chunks, MLP 1 in 3 or more: from its third chunk on, the
+    wait for a chunk no longer covers LayerNorm 2's prefetch group."""
+    inputs = _nudged_sampler_inputs(_wide_model(dev), n, 8, 8, True, dev)
+    plan = decode_cuda.plan_for(*inputs)
+    _, dims = decode_cuda.check_sample_loop(*inputs)
+    c, cols = dims[3], decode_cuda._slices(dims, plan.cluster)[2][1]  # MLP 1's widest slice
+    assert not plan.resident
+    assert -(-c // min(c, plan.stage // cols)) >= mlp1_chunks
+    before = decode_cuda.launches
+    kern = decode_cuda.fused_sample_loop(*inputs)
+    torch.cuda.synchronize()
+    assert decode_cuda.launches == before + 1
+    torch.testing.assert_close(kern, decode_cuda.sample_loop_plain(*inputs), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_sampler_kernel_gives_equal_bits_twice(dev, wide):
+    model = _wide_model(dev) if wide else _model(dev)
+    inputs = _nudged_sampler_inputs(model, 4, 8, 8, False, dev)
+    first = decode_cuda.fused_sample_loop(*inputs)
+    second = decode_cuda.fused_sample_loop(*inputs)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def _misaligned(t):
+    """t's values in a contiguous tensor 4 bytes past a 16-byte boundary."""
+    return torch.empty(t.numel() + 1, device=t.device)[1:].view(t.shape).copy_(t)
+
+
+@pytest.mark.parametrize("wrapper", ["ln_forward", "ln_backward", "mlp_forward", "mlp_backward",
+                                     "attn_block", "sample_loop"])
+def test_wrappers_refuse_operands_off_a_16_byte_boundary(dev, wrapper):
+    """Fault C.4: each wrapper raises before any launch, and copies nothing."""
+    x, gamma, beta, w1, b1, w2, b2 = _mlp_inputs(64, 128, dev)
+    y = torch.zeros((64, 512), device=dev)
+    calls = {
+        "ln_forward": (ln_cuda, "launches",
+                       lambda: ln_cuda.ln_forward(x, _misaligned(gamma), beta, 1e-5)),
+        "ln_backward": (ln_cuda, "bwd_launches",
+                        lambda: ln_cuda.ln_backward(_misaligned(x), x, gamma, 1e-5)),
+        "mlp_forward": (mlp_cuda, "launches",
+                        lambda: mlp_cuda.ln_mlp_forward(x, gamma, beta, _misaligned(w1), b1, w2,
+                                                        b2, 1e-5)),
+        "mlp_backward": (mlp_cuda, "bwd_launches",
+                         lambda: mlp_cuda.ln_mlp_backward(x, x, y, gamma, beta, w1, b1,
+                                                          _misaligned(w2), 1e-5)),
+    }
+    if wrapper == "attn_block":
+        ops = list(_block_inputs(2, 64, 64, dev))
+        ops[3] = _misaligned(ops[3])  # wkv
+        calls[wrapper] = (attn_block_cuda, "launches",
+                          lambda: attn_block_cuda.attention_block_forward(*ops, False, 2))
+    if wrapper == "sample_loop":
+        canvas0, pos_pad, u, weights, n_heads, h, w = sampling.sample_loop_inputs(
+            _model(dev), -torch.ones((2, 8, 8, 1), device=dev), torch.rand((64, 2, 1), device=dev))
+        weights = dict(weights, mlp2_w=_misaligned(weights["mlp2_w"]))
+        calls[wrapper] = (decode_cuda, "launches", lambda: decode_cuda.fused_sample_loop(
+            canvas0, pos_pad, u, weights, n_heads, h, w))
+    module, counter, call = calls[wrapper]
+    before = getattr(module, counter)
+    with pytest.raises(ValueError, match="16-byte aligned start, got offset 4 bytes"):
+        call()
+    assert getattr(module, counter) == before
+
+
 def test_model_on_cuda_runs_the_kernels(dev):
     """forward and sample on CUDA go through both kernels; the forward agrees
     with the plain CPU forward within 1e-4."""
