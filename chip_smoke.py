@@ -29,14 +29,19 @@ route, and the one at the f32 CUDA-core rate); the train step's time and a
 ``torch.profiler`` breakdown of it; then the same at C = 512: forward at
 batch 64, three train steps, gradients and a 3-step trajectory against the
 CPU at batch 2, times and the profiled train step. Then sampling on the
-per-position step route: the decode step kernel against its plain version
-at C = 512, n = 16 (f32 and bf16 K/V cache, NaN in the stale cache
-positions); ``ImageGPT(**LARGE_CONFIG).sample`` of 16 images, free and
-inpainted, f32 and bf16 cache, against the plain step route (784 step
-launches a call, no whole loop); at C = 64 the step route for n = 4 and for
-a model with a custom ``sample_fn``; the times of the C = 512 sample call,
-of the step at i = 391 and of its plain version, with bounds, and a
-profile of one sample call. Then PixelSNAIL (``pixel_snail_phases``: 8
+per-position step route, which replays one captured position as a CUDA
+graph: the decode step kernel against its plain version at C = 512,
+n = 16 (f32 and bf16 K/V cache, NaN in the stale cache positions) and
+n = 64 at i = 65, the position given as an int and as a device tensor
+(equal bits);
+``ImageGPT(**LARGE_CONFIG).sample`` of 16 images, free and inpainted, f32
+and bf16 cache, against the plain step route (784 step runs a call, no
+whole loop); at C = 64 the step route for n = 4 and for a model with a
+custom ``sample_fn``; the times of the C = 512 sample call, of the step at
+i = 391 (eager, and one captured step replayed) and of its plain version,
+with bounds, a profile of one sample call, and the host's time a position
+(eager ops, one step call, one replay of the route's graph). Then
+PixelSNAIL (``pixel_snail_phases``: 8
 blocks of 2 residual blocks, C = 64, attention d_k 4 / d_v 32 with
 mask_center): the flash kernels at (B 128, L 784, H 1, 4, 32) against their
 plain versions; ``PixelSNAIL.forward`` at batch 128 (8 flash launches)
@@ -2198,7 +2203,9 @@ def main():
     # ---- Sampling on the per-position step route. ----
     # Phase 19: the decode step kernel against its plain version at
     # LARGE_CONFIG, n = 16, f32 and bf16 cache, NaN in the cache's stale
-    # positions >= i (reading one would poison the result).
+    # positions >= i (reading one would poison the result); then one step
+    # at n = 64 (four row groups of the products) at i = 65, past the first
+    # key chunk's edge.
     sbig = ImageGPT(**big_cfg, generator=gen, device=dev)
     with torch.no_grad():
         sbig.pos.copy_(0.1 * torch.randn(sbig.pos.shape, generator=gen))
@@ -2209,38 +2216,59 @@ def main():
     cache_f32 = torch.randn((nb, N_SAMPLES, h * w, f_kv), generator=gen).to(dev)
     cache_dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
     step_err, logit_diff = 0.0, {}
+
+    def check_step(i, x, full, dtype, dname):
+        """The step at i as an int and as the 0-dim int32 tensor the step
+        route's graph reads (equal bits), against the plain version; returns
+        the act error and the largest logit difference."""
+        n = x.shape[0]
+        cache = full.clone()
+        cache[:, :, i:] = float("nan")
+        cache = cache.to(dtype)
+        # Each on its own cache: the step writes its k|v there at i.
+        cache_int, cache_dev = cache.clone(), cache.clone()
+        act, kv_new = decode_cuda.fused_decode_step(i, x, cache_int, sweights, hb)
+        pos = torch.tensor(i, dtype=torch.int32, device=dev)
+        act_dev, kv_dev = decode_cuda.fused_decode_step(pos, x, cache_dev, sweights, hb)
+        ref_act, ref_kv = decode_cuda.decode_step_plain(i, x, cache, sweights, hb)
+        torch.cuda.synchronize()
+        same = (torch.equal(act, act_dev) and torch.equal(kv_new, kv_dev)
+                and bool(((cache_int == cache_dev)
+                          | (cache_int.isnan() & cache_dev.isnan())).all()))
+        scale = float(ref_act.abs().max())
+        e_act = float((act - ref_act).abs().max())
+        e_kv = float((kv_new.float() - ref_kv.float()).abs().max())
+        kv_ulps = int(((kv_new.float() - ref_kv.float()).abs() > STEP_RTOL * scale).sum())
+        d_logit = float(((act - ref_act) @ sbig.out_conv.weight.detach()).abs().max())
+        print(f"phase decode step C={cb} {dname} cache: i={i} n={n} max_abs_err "
+              f"act={e_act:.3e} kv_new={e_kv:.3e} (max |act| {scale:.3e}, tol {STEP_RTOL} x "
+              f"max |act|; kv_new entries past it {kv_ulps}) logit diff {d_logit:.3e}; "
+              f"device position gives equal bits: {same}", flush=True)
+        check(same, f"the step at a device position disagrees with the int one "
+                    f"({dname}, i={i}, n={n})")
+        check(bool(torch.isfinite(act).all()) and bool(torch.isfinite(kv_new.float()).all()),
+              f"the step kernel read a stale cache position ({dname}, i={i}, n={n})")
+        check(e_act <= STEP_RTOL * scale, f"decode step act disagrees ({dname}, i={i}, n={n})")
+        # bf16: an entry may round to the neighbouring bf16 value, one
+        # unit in the last place (2^-7 relative at most).
+        ulp = 0.0 if dtype == torch.float32 else 2.0 ** -7
+        check(bool(((kv_new.float() - ref_kv.float()).abs()
+                    <= STEP_RTOL * scale + ulp * ref_kv.float().abs()).all()),
+              f"decode step kv_new disagrees ({dname}, i={i}, n={n})")
+        return e_act, d_logit
+
     for dname, dtype in cache_dtypes.items():
         logit_diff[dname] = 0.0
         for i in STEP_POSITIONS:
-            cache = cache_f32.clone()
-            cache[:, :, i:] = float("nan")
-            cache = cache.to(dtype)
-            # Each on its own cache: the step writes its k|v there at i.
-            act, kv_new = decode_cuda.fused_decode_step(i, x_step, cache.clone(), sweights, hb)
-            ref_act, ref_kv = decode_cuda.decode_step_plain(i, x_step, cache, sweights, hb)
-            torch.cuda.synchronize()
-            scale = float(ref_act.abs().max())
-            e_act = float((act - ref_act).abs().max())
-            e_kv = float((kv_new.float() - ref_kv.float()).abs().max())
-            kv_ulps = int(((kv_new.float() - ref_kv.float()).abs()
-                           > STEP_RTOL * scale).sum())
-            d_logit = float(((act - ref_act) @ sbig.out_conv.weight.detach()).abs().max())
-            logit_diff[dname] = max(logit_diff[dname], d_logit)
+            e_act, d_logit = check_step(i, x_step, cache_f32, dtype, dname)
             step_err = max(step_err, e_act)
-            print(f"phase decode step C={cb} {dname} cache: i={i} n={N_SAMPLES} max_abs_err "
-                  f"act={e_act:.3e} kv_new={e_kv:.3e} (max |act| {scale:.3e}, tol {STEP_RTOL} x "
-                  f"max |act|; kv_new entries past it {kv_ulps}) logit diff {d_logit:.3e}",
-                  flush=True)
-            check(bool(torch.isfinite(act).all()) and bool(torch.isfinite(kv_new.float()).all()),
-                  f"the step kernel read a stale cache position ({dname}, i={i})")
-            check(e_act <= STEP_RTOL * scale, f"decode step act disagrees ({dname}, i={i})")
-            # bf16: an entry may round to the neighbouring bf16 value, one
-            # unit in the last place (2^-7 relative at most).
-            ulp = 0.0 if dtype == torch.float32 else 2.0 ** -7
-            check(bool(((kv_new.float() - ref_kv.float()).abs()
-                        <= STEP_RTOL * scale + ulp * ref_kv.float().abs()).all()),
-                  f"decode step kv_new disagrees ({dname}, i={i})")
-    del cache
+            logit_diff[dname] = max(logit_diff[dname], d_logit)
+    x_wide = torch.randn((4 * N_SAMPLES, cb), generator=gen).to(dev)
+    cache_wide = torch.randn((nb, 4 * N_SAMPLES, h * w, f_kv), device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(SEED))
+    for dname, dtype in cache_dtypes.items():
+        step_err = max(step_err, check_step(65, x_wide, cache_wide, dtype, dname)[0])
+    del cache_wide
 
     # Phase 20: ImageGPT(**LARGE_CONFIG).sample of 16 images through the
     # entry point, free and inpainted (top half kept), f32 and bf16 cache:
@@ -2311,8 +2339,9 @@ def main():
         check(mismatched == 0, f"{label} at C = 64 disagrees with the plain step route")
 
     # Phase 22: times at C = 512, n = 16: the sample call (f32 and bf16
-    # cache), the step kernel at i = 391 and its plain version, their
-    # bounds; then a profile of one f32 sample call.
+    # cache), the step kernel at i = 391 (an int position, and a device
+    # position through one captured step replayed) and its plain version,
+    # their bounds; then a profile of one f32 sample call.
     u16_big = torch.rand((h * w, N_SAMPLES, 1), generator=gen).to(dev)
     cache = cache_f32.clone()
     cache[:, :, TIMED_POSITION:] = 0.0
@@ -2325,6 +2354,18 @@ def main():
             TIMED_POSITION, x_step, cache_d, sweights, hb), 5, 1)
         step_times[dname + "_2"] = time_ms(lambda: decode_cuda.fused_decode_step(
             TIMED_POSITION, x_step, cache_d, sweights, hb), 20, 3)
+        pos = torch.tensor(TIMED_POSITION, dtype=torch.int32, device=dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            decode_cuda.fused_decode_step(pos, x_step, cache_d, sweights, hb)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        step_graph = decode_cuda.StepGraph()
+        with torch.cuda.stream(side), step_graph.capture():
+            decode_cuda.fused_decode_step(pos, x_step, cache_d, sweights, hb)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        step_times[dname + "_graph"] = time_ms(step_graph.replay, 20, 3)
+        del step_graph
     del cache, cache_d
     sample_times = {dname: time_ms(lambda: sbig.sample(
         n_samples=N_SAMPLES, generator=torch.Generator().manual_seed(SEED), cache_dtype=dtype), 2, 1)
@@ -2340,16 +2381,20 @@ def main():
               f"{sample_times[dname]:.2f} ms ({N_SAMPLES * 1000 / sample_times[dname]:.2f} img/s), "
               f"bound {call_bounds[dname][0]:.2f} ms ({call_bounds[dname][1]}); decode_step at "
               f"i={TIMED_POSITION} kernel {step_times[dname]:.4f}/{step_times[dname + '_2']:.4f} ms, "
+              f"device position, one captured step replayed "
+              f"{step_times[dname + '_graph']:.4f} ms, "
               f"plain {step_times[dname + '_plain']:.4f} ms, bound {step_bounds[dname][0]:.4f} ms "
               f"({step_bounds[dname][1]}), library none", flush=True)
     profile_steps(lambda: sbig.sample(n_samples=N_SAMPLES, generator=torch.Generator().manual_seed(
         SEED)), 1, sample_times["f32"], f"sample call n={N_SAMPLES}", (N_SAMPLES, "images"),
-        f"profile sample C={cb} f32 cache", smi, ("decode_gemv", "decode_attn", "decode_rows"),
-        host=True)
-    # The host's share of a position: the step route with the step replaced
+        f"profile sample C={cb} f32 cache", smi,
+        ("decode_proj", "decode_attn", "decode_combine", "decode_lnf"), host=True)
+    # The host's share of a position: the eager route with the step replaced
     # by a stub that returns one step's outputs (what remains is the
-    # PyTorch ops around it: conv taps, head, draw, merge), and
-    # the host time to issue one step call (no synchronisation inside).
+    # PyTorch ops around it: conv taps, head, draw, merge), the host time
+    # to issue one step call (no synchronisation inside), and the graph of
+    # one position that the route replays: its host time a replay and the
+    # time a position to the last replay's end.
     stub = decode_cuda.fused_decode_step(TIMED_POSITION, x_step, cache_f32, sweights, hb)
     ops_ms = time_ms(lambda: sampling._image_gpt_decode_step(
         sbig, free, u16_big, torch.float32, step=lambda *_: stub), 2, 1) / (h * w)
@@ -2359,9 +2404,22 @@ def main():
         decode_cuda.fused_decode_step(TIMED_POSITION, x_step, cache_f32, sweights, hb)
     issue_ms = (time.perf_counter() - t0) * 1e3 / 8
     torch.cuda.synchronize()
+    with torch.no_grad():
+        route = sampling.StepRoute(sbig, free, u16_big, torch.float32)
+        position_graph = route.capture()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(h * w - 2):
+            position_graph.replay()
+        replay_host_ms = (time.perf_counter() - t0) * 1e3 / (h * w - 2)
+        torch.cuda.synchronize()
+        replay_ms = (time.perf_counter() - t0) * 1e3 / (h * w - 2)
+    del route, position_graph
     print(f"phase host sample C={cb} [{smi}]: per position, the PyTorch ops around the step "
-          f"{ops_ms:.4f} ms (the step stubbed), issuing one step call {issue_ms:.4f} ms of host "
-          f"time (57 launches); the whole call {sample_times['f32'] / (h * w):.4f} ms a position",
+          f"{ops_ms:.4f} ms (the step stubbed, eager), issuing one step call {issue_ms:.4f} ms of "
+          f"host time ({6 * nb + 1} launches); the route's graph of one position: "
+          f"{replay_host_ms:.4f} ms of host time a replay, {replay_ms:.4f} ms a position to the "
+          f"last replay's end; the whole call {sample_times['f32'] / (h * w):.4f} ms a position",
           flush=True)
     # The two routes at C = 64, n = 16, where the whole loop serves: the
     # step route on the same model and uniforms, beside the whole loop.
@@ -2418,7 +2476,7 @@ def main():
          "launches": sum(cs[decode_cuda.DECODE_STEP_KERNEL] for cs in all_counts),
          "max_abs_err": step_err, "ms": step_times["f32"], "plain_ms": step_times["f32_plain"],
          "bound_ms": step_bounds["f32"][0], "bound_by": step_bounds["f32"][1],
-         "library_ms": None},
+         "library_ms": None, "graph_ms": step_times["f32_graph"]},
         *({"name": kern, "route": "cuda",
            "source": f"pytorch_generative_tpu_torch/csrc/{kern}.cu", "replaces": replaces,
            "launches": sum(cs[kern] for cs in all_counts), "max_abs_err": err,

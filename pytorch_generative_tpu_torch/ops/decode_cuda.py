@@ -6,7 +6,9 @@ launch count:
   ``pytorch_generative_tpu/ops/decode_pallas.py::fused_sample_loop``);
 - ``csrc/decode_step.cu``: one raster position through the whole block
   stack (``fused_decode_step``, counterpart of
-  ``decode_pallas.py::fused_decode_step``), float32 or bfloat16 K/V cache.
+  ``decode_pallas.py::fused_decode_step``), float32 or bfloat16 K/V cache;
+  the position an int or a 0-dim int32 device tensor that the kernel reads,
+  so that one CUDA graph of the call serves every position.
 
 Layouts follow the JAX package: the canvas is the zero-padded image
 flattened to (position, batch), ``(Hp*Wp, N)``, with raw values (markers
@@ -24,7 +26,9 @@ the card says fits at once (``cudaOccupancyMaxActiveClusters``).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -47,13 +51,18 @@ SAMPLE_LOOP_ALIGNED = ("qkv_w", "out_w", "mlp1_w", "mlp2_w")
 # CTAs a cluster; dynamic shared memory a CTA may take: Hopper's 227 KB
 # less 1 KB for the kernel's static shared memory (its weight feed).
 CLUSTER = 8
-SMEM_LIMIT = 232448 - 1024
+HOPPER_SMEM = 232448
+SMEM_LIMIT = HOPPER_SMEM - 1024
 _RING = 3  # stages of the streamed weights' ring
 
 # Kernel launches since the last reset: only _sample_loop_cuda adds to
-# ``launches``, only _decode_step_cuda to ``step_launches``.
+# ``launches``. ``step_launches`` counts runs of the step kernel: an eager
+# call of _decode_step_cuda adds one; a call captured into a CUDA graph adds
+# one to ``captured_steps`` instead, and ``StepGraph.replay`` adds the
+# steps its capture recorded, since a replay is where they run.
 launches = 0
 step_launches = 0
+captured_steps = 0
 
 
 class SamplePlan(NamedTuple):
@@ -333,7 +342,8 @@ def fused_sample_loop(canvas0, pos_pad, uniforms, weights, n_heads, h, w):
 
 def decode_step_plain(i, x, kv_cache, weights, n_heads):
     """The step kernel's plain version (the JAX package's ``_step_kernel``):
-    one raster position ``i`` through every block for (N, C) ``x``.
+    one raster position ``i`` (a Python int or a 0-dim integer tensor)
+    through every block for (N, C) ``x``.
 
     Attention reads the cache's positions < i and takes this position's own
     k and v, unrounded, as one more column; positions >= i are never read.
@@ -341,6 +351,8 @@ def decode_step_plain(i, x, kv_cache, weights, n_heads):
     cache's dtype. Returns ``act`` (N, C), the final LayerNorm of x, and
     ``kv_new`` (n_blocks, N, c_k + c_v), a view of that cache position.
     """
+    if isinstance(i, torch.Tensor):
+        i = int(i)
     n_blocks, _, c_k, c_v, _ = _dims(weights, n_heads)
     n = x.shape[0]
     d_k, d_v = c_k // n_heads, c_v // n_heads
@@ -371,16 +383,31 @@ def decode_step_plain(i, x, kv_cache, weights, n_heads):
 
 def _step_lib():
     lib = _build.load(DECODE_STEP_KERNEL)
-    _build.declare(lib.decode_step_scratch_floats, [ctypes.c_int] * 6, ctypes.c_longlong)
-    args = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_void_p] * 14
+    _build.declare(lib.decode_step_scratch_floats, [ctypes.c_int] * 7, ctypes.c_longlong)
+    _build.declare(lib.decode_step_smem_bytes, [ctypes.c_int] * 8, ctypes.c_longlong)
+    args = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_void_p] * 14
             + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     for fn in (lib.decode_step_f32, lib.decode_step_bf16):
         _build.declare(fn, args)
     return lib
 
 
+def _check_position(i, l, dev):
+    """(device pointer or None, host value) of the position: a 0-dim int32
+    tensor on ``dev`` is read by the kernel (no host value); an int is
+    checked against the cache's ``l`` positions."""
+    if isinstance(i, torch.Tensor):
+        if i.dim() != 0 or i.dtype != torch.int32 or i.device != dev:
+            raise ValueError(f"a tensor position must be a 0-dim int32 tensor on {dev}, got "
+                             f"{tuple(i.shape)} {i.dtype} on {i.device}")
+        return i.data_ptr(), 0
+    if not 0 <= i < l:
+        raise ValueError(f"position {i} outside the cache's {l} positions")
+    return None, i
+
+
 def _decode_step_cuda(i, x, kv_cache, weights, n_heads):
-    global step_launches
+    global step_launches, captured_steps
     expected = _weight_shapes(weights, n_heads)
     n_blocks, c, c_k, c_v, m = _dims(weights, n_heads)
     if kv_cache.dtype not in CACHE_DTYPES:
@@ -390,9 +417,8 @@ def _decode_step_cuda(i, x, kv_cache, weights, n_heads):
         raise ValueError(f"kv_cache must be (n_blocks, N, L, c_k + c_v), got "
                          f"{tuple(kv_cache.shape)}")
     n, l = x.shape[0], kv_cache.shape[2]
-    if not 0 <= i < l:
-        raise ValueError(f"position {i} outside the cache's {l} positions")
     dev = x.device
+    i_ptr, i_val = _check_position(i, l, dev)
     _build.check_tensor("x", x, (n, c), dev, DECODE_STEP_KERNEL)
     _build.check_tensor("kv_cache", kv_cache, (n_blocks, n, l, c_k + c_v), dev,
                         DECODE_STEP_KERNEL, kv_cache.dtype)
@@ -400,25 +426,69 @@ def _decode_step_cuda(i, x, kv_cache, weights, n_heads):
         _build.check_tensor(k, weights[k], expected[k], dev, DECODE_STEP_KERNEL)
     d_k, d_v = c_k // n_heads, c_v // n_heads
     lib = _step_lib()
+    bf16 = kv_cache.dtype == torch.bfloat16
+    smem = lib.decode_step_smem_bytes(n, l, c, n_heads, d_k, d_v, m, int(bf16))
+    if smem > HOPPER_SMEM:
+        raise ValueError(f"{DECODE_STEP_KERNEL}: widths C={c}, M={m}, d_k={d_k}, d_v={d_v} "
+                         f"need {smem} bytes of shared memory a CTA, more than the "
+                         f"{HOPPER_SMEM} Hopper has")
     act = torch.empty((n, c), device=dev)
-    scratch = torch.empty(lib.decode_step_scratch_floats(n, c, n_heads, d_k, d_v, m),
+    scratch = torch.empty(lib.decode_step_scratch_floats(n, l, c, n_heads, d_k, d_v, m),
                           device=dev)
-    entry = lib.decode_step_f32 if kv_cache.dtype == torch.float32 else lib.decode_step_bf16
+    entry = lib.decode_step_bf16 if bf16 else lib.decode_step_f32
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = entry(i, x.data_ptr(), kv_cache.data_ptr(), act.data_ptr(), scratch.data_ptr(),
-                    *[weights[k].data_ptr() for k in STEP_WEIGHT_ORDER],
+        err = entry(i_ptr, i_val, x.data_ptr(), kv_cache.data_ptr(), act.data_ptr(),
+                    scratch.data_ptr(), *[weights[k].data_ptr() for k in STEP_WEIGHT_ORDER],
                     n, l, n_blocks, c, n_heads, d_k, d_v, m, stream)
     _build.check(err, entry.__name__)
-    step_launches += 1
-    return act, kv_cache[:, :, i]
+    if torch.cuda.is_current_stream_capturing():
+        captured_steps += 1
+    else:
+        step_launches += 1
+    if i_ptr is None:
+        return act, kv_cache[:, :, i]
+    return act, kv_cache.index_select(2, i.reshape(1)).squeeze(2)
+
+
+class StepGraph:
+    """A CUDA graph of code that calls ``fused_decode_step`` with a device
+    position: ``capture()`` records it on the current stream, and each
+    ``replay()`` runs it and adds to ``step_launches`` the step launches
+    that the capture recorded (none, if the captured code launched no
+    step)."""
+
+    def __init__(self):
+        self.graph = torch.cuda.CUDAGraph()
+        self.steps = 0
+
+    @contextlib.contextmanager
+    def capture(self):
+        """Captures the code run inside it. Without ``torch.cuda.graph``'s
+        context, which empties the allocator's cache first: freeing a large
+        cache synchronises."""
+        before = captured_steps
+        self.graph.capture_begin()
+        try:
+            yield self
+        finally:
+            self.graph.capture_end()
+        self.steps = captured_steps - before
+
+    def replay(self):
+        global step_launches
+        self.graph.replay()
+        step_launches += self.steps
 
 
 def fused_decode_step(i, x, kv_cache, weights, n_heads):
     """Runs the whole block stack for raster position ``i``.
 
     Args:
-        i: the global position (a Python int).
+        i: the global position: a Python int, or a 0-dim int32 tensor on
+            x's device, which the kernel reads from device memory (as the
+            TPU kernel reads ``i_ref``), so that one CUDA graph of the call
+            serves every position.
         x: (N, C) float32, the masked input conv plus the positional
             embedding at position i.
         kv_cache: (n_blocks, N, L, c_k + c_v) packed K|V cache, float32 or
@@ -430,7 +500,9 @@ def fused_decode_step(i, x, kv_cache, weights, n_heads):
     Returns:
         act: (N, C) float32 activations after the model's final LayerNorm.
         kv_new: (n_blocks, N, c_k + c_v) this position's k|v per block in the
-            cache's dtype: a view of ``kv_cache[:, :, i]``.
+            cache's dtype: a view of ``kv_cache[:, :, i]`` for an int i, a
+            copy of it for a tensor i (on the card).
     """
-    return _build.dispatch(_decode_step_cuda, decode_step_plain, i, x, kv_cache,
-                           weights, n_heads)
+    # By x's device: a tensor i lies where x does.
+    return _build.dispatch(functools.partial(_decode_step_cuda, i),
+                           functools.partial(decode_step_plain, i), x, kv_cache, weights, n_heads)

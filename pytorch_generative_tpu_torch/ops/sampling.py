@@ -14,7 +14,11 @@ on its accelerator (``sample_route``):
 - otherwise the step route: per position one ``decode_cuda.
   fused_decode_step`` (the whole block stack, float32 or bfloat16 K/V
   cache, which it writes at the position) between a few PyTorch ops (conv
-  taps, head, draw, inpainting merge), for any model and any n.
+  taps, head, draw, inpainting merge), for any model and any n. The
+  position lives in a device counter (``StepRoute``), so on the card one
+  position is captured as a CUDA graph and replayed at every position;
+  ``model.sample_fn`` must therefore be capturable (no synchronisation
+  with the host), as the JAX package traces it inside ``lax.scan``.
 
 PixelSNAIL (``pixel_snail_sample_route``): the whole-loop kernel
 ``snail_decode_cuda.fused_snail_sample_loop`` for a 1-channel model with the
@@ -26,6 +30,8 @@ Uniforms are (H*W, N, C), so the port can be fed the JAX package's draws.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import torch
 import torch.nn.functional as F
@@ -126,62 +132,154 @@ def _image_gpt_sample_loop(model, conditioned_on, uniforms):
     return canvas_to_images(out, h, w)
 
 
-def _masked_conv_at(padded_x, padded_pos, weight, bias, row, col):
-    """A masked conv of ``padded_x + padded_pos`` at one output position;
-    only the kernel's patch is added.
+_NOT_CAPTURABLE = (
+    "the step route captures one raster position as a CUDA graph and replays it: the "
+    "position's body, model.sample_fn included, must run on the device without "
+    "synchronising with the host (no .item(), bool() or other host read of a device "
+    "value), as the JAX package's sample_fn is traced inside lax.scan")
 
-    Args:
-        padded_x: (N, H + 2p, W + 2p, Cin) input, already zero-padded.
-        padded_pos: (1, H + 2p, W + 2p, Cin) positional embedding, as
-            zero-padded.
-        weight: (kh, kw, Cin, Cout) kernel, already masked, the JAX
-            package's layout; bias: (Cout,).
-        row/col: the output position.
-    Returns:
-        (N, Cout) activations.
+
+class StepRoute:
+    """One call of the step route: its state, and the body of one raster
+    position, which reads the position from a device counter (the JAX
+    package's ``lax.scan`` over ``_image_gpt_decode_fused``'s step, whose
+    kernel reads ``i`` from SMEM).
+
+    ``body()`` decodes the position held in ``i`` (a 0-dim int32 tensor on
+    the canvas's device) and advances it: the masked input conv on the
+    position's patch of the canvas plus the positional embedding, gathered
+    by device indices; ``step`` (the block stack, which writes its k|v into
+    the cache at i); the ``out_conv`` head; ``model.sample_fn(uniforms[i],
+    logits)``; the inpainting merge at a device index (pixels >= 0 kept);
+    ``i += 1``. No host value depends on the position, so on the card one
+    captured body serves every position (``run_graph``); ``run_eager``
+    runs it as it is, once a position.
     """
-    kh, kw, cin, cout = weight.shape
-    window = (slice(None), slice(row, row + kh), slice(col, col + kw))
-    patch = (padded_x[window] + padded_pos[window]).reshape(-1, kh * kw * cin)
-    return torch.addmm(bias, patch, weight.reshape(kh * kw * cin, cout))
+
+    def __init__(self, model, conditioned_on, uniforms, cache_dtype,
+                 step=decode_cuda.fused_decode_step):
+        n, h, w, c = conditioned_on.shape
+        dev = conditioned_on.device
+        conv = model.input_conv
+        _, cin, kh, kw = conv.weight.shape
+        ph, pw = conv.padding
+        pad = (0, 0, pw, pw, ph, ph)
+        hp, wp = h + 2 * ph, w + 2 * pw
+        self.size, self.pad, self.step = (h, w), (ph, pw), step
+        self.canvas = F.pad(conditioned_on, pad)
+        self._flat = self.canvas.view(n, hp * wp, c)
+        self._pos = F.pad(model.pos.detach(), pad).reshape(1, hp * wp, cin)
+        # Per position: the flat canvas indices of the conv's patch, in the
+        # (kh, kw) order of its weight's rows, and of the pixel it samples.
+        p = torch.arange(h * w)
+        origin = (p // w) * wp + p % w
+        patch = (torch.arange(kh)[:, None] * wp + torch.arange(kw)).reshape(-1)
+        self._taps = (origin[:, None] + patch).to(dev)
+        self._at = (origin + ph * wp + pw).to(dev)
+        # Masked once, in the (kh * kw * Cin, Cout) layout of the patch.
+        self._conv_w = ((conv.weight * conv.mask).detach().permute(2, 3, 1, 0)
+                        .reshape(kh * kw * cin, -1).contiguous())
+        self._conv_b = conv.bias.detach()
+        self._head_w = model.out_conv.weight.detach()
+        self._head_b = model.out_conv.bias.detach()
+        self._sample_fn = model.sample_fn
+        self._uniforms = uniforms
+        self.weights = decode_cuda.stack_image_gpt_weights(model)
+        attn = model.blocks[0].attn
+        self.n_heads = attn.n_heads
+        self.kv_cache = torch.zeros(
+            (len(model.blocks), n, h * w, attn.embed_channels + attn.out_channels),
+            dtype=cache_dtype, device=dev)
+        self.i = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def body(self):
+        n, _, c = self._flat.shape
+        at = self.i.view(1)
+        taps = self._taps.index_select(0, at).view(-1)
+        patch = self._flat.index_select(1, taps) + self._pos.index_select(1, taps)
+        x = torch.addmm(self._conv_b, patch.reshape(n, -1), self._conv_w)
+        act, _ = self.step(self.i, x, self.kv_cache, self.weights, self.n_heads)
+        logits = act @ self._head_w + self._head_b
+        sampled = self._sample_fn(self._uniforms.index_select(0, at)[0], logits)
+        pixel = self._at.index_select(0, at)
+        current = self._flat.index_select(1, pixel)
+        merged = torch.where(current < 0, sampled.reshape(n, 1, c), current)
+        self._flat.index_copy_(1, pixel, merged)
+        self.i += 1
+
+    def run_eager(self):
+        h, w = self.size
+        for _ in range(h * w):
+            self.body()
+
+    def capture(self):
+        """Decodes the first position on a side stream (the warm-up: the
+        kernel's build, the libraries' workspaces), then captures one
+        position into a ``decode_cuda.StepGraph`` and returns it; each
+        replay decodes the next position (and counts the step launches its
+        capture recorded). The warm-up runs with PyTorch's synchronisation
+        check set to raise, so that a body that synchronises with the host
+        (a ``sample_fn`` that reads a device value) raises before any
+        capture begins; a capture that fails for another reason raises
+        too."""
+        dev = self.canvas.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        previous = torch.cuda.get_sync_debug_mode()
+        with torch.cuda.stream(side), warnings.catch_warnings():
+            # PyTorch warns that the check is a prototype at every switch.
+            warnings.filterwarnings("ignore", message="Synchronization debug mode")
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                self.body()
+            except RuntimeError as err:
+                raise RuntimeError(_NOT_CAPTURABLE) from err
+            finally:
+                torch.cuda.set_sync_debug_mode(previous)
+        graph = decode_cuda.StepGraph()
+        try:
+            with torch.cuda.stream(side), graph.capture():
+                self.body()
+        except RuntimeError as err:
+            raise RuntimeError(_NOT_CAPTURABLE) from err
+        torch.cuda.current_stream(dev).wait_stream(side)
+        return graph
+
+    def run_graph(self):
+        """All positions: the first by the warm-up, the rest by replays of
+        one captured position."""
+        h, w = self.size
+        if h * w == 1:
+            self.body()
+            return
+        graph = self.capture()
+        for _ in range(h * w - 1):
+            graph.replay()
+
+    def images(self):
+        (h, w), (ph, pw) = self.size, self.pad
+        return self.canvas[:, ph:ph + h, pw:pw + w]
 
 
-def _image_gpt_decode_step(model, conditioned_on, uniforms, cache_dtype,
-                           step=decode_cuda.fused_decode_step):
-    """KV-cache decoding with one ``step`` call per position (the JAX
-    package's ``_image_gpt_decode_fused``) for (N, H, W, C)
-    ``conditioned_on`` and (H*W, N, C) uniforms.
+def _image_gpt_decode_step(model, conditioned_on, uniforms, cache_dtype, step=None):
+    """KV-cache decoding with one step per position (the JAX package's
+    ``_image_gpt_decode_fused``) for (N, H, W, C) ``conditioned_on`` and
+    (H*W, N, C) uniforms, by ``StepRoute``'s body.
 
-    Per position: the masked input conv plus the positional embedding on
-    its patch, ``step`` (the block stack; it writes its k|v into the cache
-    at i), the ``out_conv`` head, ``model.sample_fn`` and the inpainting
-    merge (pixels >= 0 kept). ``step`` is ``decode_cuda.fused_decode_step``,
-    or its plain version to compare with.
+    Without ``step``, the body runs ``decode_cuda.fused_decode_step``: on
+    the card as one CUDA graph replayed a position, on the CPU eagerly.
+    A given ``step`` (e.g. the kernel's plain version, to compare with)
+    takes the eager body, once a position; it is called as
+    ``step(i, x, kv_cache, weights, n_heads)`` with ``i`` the device
+    counter.
     """
-    n, h, w, c = conditioned_on.shape
-    conv = model.input_conv
-    ph, pw = conv.padding
-    pad = (0, 0, pw, pw, ph, ph)
-    canvas = F.pad(conditioned_on, pad)
-    pos = F.pad(model.pos.detach(), pad)
-    # Masked once, in the (kh, kw, Cin, Cout) layout, not at every position.
-    conv_w = (conv.weight * conv.mask).detach().permute(2, 3, 1, 0).contiguous()
-    conv_b = conv.bias.detach()
-    head_w, head_b = model.out_conv.weight.detach(), model.out_conv.bias.detach()
-    weights = decode_cuda.stack_image_gpt_weights(model)
-    attn = model.blocks[0].attn
-    kv_cache = torch.zeros(
-        (len(model.blocks), n, h * w, attn.embed_channels + attn.out_channels),
-        dtype=cache_dtype, device=canvas.device)
-    for i in range(h * w):
-        row, col = divmod(i, w)
-        x = _masked_conv_at(canvas, pos, conv_w, conv_b, row, col)
-        act, _ = step(i, x, kv_cache, weights, attn.n_heads)
-        logits = act @ head_w + head_b
-        sampled = model.sample_fn(uniforms[i], logits).reshape(n, c)
-        current = canvas[:, row + ph, col + pw]
-        canvas[:, row + ph, col + pw] = torch.where(current < 0, sampled, current)
-    return canvas[:, ph:ph + h, pw:pw + w]
+    route = StepRoute(model, conditioned_on, uniforms, cache_dtype,
+                      step or decode_cuda.fused_decode_step)
+    if step is None and route.canvas.is_cuda:
+        route.run_graph()
+    else:
+        route.run_eager()
+    return route.images()
 
 
 @torch.no_grad()

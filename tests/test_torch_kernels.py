@@ -445,6 +445,160 @@ def test_decode_step_wrapper_rejects_what_the_kernel_does_not_take(dev):
         step(5, x, cache, dict(weights, qkv_w=weights["qkv_w"].cpu()), n_heads)
 
 
+# The raster positions the step route's scan reaches at 28x28: the first
+# two, the edges of the kernel's first key chunk (64 keys), the middle and
+# the last.
+SCAN_POSITIONS = (0, 1, 64, 65, 391, 783)
+STEP_CONFIGS = [pytest.param(image_gpt.REPRODUCE_CONFIG, id="c64_h2"),
+                pytest.param(image_gpt.LARGE_CONFIG, id="c512_h8")]
+
+
+def _equal_with_nan(a, b):
+    return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def _stale(cache, i):
+    """A copy of a case's cache with NaN in its positions >= i."""
+    cache = cache.clone()
+    cache[:, :, i:] = float("nan")
+    return cache
+
+
+@pytest.mark.parametrize("n", [16, 20, 64])
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("config", STEP_CONFIGS)
+def test_decode_step_kernel_at_a_device_position(dev, config, cache_dtype, n):
+    """At i = 0, 1, 64, 65, 391 and 783 and n = 16, 20 and 64 (one row
+    group of the products, and several): the kernel reading i from a 0-dim
+    int32 tensor gives the int i's act and cache bit for bit, and both are
+    within STEP_RTOL of the plain version (NaN in the stale positions)."""
+    x, full, weights, n_heads = _step_case(dev, config, n, 784, cache_dtype)
+    for i in SCAN_POSITIONS:
+        cache = _stale(full, i)
+        c_int, c_dev = cache.clone(), cache.clone()
+        got = decode_cuda.fused_decode_step(i, x, c_int, weights, n_heads)
+        pos = torch.tensor(i, dtype=torch.int32, device=dev)
+        act, kv = decode_cuda.fused_decode_step(pos, x, c_dev, weights, n_heads)
+        torch.cuda.synchronize()
+        assert torch.equal(act, got[0]) and torch.equal(kv, got[1])
+        assert _equal_with_nan(c_int.float(), c_dev.float())
+        _assert_step_close((act, kv), decode_cuda.decode_step_plain(i, x, cache, weights, n_heads))
+
+
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("config", STEP_CONFIGS)
+def test_decode_step_kernel_on_rows_far_from_zero_mean(dev, config, cache_dtype):
+    """x with a per-row offset of +-30 and +-300 (a trained residual
+    stream's rows need not be centred): the LayerNorms folded into the
+    products stay within STEP_RTOL of the plain version at i = 1 and 391,
+    n = 16."""
+    x, full, weights, n_heads = _step_case(dev, config, 16, 784, cache_dtype)
+    offset = torch.tensor([30.0, 300.0, -30.0, -300.0], device=dev).repeat(4)[:, None]
+    for i in (1, 391):
+        cache = _stale(full, i)
+        got = decode_cuda.fused_decode_step(i, x + offset, cache.clone(), weights, n_heads)
+        torch.cuda.synchronize()
+        _assert_step_close(got, decode_cuda.decode_step_plain(i, x + offset, cache, weights,
+                                                              n_heads))
+
+
+@pytest.mark.parametrize("n", [16, 20])
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16])
+def test_decode_step_kernel_at_c_1280(dev, cache_dtype, n):
+    """C = 1280 (8 heads of 160, 2 blocks): a product rank owns 320 rows of
+    K, more than the 256 it holds at once, so it copies its weights in two
+    parts, again for each row group at n = 20; within STEP_RTOL of the plain
+    version at i = 1, 65 and 783, two runs equal."""
+    config = dict(image_gpt.LARGE_CONFIG, n_embedding_channels=1280, n_transformer_blocks=2)
+    x, full, weights, n_heads = _step_case(dev, config, n, 784, cache_dtype)
+    for i in (1, 65, 783):
+        cache = _stale(full, i)
+        got = decode_cuda.fused_decode_step(i, x, cache.clone(), weights, n_heads)
+        again = decode_cuda.fused_decode_step(i, x, cache.clone(), weights, n_heads)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+        _assert_step_close(got, decode_cuda.decode_step_plain(i, x, cache, weights, n_heads))
+
+
+def test_captured_step_replays_over_positions_like_eager_calls(dev):
+    """One step captured into a ``decode_cuda.StepGraph`` with a device
+    position, replayed at positions 5, 6, 7 and 300 of one cache, equals the
+    eager int calls on a copy of the cache, bit for bit (act and cache).
+    The capture counts no step run; each replay counts the one it runs; a
+    graph that captured no step counts none."""
+    config = dict(image_gpt.REPRODUCE_CONFIG, n_transformer_blocks=2)
+    x, cache, weights, n_heads = _step_case(dev, config, 4, 784, torch.float32)
+    eager, replayed = cache.clone(), cache.clone()
+    pos = torch.tensor(5, dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        decode_cuda.fused_decode_step(pos, x, cache.clone(), weights, n_heads)
+        graph, empty = decode_cuda.StepGraph(), decode_cuda.StepGraph()
+        before = decode_cuda.step_launches
+        with graph.capture():
+            out, _ = decode_cuda.fused_decode_step(pos, x, replayed, weights, n_heads)
+        with empty.capture():
+            pos.add_(0)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    assert decode_cuda.step_launches == before
+    assert (graph.steps, empty.steps) == (1, 0)
+    for k, i in enumerate((5, 6, 7, 300)):
+        pos.fill_(i)
+        graph.replay()
+        empty.replay()
+        assert decode_cuda.step_launches == before + k + 1
+        want, _ = decode_cuda.fused_decode_step(i, x, eager, weights, n_heads)
+        before += 1
+        torch.cuda.synchronize()
+        assert torch.equal(out, want) and torch.equal(replayed, eager)
+
+
+@pytest.mark.parametrize("inpaint", [False, True])
+def test_graph_route_matches_the_eager_plain_step_route(dev, inpaint):
+    """The step route as one CUDA graph replayed a position (n = 3, the step
+    route) gives the eager plain step route's pixels on uniforms moved off
+    its decision boundary, free and inpainted, with H*W step runs and no
+    whole loop."""
+    model = _model(dev, blocks=2, size=8)
+    n, h, w = 3, 8, 8
+    cond = -torch.ones((n, h, w, 1), device=dev)
+    if inpaint:
+        cond[:, : h // 2] = (_rand((n, h // 2, w, 1), 7, dev) > 0).float()
+    u = torch.rand((h * w, n, 1), generator=torch.Generator().manual_seed(8)).to(dev)
+    with torch.no_grad():
+        plain = sampling._image_gpt_decode_step(model, cond, u, torch.float32,
+                                                step=decode_cuda.decode_step_plain)
+        p = torch.sigmoid(model(plain)).reshape(n, -1).T[..., None]
+    d = u - p
+    near = (d.abs() < 1e-3) & (cond.reshape(n, -1).T[..., None] < 0)
+    u = torch.where(near, (p + 2e-3 * torch.where(d >= 0, 1.0, -1.0)).clamp(0, 1), u)
+    with torch.no_grad():
+        plain = sampling._image_gpt_decode_step(model, cond, u, torch.float32,
+                                                step=decode_cuda.decode_step_plain)
+    assert sampling.sample_route(model, n) == sampling.STEP_ROUTE
+    decode_cuda.launches = decode_cuda.step_launches = 0
+    kw = dict(conditioned_on=cond) if inpaint else dict(n_samples=n)
+    got = model.sample(uniforms=u, **kw)
+    torch.cuda.synchronize()
+    assert (decode_cuda.launches, decode_cuda.step_launches) == (0, h * w)
+    torch.testing.assert_close(got, plain, rtol=0, atol=0)
+
+
+def test_host_synchronising_sample_fn_raises(dev):
+    """A sample_fn that reads a device value on the host cannot be captured:
+    the step route raises and says so before any capture begins, and the
+    card and its random generator stay usable."""
+    model = _model(dev, blocks=2, size=8)
+    model.sample_fn = lambda u, logits: ((u < torch.sigmoid(logits)).float()
+                                         if bool((logits > -1e9).all()) else u)
+    with pytest.raises(RuntimeError, match="synchronising with the host"):
+        model.sample(n_samples=3, generator=torch.Generator().manual_seed(9))
+    torch.cuda.synchronize()
+    assert float(torch.ones(2, device=dev).sum()) == 2.0
+    assert torch.rand(2, device=dev).shape == (2,)  # no capture was left open
+
+
 # Backward tolerance: f32, each gradient a sum over up to 784 rows or keys
 # taken in another order than the dense einsum's.
 BWD_TOL = 1e-4
