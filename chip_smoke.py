@@ -303,13 +303,17 @@ def snail_work(n, h, w, n_blocks, n_rb, c, d_k, d_v):
 
 
 def snail_latency_floor_ms(h, w, n_blocks, n_rb):
-    """A rough floor from the PixelSNAIL sampler's dependency chain, not a
-    measurement: per position and block 2 dependent convs per residual
-    block, then q, the scores, the softmax's max and sum, PV, out_proj,
-    residual_out beside attention_out, and out; per position the two head
-    products, the draw and the K/V append; each phase at least one L2
-    round trip and one CTA barrier, taken as 0.3 us."""
-    return h * w * (n_blocks * (2 * n_rb + 8) + 4) * 0.3e-3
+    """A rough floor from the cluster PixelSNAIL sampler's dependency chain,
+    not a measurement: per position and block 2 cluster barriers a residual
+    block and 1 after attention, each behind stores into the other ranks'
+    shared memory (0.5 us: PR 13's `--stream` measured 0.49-0.61), one
+    round of cache loads from L2 (0.5 us), and 4 dependent CTA phases a
+    residual block plus 12 (q | kv, attention's parts, out_proj,
+    residual_out, attention_out, out with their reductions; 0.05 us each, a
+    shared-memory round trip and a CTA barrier); per position the head, the
+    draw and the K/V append, 3 such phases."""
+    per_block = (2 * n_rb + 1) * 0.5 + 0.5 + (4 * n_rb + 12) * 0.05
+    return h * w * (n_blocks * per_block + 3 * 0.05) * 1e-3
 
 
 def nudged_uniforms(model, canvas_sample, u, cond):
@@ -1212,7 +1216,7 @@ def pixel_snail_phases(dev, gen, smi, reset_counts, read_counts):
         decode_calls[0] += 1
         return plain_decode(*args)
 
-    snail_sample_counts, snail_err = [], 0.0
+    snail_sample_counts, snail_err, snail_plans = [], 0.0, {}
     for n in SNAIL_N:
         check(sampling.pixel_snail_sample_route(snail, n) == sampling.LOOP_ROUTE,
               f"n = {n} does not take the whole-loop route")
@@ -1264,6 +1268,20 @@ def pixel_snail_phases(dev, gen, smi, reset_counts, read_counts):
             check(counts == want_counts and decode_calls[0] == 0,
                   f"PixelSNAIL sample launches {counts}, plain decodes {decode_calls[0]}")
         sdc.snail_decode = plain_decode
+        # The plan, and two calls on the same inputs give equal bits.
+        inputs = sampling.snail_loop_inputs(snail, cond[:n], u[:, :n].contiguous())
+        plan = sdc.plan_for(*inputs)
+        cap, regs = sdc.occupancy(plan.samples, plan.cluster, plan.smem)
+        snail_plans[n] = dict(plan._asdict(), registers=regs, clusters_fit=cap)
+        first = sdc.fused_snail_sample_loop(*inputs)
+        same = bool(torch.equal(first, sdc.fused_snail_sample_loop(*inputs)))
+        torch.cuda.synchronize()
+        print(f"phase sample PixelSNAIL: n={n} plan {plan}, {regs} registers a thread, "
+              f"{plan.smem} bytes of shared memory a CTA, {cap} clusters fit at once; "
+              f"two calls equal bits: {same}", flush=True)
+        check(plan.clusters <= cap, f"the n = {n} plan asks for {plan.clusters} clusters, "
+                                    f"{cap} fit")
+        check(same, f"two snail_loop calls at n = {n} differ")
 
     # Phase 26: training through the Trainer: reproduce()'s model, optimizer
     # and loss on seeded synthetic MNIST at batch 128, one epoch of
@@ -1382,7 +1400,8 @@ def pixel_snail_phases(dev, gen, smi, reset_counts, read_counts):
                    "max_abs_err": snail_err, "ms": snail_times[SNAIL_N[0]]["kernel"],
                    "plain_ms": snail_times[SNAIL_N[0]]["plain"],
                    "bound_ms": snail_bounds[SNAIL_N[0]][0],
-                   "bound_by": snail_bounds[SNAIL_N[0]][1], "library_ms": None},
+                   "bound_by": snail_bounds[SNAIL_N[0]][1], "library_ms": None,
+                   "plan": snail_plans[SNAIL_N[0]]},
     }
 
 def block_work(b, l, c, e, c_out, n_heads, mask_center):

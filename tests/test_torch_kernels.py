@@ -840,6 +840,126 @@ def test_snail_loop_kernel_matches_plain(dev, inpaint):
         assert bool((sampling.canvas_to_images(kern, h, w)[:, :4] == cond[:, :4]).all())
 
 
+def _snail_nudged(dev, cfg, n, inpaint, seed=0):
+    """A PixelSNAIL of ``cfg`` and the kernel's inputs for n samples (free,
+    or with the top half kept), on uniforms moved 2e-3 off the decision
+    boundary of the plain sample's teacher-forced logits."""
+    model = PixelSNAIL(**cfg, generator=torch.Generator().manual_seed(seed), device=dev).eval()
+    h, w, _ = cfg["in_shape"]
+    cond = -torch.ones((n, h, w, 1), device=dev)
+    if inpaint:
+        cond[:, :h // 2] = (_rand((n, h // 2, w, 1), 3, dev) > 0).float()
+    u = torch.rand((h * w, n, 1), generator=torch.Generator().manual_seed(4)).to(dev)
+    plain = snail_decode_cuda.snail_sample_loop_plain(*sampling.snail_loop_inputs(model, cond, u))
+    with torch.no_grad():
+        p = torch.sigmoid(model(sampling.canvas_to_images(plain, h, w))).reshape(n, -1).T[..., None]
+    d = u - p
+    u = torch.where(d.abs() < 1e-3, (p + 2e-3 * torch.where(d >= 0, 1.0, -1.0)).clamp(0, 1), u)
+    return sampling.snail_loop_inputs(model, cond, u), cond
+
+
+SNAIL_CASES = [pytest.param(SNAIL_TINY, n, inpaint,
+                            id=f"tiny-n{n}-{'inpaint' if inpaint else 'free'}")
+               for n in (1, 2, 5, 16, 17, 64) for inpaint in (False, True)]
+SNAIL_CASES += [
+    pytest.param(dict(SNAIL_TINY, n_channels=32), 5, True, id="c32-n5-inpaint"),
+    pytest.param(dict(SNAIL_TINY, n_channels=32), 17, False, id="c32-n17-free"),
+    pytest.param(dict(SNAIL_TINY, n_channels=128), 3, False, id="c128-n3-free"),
+    pytest.param(dict(SNAIL_TINY, n_channels=128), 16, True, id="c128-n16-inpaint"),
+    pytest.param(dict(SNAIL_TINY, attention_value_channels=32), 5, False, id="dv32-n5-free"),
+    pytest.param(dict(SNAIL_TINY, attention_value_channels=32), 6, True, id="dv32-n6-inpaint"),
+    pytest.param(dict(SNAIL_TINY, n_residual_blocks=1), 5, True, id="rb1-n5-inpaint"),
+    pytest.param(dict(SNAIL_TINY, in_shape=(7, 5, 1)), 4, True, id="7x5-n4-inpaint"),
+]
+
+
+@pytest.mark.parametrize("cfg,n,inpaint", SNAIL_CASES)
+def test_snail_loop_kernel_matches_plain_at_every_plan(dev, cfg, n, inpaint):
+    """Pixel-equal to the plain decoder at widths C 16 / 32 / 128, d_v 8 /
+    32, one or two residual blocks a block, and at the plans of n = 1-64
+    (one group or several a cluster); one launch; two calls give equal
+    bits."""
+    inputs, cond = _snail_nudged(dev, cfg, n, inpaint)
+    h, w = inputs[3], inputs[4]
+    plain = snail_decode_cuda.snail_sample_loop_plain(*inputs)
+    before = snail_decode_cuda.launches
+    kern = snail_decode_cuda.fused_snail_sample_loop(*inputs)
+    again = snail_decode_cuda.fused_snail_sample_loop(*inputs)
+    torch.cuda.synchronize()
+    assert snail_decode_cuda.launches == before + 2
+    torch.testing.assert_close(kern, plain, rtol=0, atol=0)
+    assert torch.equal(kern, again)
+    if inpaint:
+        assert bool((sampling.canvas_to_images(kern, h, w)[:, :h // 2] == cond[:, :h // 2]).all())
+
+
+@pytest.mark.parametrize("inpaint", [False, True])
+def test_snail_loop_kernel_matches_plain_at_the_reproduce_config(dev, inpaint):
+    """The reproduce() PixelSNAIL (28x28, C 64, 8 blocks, d_k 4, d_v 32) at
+    n = 16: pixel-equal to the plain decoder."""
+    from pytorch_generative_tpu_torch.models.autoregressive import pixel_snail
+
+    inputs, _ = _snail_nudged(dev, pixel_snail.REPRODUCE_CONFIG, 16, inpaint)
+    plain = snail_decode_cuda.snail_sample_loop_plain(*inputs)
+    kern = snail_decode_cuda.fused_snail_sample_loop(*inputs)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(kern, plain, rtol=0, atol=0)
+
+
+def test_snail_loop_kernel_serves_more_groups_than_clusters_fit(dev):
+    """At an n whose groups outnumber the clusters the card holds, each
+    cluster serves several groups in turn, and the samples stay
+    pixel-equal."""
+    model = _snail(dev)
+    n = 64
+    while True:
+        inputs = sampling.snail_loop_inputs(model, -torch.ones((n, 8, 8, 1), device=dev),
+                                            torch.rand((64, n, 1), device=dev))
+        plan = snail_decode_cuda.plan_for(*inputs)
+        if plan.groups > plan.clusters:
+            break
+        n *= 2
+    inputs, _ = _snail_nudged(dev, SNAIL_TINY, n, False)
+    assert snail_decode_cuda.plan_for(*inputs) == plan
+    plain = snail_decode_cuda.snail_sample_loop_plain(*inputs)
+    kern = snail_decode_cuda.fused_snail_sample_loop(*inputs)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(kern, plain, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n", [1, 16, 64, 256])
+def test_snail_plan_fits_the_card(dev, n):
+    """A plan never asks for more clusters than cudaOccupancyMaxActiveClusters
+    gives for its instance and shared memory, at SNAIL_TINY and at the
+    reproduce() config."""
+    from pytorch_generative_tpu_torch.models.autoregressive import pixel_snail
+
+    for cfg in (SNAIL_TINY, pixel_snail.REPRODUCE_CONFIG):
+        model = PixelSNAIL(**cfg, generator=torch.Generator().manual_seed(0), device=dev).eval()
+        h, w, _ = cfg["in_shape"]
+        inputs = sampling.snail_loop_inputs(model, -torch.ones((n, h, w, 1), device=dev),
+                                            torch.rand((h * w, n, 1), device=dev))
+        plan = snail_decode_cuda.plan_for(*inputs)
+        cap, regs = snail_decode_cuda.occupancy(plan.samples, plan.cluster, plan.smem)
+        assert 1 <= plan.clusters <= cap and regs > 0
+        assert plan.groups == -(-n // plan.samples)
+
+
+def test_snail_loop_refuses_a_size_without_a_plan(dev):
+    """Widths the kernel cannot cut (C // 2 = 10, not a multiple of 4) raise
+    a ValueError before any launch; nothing else serves them."""
+    model = PixelSNAIL(**dict(SNAIL_TINY, n_channels=20),
+                       generator=torch.Generator().manual_seed(0), device=dev).eval()
+    inputs = sampling.snail_loop_inputs(model, -torch.ones((2, 8, 8, 1), device=dev),
+                                        torch.rand((64, 2, 1), device=dev))
+    before = snail_decode_cuda.launches
+    with pytest.raises(ValueError, match="multiples of 4"):
+        snail_decode_cuda.fused_snail_sample_loop(*inputs)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        model.sample(n_samples=2)
+    assert snail_decode_cuda.launches == before
+
+
 def test_pixel_snail_on_cuda_runs_the_kernels(dev):
     """forward launches the flash forward once per block and agrees with the
     plain CPU forward within 1e-4; a backward launches the flash backward

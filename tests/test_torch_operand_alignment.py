@@ -1,8 +1,10 @@
 """The operand checks of the wrappers whose kernels read operands 16 bytes at
 a time: the LayerNorm forward and backward (``float4`` loads of x, dy,
 gamma and beta), the fused MLP and the fused attention block (16-byte
-``cp.async`` of every GEMM operand; every operand is held to the rule), and
-the whole-loop sampler (16-byte ``cp.async`` of its four product weights).
+``cp.async`` of every GEMM operand; every operand is held to the rule), the
+whole-loop sampler (16-byte ``cp.async`` of its four product weights) and
+the PixelSNAIL whole-loop sampler (16-byte ``cp.async`` of the nine weights
+it streams).
 
 A contiguous tensor may start 4 bytes past a 16-byte boundary, e.g. a view
 of a flat parameter buffer at an odd offset; ``contiguous()`` returns it
@@ -18,11 +20,18 @@ import math
 import pytest
 import torch
 
-from pytorch_generative_tpu_torch.ops import attn_block_cuda, decode_cuda, ln_cuda, mlp_cuda
+from pytorch_generative_tpu_torch.ops import (
+    attn_block_cuda,
+    decode_cuda,
+    ln_cuda,
+    mlp_cuda,
+    snail_decode_cuda,
+)
 
 R, C, F = 8, 64, 256            # rows, channels, MLP width
 B, L, HEADS = 2, 8, 2           # the block's batch, length and heads (d = 32)
 SAMPLER = dict(h=4, w=4, n_blocks=2, c=32, heads=2, m=128, n=3)
+SNAIL = dict(h=4, w=4, n_blocks=2, n_rb=2, c=16, d_k=4, d_v=8, n=3)
 
 
 def _aligned(shape):
@@ -91,6 +100,30 @@ def _check_sampler(ops):
                                          weights, s["heads"], s["h"], s["w"])
 
 
+def _snail_operands():
+    s = SNAIL
+    nb, nr, c, d_k, d_v = s["n_blocks"], s["n_rb"], s["c"], s["d_k"], s["d_v"]
+    weights = {
+        "in_w4": (4, c), "in_b": (c,),
+        "rb1_w": (nb, nr, 4 * c, c), "rb1_b": (nb, nr, c),
+        "rb2_w": (nb, nr, 4 * c, 2 * c), "rb2_b": (nb, nr, 2 * c),
+        "q_w": (nb, c + 2, d_k), "q_b": (nb, d_k),
+        "kv_w": (nb, c + 3, d_k + d_v), "kv_b": (nb, d_k + d_v),
+        "op_w": (nb, d_v, d_v), "op_b": (nb, d_v),
+        "ro_w": (nb, c, c), "ro_b": (nb, c), "ao_w": (nb, d_v, c), "ao_b": (nb, c),
+        "o_w": (nb, c, c), "o_b": (nb, c),
+        "h1_w": (c, c // 2), "h1_b": (c // 2,), "h2_w": (c // 2, 1), "h2_b": (1,)}
+    return dict(weights, canvas0=((s["h"] + 2) * (s["w"] + 2), s["n"]),
+                uniforms=(s["h"] * s["w"], s["n"], 1))
+
+
+def _check_snail(ops):
+    s = SNAIL
+    weights = {k: ops.pop(k) for k in snail_decode_cuda.WEIGHT_ORDER}
+    return snail_decode_cuda.check_snail_loop(ops["canvas0"], ops["uniforms"], weights,
+                                              s["h"], s["w"])
+
+
 # (wrapper, operand shapes, check, the operands its kernel reads 16 bytes
 # at a time)
 WRAPPERS = {
@@ -101,12 +134,15 @@ WRAPPERS = {
     "attn_block": (_block_operands(False), lambda ops: _check_block(False, ops), None),
     "attn_block_project": (_block_operands(True), lambda ops: _check_block(True, ops), None),
     "sample_loop": (_sampler_operands(), _check_sampler, decode_cuda.SAMPLE_LOOP_ALIGNED),
+    "snail_loop": (_snail_operands(), _check_snail, snail_decode_cuda.SNAIL_LOOP_ALIGNED),
 }
 CASES = [pytest.param(w, name, id=f"{w}-{name}")
          for w, (shapes, _, aligned) in WRAPPERS.items()
          for name in (aligned or shapes)]
 UNALIGNED_OK = [pytest.param(name, id=name) for name in _sampler_operands()
                 if name not in decode_cuda.SAMPLE_LOOP_ALIGNED]
+SNAIL_UNALIGNED_OK = [pytest.param(name, id=name) for name in _snail_operands()
+                      if name not in snail_decode_cuda.SNAIL_LOOP_ALIGNED]
 
 
 @pytest.mark.parametrize("wrapper", list(WRAPPERS))
@@ -135,3 +171,13 @@ def test_sampler_takes_what_it_reads_by_words_at_any_offset(operand):
     ops = {name: _aligned(shape) for name, shape in shapes.items()}
     ops[operand] = _shifted(shapes[operand])
     _check_sampler(ops)
+
+
+@pytest.mark.parametrize("operand", SNAIL_UNALIGNED_OK)
+def test_snail_sampler_takes_what_it_reads_by_words_at_any_offset(operand):
+    """The PixelSNAIL sampler reads its biases, h2_w, the canvas and the
+    uniforms 4 bytes at a time: an offset start is fine."""
+    shapes = _snail_operands()
+    ops = {name: _aligned(shape) for name, shape in shapes.items()}
+    ops[operand] = _shifted(shapes[operand])
+    _check_snail(ops)

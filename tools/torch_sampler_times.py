@@ -445,6 +445,337 @@ def timeline():
                   f"{p[2]:.2f}, {p[3]:.2f})", flush=True)
 
 
+# ---- PixelSNAIL (row 7, csrc/snail_loop.cu) -------------------------------
+
+SNAIL_WINDOWS = ((96, 104), (388, 396), (776, 784))  # positions near 100, 391, 783
+SNAIL_STAMP_N = (16, 64)
+
+
+def load_snail(root):
+    """The PixelSNAIL sampler's modules of the checkout at ``root``; its
+    ``modules`` are put back into ``sys.modules`` (``activate``) before it
+    runs, since the samplers import modules by name at call time."""
+    for name in [m for m in sys.modules if m == PKG or m.startswith(PKG + ".")]:
+        del sys.modules[name]
+    sys.path.insert(0, str(root))
+    try:
+        from pytorch_generative_tpu_torch.models import PixelSNAIL
+        from pytorch_generative_tpu_torch.models.autoregressive import pixel_snail
+        from pytorch_generative_tpu_torch.ops import _build, sampling, snail_decode_cuda
+    finally:
+        sys.path.remove(str(root))
+    modules = {m: mod for m, mod in sys.modules.items() if m == PKG or m.startswith(PKG + ".")}
+    return SimpleNamespace(PixelSNAIL=PixelSNAIL, cfg=pixel_snail.REPRODUCE_CONFIG, build=_build,
+                           sdc=snail_decode_cuda, sampling=sampling, modules=modules)
+
+
+def activate(ck):
+    for name in [m for m in sys.modules if m == PKG or m.startswith(PKG + ".")]:
+        del sys.modules[name]
+    sys.modules.update(ck.modules)
+    return ck
+
+
+def snail_setup(ck, n, dev):
+    """A seeded reproduce() PixelSNAIL and fused_snail_sample_loop's
+    arguments for free sampling of n images."""
+    gen = torch.Generator().manual_seed(SEED)
+    model = ck.PixelSNAIL(**ck.cfg, generator=gen, device=dev).eval()
+    h, w, _ = ck.cfg["in_shape"]
+    u = torch.rand((h * w, n, 1), generator=gen).to(dev)
+    return model, ck.sampling.snail_loop_inputs(model, -torch.ones((n, h, w, 1), device=dev), u)
+
+
+def _snail_plan(ck, inputs):
+    if not hasattr(ck.sdc, "plan_for"):
+        return "one CTA a sample"
+    plan = ck.sdc.plan_for(*inputs)
+    clusters, regs = ck.sdc.occupancy(plan.samples, plan.cluster, plan.smem)
+    return f"{plan}, {regs} registers a thread, {clusters} clusters fit at once"
+
+
+def snail_compare(sides_args, ns, clusters=None, split=True, depths=None):
+    """``clusters``, ``depths``: the cluster sizes and ring depths the last
+    checkout's plan may take (its ``snail_decode_cuda.CLUSTERS`` and
+    ``DEPTHS``), to time another plan."""
+    smi, dev = _smi(), torch.device("cuda:0")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sides = [(sides_args[k + 1], load_snail(sides_args[k])) for k in range(0, len(sides_args), 2)]
+    if clusters:
+        sides[-1][1].sdc.CLUSTERS = tuple(clusters)
+    if depths:
+        sides[-1][1].sdc.DEPTHS = tuple(depths)
+    order = sides + sides[::-1] if len(sides) == 2 else sides * 2
+    for n in ns:
+        setups = {label: snail_setup(activate(ck), n, dev) for label, ck in sides}
+        for label, ck in sides:
+            print(f"[{smi}] {label} n={n}: plan {_snail_plan(activate(ck), setups[label][1])}",
+                  flush=True)
+        kern = {label: [] for label, _ in sides}
+        call = {label: [] for label, _ in sides}
+        for label, ck in order:
+            activate(ck)
+            model, inputs = setups[label]
+            kern[label].append(time_ms(lambda: ck.sdc.fused_snail_sample_loop(*inputs)))
+            call[label].append(time_ms(lambda: ck.sampling.pixel_snail_sample(
+                model, n, generator=torch.Generator().manual_seed(SEED))))
+        outs = [activate(ck).sdc.fused_snail_sample_loop(*setups[label][1])
+                for label, ck in sides]
+        diff = int((outs[0] != outs[-1]).sum())
+        print(f"[{smi}] snail_loop n={n}: " + ", ".join(
+            f"{label} {' / '.join(f'{t:.3f}' for t in ts)} ms" for label, ts in kern.items())
+            + " (turns); PixelSNAIL.sample: " + ", ".join(
+            f"{label} {' / '.join(f'{t:.3f}' for t in ts)} ms" for label, ts in call.items())
+            + f"; canvases differ at {diff} of {outs[0].numel()} entries (free draws, not nudged)",
+            flush=True)
+    if split:
+        label, ck = sides[-1]
+        snail_stages(smi, label, activate(ck), dev)
+
+
+# The stage split: a copy of the kernel whose thread 0 of CTA 0 adds the
+# clocks between stamps to the current stage, in shared memory, for every
+# position and for the positions of each window. Stamps go before anchor
+# lines of the source (the mode raises if one is missing); every
+# __syncthreads() charges its wait to "CTA barrier waits", and a wrapped
+# call (the new kernel's ring wait and cluster barriers) to its own stage.
+_SNAIL_STAMP_HEADER = r"""
+#define ST_STAGES 20
+__device__ long long g_snail_stamps[4 * ST_STAGES];
+__shared__ long long st_acc[4 * ST_STAGES];
+__shared__ long long st_last;
+__shared__ int st_cur, st_win;
+#define ST_ON (blockIdx.x == 0 && threadIdx.x == 0)
+#define ST_TICK(k) { if (ST_ON) { const long long t_ = clock64(); \
+  st_acc[3 * ST_STAGES + st_cur] += t_ - st_last; \
+  if (st_win >= 0) st_acc[st_win * ST_STAGES + st_cur] += t_ - st_last; \
+  st_last = t_; st_cur = (k); } }
+#define ST_WRAP(k, ...) { const int keep_ = ST_ON ? st_cur : 0; ST_TICK(k) __VA_ARGS__ ST_TICK(keep_) }
+#define ST_SYNC() ST_WRAP(ST_STAGES - 1, __syncthreads();)
+#define ST_POSITION(i) { ST_TICK(0) if (ST_ON) st_win = ST_WINDOW(i); }
+#define ST_INIT() { if (ST_ON) { for (int k_ = 0; k_ < 4 * ST_STAGES; ++k_) st_acc[k_] = 0; \
+  st_last = clock64(); st_cur = ST_STAGES - 2; st_win = -1; } }
+#define ST_FLUSH() { ST_TICK(ST_STAGES - 2) \
+  if (ST_ON) for (int k_ = 0; k_ < 4 * ST_STAGES; ++k_) g_snail_stamps[k_] += st_acc[k_]; }
+"""
+_SNAIL_STAMP_EXPORT = ("\nextern \"C\" int snail_loop_stamps(long long* out) {\n"
+                       "  cudaError_t err = cudaMemcpyFromSymbol(out, g_snail_stamps, "
+                       "sizeof(g_snail_stamps));\n"
+                       "  long long zero[4 * ST_STAGES] = {};\n"
+                       "  return err != cudaSuccess ? err : "
+                       "cudaMemcpyToSymbol(g_snail_stamps, zero, sizeof(zero));\n}\n")
+_OTHER = "before the loop, after it"
+
+
+def _tick(k):
+    return f"ST_TICK({k})"
+
+
+# The parent's one-CTA-a-sample kernel: the text between the two markers is
+# its kernel body (whose __syncthreads() are stamped); (anchor, stamp).
+SNAIL_OLD = dict(
+    marker="snail_loop_kernel(const float* __restrict__ canvas0,",
+    body=("snail_loop_kernel(const float* __restrict__ canvas0,",
+          "// Floats of device scratch the kernel needs per sample"),
+    stages=("input conv", "residual block: tap gather (cache reads)",
+            "rb conv 1: L2 weight loads", "rb conv 1: sums, mid tap gather",
+            "rb conv 2: L2 weight loads", "rb conv 2: sums, gate", "q", "scores and softmax",
+            "value pass", "op", "ro/ao", "o", "head and draw", "K/V append"),
+    anchors=(
+        ("  float* merged = red + kWarps;  // 1\n", None),
+        ("    // The masked input conv's 4 live taps; at col == 0 the left-pad entry\n",
+         "ST_POSITION(i)"),
+        ("        // elu(res) into the elu cache at i and into tap 3; taps 0-2 (earlier\n",
+         _tick(1)),
+        ("        matvec_partial(ta, wt.rb1_w", _tick(2)),
+        ("        // mid = elu(conv) into the mid cache at i and into tap 3.\n", _tick(3)),
+        ("        matvec_partial(tb, wt.rb2_w", _tick(4)),
+        ("        for (int c = tid; c < C; c += kThreads) {\n          const float* bias = wt.rb2_b",
+         _tick(5)),
+        ("      // q_in = [pos, res] (kept for the K/V append) and elu(res).\n", _tick(6)),
+        ("      // Softmax attention over the cached keys < i.\n", _tick(7)),
+        ("      const int gv = groups(1 << 30, DV);", _tick(8)),
+        ("      matvec_partial(att, wt.op_w", _tick(9)),
+        ("      float* part2 = part + partial_floats(C, C);\n", _tick(10)),
+        ("      matvec_partial(u2, wt.o_w", _tick(11)),
+        ("    // The head, the draw and the inpainting merge.\n", _tick(12)),
+        ("    // Every block's k|v at i from [pos, res_b, merged pixel].\n", _tick(13)),
+        ("  for (int p = tid; p < lp; p += kThreads)\n    canvas_out", "ST_FLUSH()"),
+    ),
+    wraps=(),
+)
+# The cluster kernel (PR 13): every __syncthreads() of the file after the
+# header is stamped; the ring's wait and the cluster barriers are wrapped.
+SNAIL_NEW = dict(
+    marker="// Hands out the weight chunks in the order the chain uses them. Chunk u",
+    body=("// Hands out the weight chunks in the order the chain uses them. Chunk u",
+          "using Kernel = void (*)("),
+    stages=("position start (canvas row, uniforms)", "input conv",
+            "conv 1: product, sums, taps ahead, mid stores", "",
+            "conv 2: product, sums, taps ahead, res stores", "", "q | kv: product and sums",
+            "attention: this rank's keys", "attention: groups' merge, stores to the ranks",
+            "attention: the ranks' combine", "op", "ro", "ao", "o", "head and draw",
+            "K/V append", "ring wait (weights not landed)", "cluster barrier waits"),
+    anchors=(
+        ("  const BlockPrm bp = block_prm(dm, R);\n  float* prm", "ST_INIT()"),
+        ("      if (col == 0) {  // padded row row + 1 and this row's uniforms\n",
+         "ST_POSITION(i)"),
+        ("      // The masked input conv's 4 live taps, alike on every rank.\n", _tick(1)),
+        ("          product<SB, false>(feed, rp, kConv1", _tick(2)),
+        ("          product<SB, true>(feed, rp, kConv2", _tick(4)),
+        ("        // q_in = [pos, res]: q, and kv_proj's part of it (the merged pixel's\n",
+         _tick(6)),
+        ("        // Attention over this rank's keys < i, then over the ranks.\n", _tick(7)),
+        ("  // The groups' partials of each sample, merged in group order by one warp:\n",
+         _tick(8)),
+        ("        for (int idx = tid; idx < ns * DV; idx += kThreads) {\n"
+         "          const int s = idx / DV, d = idx - s * DV;\n          float mx", _tick(9)),
+        ("        product<SB, false>(feed, rp, kOp", _tick(10)),
+        ("        product<SB, false>(feed, rp, kRo", _tick(11)),
+        ("        product<SB, false>(feed, rp, kAo", _tick(12)),
+        ("        product<SB, false>(feed, rp, kOut", _tick(13)),
+        ("      // The head, the draw and the inpainting merge, alike on every rank.\n",
+         _tick(14)),
+        ("      // The owner of position i appends every block's k|v at i.\n", _tick(15)),
+        ("  cluster.sync();  // no rank leaves while another may still write to it\n",
+         "ST_FLUSH()"),
+    ),
+    wraps=(("  mbar_wait(feed.full + s, rp.phase);\n", 16),
+           ("        cluster_barrier(R);\n", 17)),
+)
+
+
+def _snail_stamped_source(src):
+    """The kernel's source with the stage stamps and its stage names, or
+    (None, None) for a kernel without anchors here; raises if an anchor
+    line is missing."""
+    spec = next((sp for sp in (SNAIL_NEW, SNAIL_OLD) if sp["marker"] in src), None)
+    if spec is None:
+        return None, None
+    windows = " : ".join(f"(i) >= {a} && (i) < {b} ? {k}" for k, (a, b) in enumerate(SNAIL_WINDOWS))
+    header = _SNAIL_STAMP_HEADER + f"#define ST_WINDOW(i) ({windows} : -1)\n"
+    for anchor, stamp in spec["anchors"]:
+        if anchor not in src:
+            raise RuntimeError(f"--snail: csrc/snail_loop.cu has no line {anchor!r}")
+        # None: the stamp state's initialisation goes after this line.
+        src = (src.replace(anchor, anchor + "ST_INIT()\n", 1) if stamp is None
+               else src.replace(anchor, stamp + "\n" + anchor, 1))
+    for text, k in spec["wraps"]:
+        if text not in src:
+            raise RuntimeError(f"--snail: csrc/snail_loop.cu has no line {text!r}")
+        src = src.replace(text, f"ST_WRAP({k}, {text.strip()})\n")
+    head, rest = src.split(spec["body"][0], 1)
+    body, tail = rest.split(spec["body"][1], 1)
+    body = body.replace("__syncthreads();", "ST_SYNC();")
+    src = head + spec["body"][0] + body + spec["body"][1] + tail
+    src = src.replace("namespace {\n", "namespace {\n" + header, 1)
+    names = list(spec["stages"]) + [""] * (18 - len(spec["stages"])) + [_OTHER,
+                                                                         "CTA barrier waits"]
+    return src + _SNAIL_STAMP_EXPORT, names
+
+
+def snail_stages(smi, label, ck, dev):
+    """The kernel's time split by stage at n = 16 and 64 (thread 0 of CTA
+    0): microseconds a position, over all positions and near i = 100, 391
+    and 783, by the clocks' share of the event-timed call."""
+    src, names = _snail_stamped_source((ck.build.CSRC / "snail_loop.cu").read_text())
+    if src is None:
+        print(f"[{smi}] {label}: no stage stamps for this kernel", flush=True)
+        return
+    path = Path(tempfile.mkdtemp(prefix="snail_loop_stamps_")) / "snail_loop.cu"
+    path.write_text(src)
+    out = path.with_suffix(".so")
+    proc = subprocess.run([ck.build._nvcc(), *ck.build.NVCC_FLAGS, "-o", str(out), str(path)],
+                          capture_output=True, text=True, check=False)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for the stamped snail_loop:\n{proc.stderr}")
+    lib = ctypes.CDLL(str(out))
+    lib.snail_loop_stamps.argtypes = [ctypes.c_void_p]
+    ck.build._loaded[ck.sdc.KERNEL] = lib
+    stamps = torch.zeros(4 * 20, dtype=torch.int64)
+    for n in SNAIL_STAMP_N:
+        _, inputs = snail_setup(ck, n, dev)
+        h, w = inputs[3], inputs[4]
+        ck.sdc.fused_snail_sample_loop(*inputs)
+        torch.cuda.synchronize()
+        lib.snail_loop_stamps(stamps.data_ptr())  # drop the warm-up's
+        ms = time_ms(lambda: ck.sdc.fused_snail_sample_loop(*inputs), iters=1, warmup=0)
+        lib.snail_loop_stamps(stamps.data_ptr())
+        st = stamps.reshape(4, 20).double()
+        us_per_clock = ms * 1e3 / float(st[3].sum())
+        print(f"[{smi}] stages {label} n={n}: stamped call {ms:.2f} ms, "
+              f"{ms * 1e3 / (h * w):.2f} us a position; us a position, all positions | "
+              + " | ".join(f"i {a}-{b - 1}" for a, b in SNAIL_WINDOWS), flush=True)
+        for k, name in enumerate(names):
+            if not name:
+                continue
+            per = [float(st[3, k]) * us_per_clock / (h * w)]
+            per += [float(st[q, k]) * us_per_clock / (b - a)
+                    for q, (a, b) in enumerate(SNAIL_WINDOWS)]
+            print(f"[{smi}]   {name}: " + " | ".join(f"{v:.2f}" for v in per), flush=True)
+        totals = [float(st[3].sum()) * us_per_clock / (h * w)]
+        totals += [float(st[q].sum()) * us_per_clock / (b - a)
+                   for q, (a, b) in enumerate(SNAIL_WINDOWS)]
+        print(f"[{smi}]   a position: " + " | ".join(f"{v:.2f}" for v in totals), flush=True)
+    del ck.build._loaded[ck.sdc.KERNEL]
+
+
+def stream_rates():
+    """Bytes a position one SM (and each rank of a cluster) pulls from L2
+    into shared memory by a 16-byte cp.async ring (4 stages of 16 KB), for
+    the reproduce() PixelSNAIL's weights; and the cost of a cluster
+    barrier, with and without stores into the other ranks' shared memory,
+    and of a CTA barrier."""
+    smi, dev = _smi(), torch.device("cuda:0")
+    path = ROOT / "tools" / "snail_stream.cu"
+    out = Path(tempfile.mkdtemp(prefix="snail_stream_")) / "lib.so"
+    sys.path.insert(0, str(ROOT))
+    from pytorch_generative_tpu_torch.ops import _build
+    sys.path.remove(str(ROOT))
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(path)],
+                          capture_output=True, text=True, check=False)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for {path}:\n{proc.stderr}")
+    lib = ctypes.CDLL(str(out))
+    lib.stream_copy.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_int] * 4
+                                + [ctypes.c_void_p] * 2)
+    lib.barrier_loop.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    floats = 903_136  # the reproduce() PixelSNAIL's stacked weights (3.61 MB)
+    src = torch.randn(floats + 64, device=dev)
+    sink = torch.zeros(1024, device=dev)
+    stream = lambda: torch.cuda.current_stream(dev).cuda_stream
+    passes, stage = 64, 4096
+    for ctas, cluster in ((1, 1), (16, 1), (64, 1), (132, 1), (8, 8), (128, 8), (4, 4), (64, 4),
+                          (2, 2), (32, 2)):
+        def run():
+            err = lib.stream_copy(src.data_ptr(), floats, ctas, cluster, passes, stage,
+                                  sink.data_ptr(), stream())
+            if err:
+                raise RuntimeError(f"stream_copy: cudaError {err}")
+        ms = time_ms(run, iters=3, warmup=1)
+        per_rank = floats // cluster * 4
+        us = ms * 1e3 / passes
+        print(f"[{smi}] stream {ctas} CTAs, clusters of {cluster}: {per_rank / 1e3:.1f} KB a rank "
+              f"a pass, {us:.2f} us a pass, {per_rank / us / 1e3:.1f} GB/s a rank, "
+              f"{per_rank * ctas / us / 1e3:.1f} GB/s in all", flush=True)
+    iters = 20000
+    for ctas, cluster, mode, what in ((8, 8, 0, "cluster barrier"),
+                                      (8, 8, 1, "cluster barrier behind DSMEM stores"),
+                                      (128, 8, 1, "cluster barrier behind DSMEM stores"),
+                                      (4, 4, 1, "cluster barrier behind DSMEM stores"),
+                                      (2, 2, 1, "cluster barrier behind DSMEM stores"),
+                                      (1, 1, 2, "CTA barrier")):
+        def run():
+            err = lib.barrier_loop(ctas, cluster, iters, mode, sink.data_ptr(), stream())
+            if err:
+                raise RuntimeError(f"barrier_loop: cudaError {err}")
+        ms = time_ms(run, iters=3, warmup=1)
+        print(f"[{smi}] {what}, {ctas} CTAs in clusters of {cluster}: "
+              f"{ms * 1e6 / iters:.1f} ns each", flush=True)
+
+
+
 if __name__ == "__main__":
     parser = argparse.ArgumentParser()
     parser.add_argument("sides", nargs="*", help="A_CHECKOUT A_LABEL B_CHECKOUT B_LABEL")
@@ -452,8 +783,22 @@ if __name__ == "__main__":
     parser.add_argument("--stages", action="store_true")
     parser.add_argument("--step", action="store_true")
     parser.add_argument("--timeline", action="store_true")
+    parser.add_argument("--snail", action="store_true")
+    parser.add_argument("--stream", action="store_true")
+    parser.add_argument("--no-split", action="store_true",
+                        help="with --snail: no stage split")
+    parser.add_argument("--clusters", type=int, nargs="+",
+                        help="with --snail: the cluster sizes the last checkout's plan may take")
+    parser.add_argument("--depths", type=int, nargs="+",
+                        help="with --snail: the ring depths the last checkout's plan may take")
     args = parser.parse_args()
-    if args.timeline:
+    if args.stream:
+        stream_rates()
+    elif args.snail:
+        if len(args.sides) not in (2, 4):
+            parser.error("--snail takes A_CHECKOUT A_LABEL [B_CHECKOUT B_LABEL]")
+        snail_compare(args.sides, args.n, args.clusters, not args.no_split, args.depths)
+    elif args.timeline:
         timeline()
     elif args.step:
         if len(args.sides) not in (2, 4):
