@@ -134,6 +134,9 @@ WIDE_ROWS = 8192
 # np.random.default_rng(1).random((128, 32, 32, 3)).
 VQ_BATCH = 128
 VQ_TRAIN_STEPS = 3
+# Skewed inputs of the VQ kernel: rows next to 1 code (a collapsed
+# codebook, as early VQ-VAE training gives) and next to 8.
+VQ_SKEWS = (1, 8)
 # Rows whose top-two scores (2 x.e - |e|^2, f32 sums over D = 64 terms in
 # another order on each side) are closer than this share of the largest
 # |score| may take either code; they are counted, and only they may differ.
@@ -191,6 +194,47 @@ def time_ms(fn, iters, warmup=1):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, calls=20, replays=10):
+    """ms a call of fn on the card alone: replays of one CUDA graph of
+    `calls` calls, so that the host's work a call is not in the time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / replays / calls
+
+
+def launch_split(fn, n=20):
+    """'kernel ms (launches), ...' a call of fn: device time by kernel from
+    torch.profiler over n calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key.replace("(anonymous namespace)::", "").split("(")[0],
+             e.self_device_time_total / 1e3 / n, e.count / n) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
+    return ", ".join(f"{name} {ms:.4f} ms ({count:g}x)" for name, ms, count in rows)
 
 
 def ptxas_summary(log):
@@ -861,7 +905,10 @@ def vq_vae_phases(dev, gen, smi, reset_counts, read_counts):
     blocks of 32, a 512 x 64 EMA codebook, batch 128, adam_multiplicative(
     2e-4, 0.999977)), with PGT_FUSED_VQ=1 so that the quantizer takes the
     fused kernel: the kernel against its plain version at M = 8192, 8191
-    and 300 and on a codebook with duplicated rows, with times; the forward
+    and 300, on a codebook with duplicated rows and on rows next to 1 and to
+    8 codes, two calls giving equal bits, with times (eager and as a CUDA
+    graph, the skewed inputs too), both bounds and the device time by
+    launch; the forward
     (eval mode) at batch 128 on bench.py's data against the CPU, launches
     on both routes; a Trainer epoch at batch 128; gradients and 3 steps
     (parameters and EMA buffers) against the CPU; step and forward times on
@@ -905,16 +952,48 @@ def vq_vae_phases(dev, gen, smi, reset_counts, read_counts):
               f"quantized max_abs_err where codes agree {q_err:.3e}; counts equal "
               f"{counts_eq}; sums max_abs_err {s_err:.3e} (max |sum| {s_max:.3e}, tol "
               f"{VQ_SUMS_RTOL} x max |sum|){extra}", flush=True)
+    # Two calls give equal bits (no atomics); the kernel on a collapsed
+    # codebook (every row next to one code) and on rows next to 8 codes.
+    first, second = vq_cuda.vq_quantize_fused(x, cb), vq_cuda.vq_quantize_fused(x, cb)
+    same = [torch.equal(a_, b_) for a_, b_ in zip(first, second)]
+    print(f"phase vq kernel: two calls give equal bits (quantized, counts, sums): {same}",
+          flush=True)
+    check(all(same), "the VQ kernel gave other bits in a second call")
+    del first, second
+    skewed = {}
+    for n_codes in VQ_SKEWS:
+        codes = torch.arange(m, device=dev) % n_codes * 61 % k
+        skewed[n_codes] = cb[codes] + 0.01 * torch.randn((m, d), generator=gen).to(dev)
+        n_differ, _, q_err, counts_eq, s_err, s_max = vq_against_plain(skewed[n_codes], cb)
+        vq_err = max(vq_err, q_err, s_err)
+        print(f"phase vq kernel: rows next to {n_codes} code(s): rows whose code differs "
+              f"{n_differ}; counts equal {counts_eq}; sums max_abs_err {s_err:.3e} (max |sum| "
+              f"{s_max:.3e})", flush=True)
+        check(n_differ == 0 and counts_eq, f"VQ kernel on rows next to {n_codes} code(s)")
     vq_times = {"kernel": time_ms(lambda: vq_cuda.vq_quantize_fused(x, cb), 50, 5),
                 "plain": time_ms(lambda: vq_cuda.vq_quantize_plain(x, cb), 20, 3),
                 "library": time_ms(lambda: vq_composition(x, cb), 50, 5),
-                "kernel2": time_ms(lambda: vq_cuda.vq_quantize_fused(x, cb), 50, 5)}
-    vq_bound = bound(*vq_work(m, k, d))
+                "kernel2": time_ms(lambda: vq_cuda.vq_quantize_fused(x, cb), 50, 5),
+                "graph": graph_ms(lambda: vq_cuda.vq_quantize_fused(x, cb)),
+                **{f"skew{n}": time_ms(lambda: vq_cuda.vq_quantize_fused(xs_, cb), 50, 5)
+                   for n, xs_ in skewed.items()},
+                **{f"skew{n}_graph": graph_ms(lambda: vq_cuda.vq_quantize_fused(xs_, cb))
+                   for n, xs_ in skewed.items()}}
+    vq_bound = bound(*vq_work(m, k, d), TF32X3_FLOPS)  # the route's: 3xTF32 products
+    vq_bound_f32 = bound(*vq_work(m, k, d))
     print(f"phase times vq [{smi}]: (M={m}, K={k}, D={d}) kernel {vq_times['kernel']:.4f}/"
-          f"{vq_times['kernel2']:.4f} ms, plain {vq_times['plain']:.4f} ms, composition "
+          f"{vq_times['kernel2']:.4f} ms (the card's alone, as a CUDA graph of 20 calls, "
+          f"{vq_times['graph']:.4f} ms), plain {vq_times['plain']:.4f} ms, composition "
           f"(addmm, argmax, index_select, bincount, index_add_) {vq_times['library']:.4f} ms, "
-          f"bound {vq_bound[0]:.4f} ms ({vq_bound[1]})", flush=True)
-    del x, cb, cb_dup, x_dup
+          f"3xTF32 bound {vq_bound[0]:.4f} ms ({vq_bound[1]}), f32 bound {vq_bound_f32[0]:.4f} "
+          f"ms ({vq_bound_f32[1]}); rows next to " + ", ".join(
+              f"{n} code(s) {vq_times[f'skew{n}']:.4f} ms (graph {vq_times[f'skew{n}_graph']:.4f})"
+              for n in VQ_SKEWS), flush=True)
+    print("phase times vq: device ms a call by launch (torch.profiler, 20 calls): " + " | ".join(
+        f"{label}: {launch_split(lambda: vq_cuda.vq_quantize_fused(xs_, cb))}"
+        for label, xs_ in (("spread", x), *((f"{n} code(s)", v_) for n, v_ in skewed.items()))),
+        flush=True)
+    del x, cb, cb_dup, x_dup, skewed
 
     # Phase V2: serving: the forward in eval mode at batch 128 on bench.py's
     # data through the entry point, on the fused route (1 vq launch) and
@@ -1121,7 +1200,8 @@ def vq_vae_phases(dev, gen, smi, reset_counts, read_counts):
                    "replaces": "pytorch_generative_tpu/ops/vq_pallas.py:27",
                    "max_abs_err": vq_err, "ms": vq_times["kernel"], "plain_ms": vq_times["plain"],
                    "bound_ms": vq_bound[0], "bound_by": vq_bound[1],
-                   "library_ms": vq_times["library"]},
+                   "library_ms": vq_times["library"], "bound_f32_ms": vq_bound_f32[0],
+                   "graph_ms": vq_times["graph"]},
     }
 
 

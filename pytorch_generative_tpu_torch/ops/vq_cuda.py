@@ -20,12 +20,21 @@ from pytorch_generative_tpu_torch.ops.vq import nearest_codebook
 
 KERNEL = "vq"
 MAX_DIM = 256  # D the kernel takes (a 64-row tile of x stays in shared memory)
-# Rows a CTA of the statistics launch walks; the (ceil(M / SLICE_ROWS), K,
-# D) partial sums are added in slice order.
-SLICE_ROWS = 256
+# R: rows a CTA of the assign launch owns. Block b (rows b R .. b R + R - 1)
+# writes the count and the row sum of each code it holds into row b of an
+# (ceil(M / R), R) table, codes in ascending order, and each code's slot
+# there (or -1) into row b of an (ceil(M / R), K) byte map. The gather
+# launch adds each code's entries in a fixed order: a CTA owns GATHER_CODES
+# codes and reads GATHER_THREADS blocks a round; the entries of a code are
+# split over the GATHER_THREADS // (GATHER_CODES * D / 4) threads of each
+# of its float4s, each adding its share in block order, the shares then
+# added in order (csrc/vq.cu, vq_gather_kernel).
+BLOCK_ROWS = 64
+GATHER_CODES = 4
+GATHER_THREADS = 256
 
 # Kernel launches since the last reset; only _vq_cuda adds to it (one per
-# call, which runs the assign, statistics and reduction launches).
+# call, which runs the assign and gather launches).
 launches = 0
 
 
@@ -54,6 +63,14 @@ def check_shapes(flat_x, codebook):
     return m, k, d
 
 
+def scratch_bytes(m, k, d):
+    """Bytes of the assign launch's table for M rows, K codes of width D,
+    with B = ceil(M / R) blocks: sums (B, R, D) float32, counts (B, R)
+    int32, then the map (B, K rounded up to 4) int8."""
+    n_blocks = -(-m // BLOCK_ROWS)
+    return 4 * n_blocks * BLOCK_ROWS * (d + 1) + n_blocks * (-(-k // 4) * 4)
+
+
 def _vq_cuda(flat_x, codebook):
     global launches
     m, k, d = check_shapes(flat_x, codebook)
@@ -65,16 +82,16 @@ def _vq_cuda(flat_x, codebook):
     quantized = torch.empty_like(flat_x)
     counts = torch.empty((k,), device=dev)
     sums = torch.empty((k, d), device=dev)
-    idx = torch.empty((m,), device=dev, dtype=torch.int32)
-    n_slices = -(-m // SLICE_ROWS)
-    pcount = torch.empty((n_slices, k), device=dev)
-    part = torch.empty((n_slices, k, d), device=dev)
+    table = torch.empty((scratch_bytes(m, k, d),), device=dev, dtype=torch.uint8)
+    slots = -(-m // BLOCK_ROWS) * BLOCK_ROWS
+    t_sum = table.data_ptr()
+    t_count = t_sum + 4 * slots * d
+    t_pos = t_count + 4 * slots
     fn = _build.declare(_build.load(KERNEL).vq_f32,
-                        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     with torch.cuda.device(dev):
         err = fn(flat_x.data_ptr(), codebook.data_ptr(), quantized.data_ptr(),
-                 counts.data_ptr(), sums.data_ptr(), idx.data_ptr(), pcount.data_ptr(),
-                 part.data_ptr(), m, k, d, SLICE_ROWS,
+                 counts.data_ptr(), sums.data_ptr(), t_pos, t_count, t_sum, m, k, d,
                  torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "vq_f32")
     launches += 1

@@ -1063,6 +1063,35 @@ def test_vq_kernel_takes_the_first_index_on_exact_ties(dev):
     assert counts[3] >= 100 and counts[7] == counts[20] == 0
 
 
+@pytest.mark.parametrize("m,k,d", [(8192, 512, 64), (1001, 2000, 256)])
+def test_vq_kernel_gives_equal_bits_in_two_calls(dev, m, k, d):
+    """No atomics: two calls on the same inputs give the same quantized
+    rows, counts and sums, bit for bit."""
+    x, cb = _rand((m, d), m, dev), _rand((k, d), k, dev)
+    first = vq_cuda.vq_quantize_fused(x, cb)
+    second = vq_cuda.vq_quantize_fused(x, cb)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("n_codes", [1, 8])
+def test_vq_kernel_on_a_skewed_codebook(dev, n_codes):
+    """Every row next to one code (a collapsed codebook) or to one of 8:
+    each used code gathers an entry from every block of rows."""
+    m, k, d = 8192, 512, 64
+    cb = _rand((k, d), 5, dev)
+    x = cb[torch.arange(m, device=dev) % n_codes * 61 % k] + 0.01 * _rand((m, d), 6, dev)
+    _vq_check(x, cb)
+    _, counts, _ = vq_cuda.vq_quantize_fused(x, cb)
+    assert int((counts > 0).sum()) == n_codes
+
+
+def test_vq_kernel_wide_rows_many_codes_ragged_blocks(dev):
+    """D = 256 (four 64-wide chunks of D), K = 2000 (a ragged last tile of
+    codes) and M = 1001, not a multiple of the kernel's 64-row blocks."""
+    _vq_check(_rand((1001, 256), 7, dev), _rand((2000, 256), 8, dev))
+
+
 def test_vq_wrapper_rejects_what_the_kernel_does_not_take(dev):
     x, cb = _rand((64, 16), 0, dev), _rand((8, 16), 1, dev)
     with pytest.raises(TypeError):

@@ -3,6 +3,7 @@ kernels of one checkout of this repository on a CUDA card, so that two
 checkouts can be compared in one run:
 
     python3 tools/torch_flash_times.py CHECKOUT LABEL [--dump FILE] [--steps]
+    python3 tools/torch_flash_times.py CHECKOUT LABEL --vq [--steps] [--stages]
     python3 tools/torch_flash_times.py --compare FILE_A FILE_B
 
 CHECKOUT is the root of a checkout (its ``pytorch_generative_tpu_torch`` is
@@ -38,12 +39,32 @@ of the MLP are not kept from one design to the next, only their gates.
 events) at the reproduce() config (C = 64, 2 heads), at C = 512 with 8 and
 with 4 heads, and at C = 512 / 8 heads with the fused attention block
 (PGT_FUSED_ATTN=1) under each MLP backward route, TF32 off.
+``--vq`` times the fused vector-quantization kernel (row 8 of PERF.md,
+``ops/vq_cuda.py``) instead, at the VQ-VAE reproduce() shape (M 8192 rows,
+K 512 codes, D 64) on three inputs: rows and codebook drawn from N(0, 1)
+("spread"), every row next to one code ("one code", a collapsed codebook)
+and rows next to 8 codes ("8 codes"): each call's ms from 50 calls after
+3 warm-ups ("eager", the wrapper's host work included) and from 10
+replays of a CUDA graph of 20 calls ("graph", the card's time alone),
+then the device time a call of each kernel the call launches
+(torch.profiler over 20 calls), the card's name and power limit and the
+kernel's registers and spills; with ``--steps`` also the VQ-VAE train step
+(``Trainer.train_one_step``) and eval forward at batch 128 on the fused
+route (PGT_FUSED_VQ=1), 10 calls after 3; with ``--stages`` also each
+stage's cycles (clock64(), thread 0 of each CTA, min / median / max over
+the CTAs) of a copy of the checkout's ``csrc/vq.cu`` with stamps patched in
+at text anchors (raises if an anchor line changed): launch 1's first two
+items landing, its codebook walk, the merge of the row blocks' bests, the
+quantized rows' loads, the statistics and stores; launch 2's wait for
+launch 1, its map reads, its sums and its stores.
 """
 
 import argparse
 import shutil
+import subprocess
 import sys
 import tempfile
+from pathlib import Path
 
 # (batch, heads, d_k, d_v, mask_center) of the timed shapes, all at L = 784.
 SHAPES = ((64, 2, 32, 32, False), (64, 8, 64, 64, False), (64, 4, 128, 128, False),
@@ -58,6 +79,12 @@ RTOL, BLOCK_LSE_TOL = 1e-4, 5e-5
 MLP_WIDTHS = (512, 1024)
 MLP_ROWS, MLP_DUMP_ROWS = 50176, 4097
 MLP_GRADS = ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2")
+# The fused VQ's shape on the VQ-VAE reproduce() path (batch 128 of 8 x 8
+# latents against a 512 x 64 codebook) and its three inputs: how many codes
+# the rows sit next to (None: rows and codebook both N(0, 1)).
+VQ_SHAPE = (8192, 512, 64)
+VQ_INPUTS = (("spread", None), ("one code", 1), ("8 codes", 8))
+VQ_BATCH = 128
 
 
 def _pairs(ac):
@@ -91,7 +118,7 @@ def _operands(b, l, h, d_k, d_v, seed, dev):
     return q, kv[..., :h * d_k], kv[..., h * d_k:], do
 
 
-def main(checkout, label, dump=None, steps=False):
+def main(checkout, label, dump=None, steps=False, vq=False, stages=False):
     sys.path.insert(0, checkout)
     import torch
 
@@ -114,6 +141,9 @@ def main(checkout, label, dump=None, steps=False):
         torch.cuda.synchronize()
         return start.elapsed_time(end) / n
 
+    if vq:
+        vq_main(label, dev, time_ms, steps, stages)
+        return
     out = []
     for b, h, d_k, d_v, mask_center in SHAPES:
         q, k, v, do = _operands(b, 784, h, d_k, d_v, 0, dev)
@@ -142,6 +172,215 @@ def main(checkout, label, dump=None, steps=False):
     if steps:
         print(f"train steps {label}: " + "; ".join(
             f"{name} {ms:.3f} ms" for name, ms in step_times(dev, time_ms)), flush=True)
+
+
+def _card():
+    """The card's name and power limit as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=False).stdout.strip()
+
+
+def vq_operands(n_codes, dev):
+    """x (M, D) and codebook (K, D) at VQ_SHAPE from one seed: with n_codes,
+    row m lies 0.01 N(0, 1) away from code (m % n_codes) * 61 % K."""
+    import torch
+
+    m, k, d = VQ_SHAPE
+    g = torch.Generator().manual_seed(0)
+    cb = torch.randn((k, d), generator=g)
+    x = torch.randn((m, d), generator=g)
+    if n_codes:
+        x = cb[torch.arange(m) % n_codes * 61 % k] + 0.01 * x
+    return x.to(dev), cb.to(dev)
+
+
+def graph_ms(fn, calls=20, replays=10):
+    """ms a call of fn, from replays of one CUDA graph of `calls` calls."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / replays / calls
+
+
+def launch_split(fn, n=20):
+    """'kernel ms, ...': device time a call of each kernel that fn
+    launches, from torch.profiler over n calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key.replace("(anonymous namespace)::", "").split("(")[0],
+             e.self_device_time_total / 1e3 / n, e.count / n) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
+    return ", ".join(f"{name} {ms:.4f} ms ({count:g}x)" for name, ms, count in rows)
+
+
+# Stamps patched into a copy of csrc/vq.cu: thread 0 of each CTA writes
+# clock64() after each anchor line (launch 1 into rows 0-5, launch 2 into
+# rows 8-12 of each CTA's slot).
+VQ_STAMP_HEADER = ("namespace {\n", """namespace {
+__device__ long long g_stamps[2][8192][8];
+#define STAMP(k, j) if (threadIdx.x == 0) g_stamps[k][blockIdx.x][j] = clock64();
+""")
+VQ_STAMP_GETTER = ("}  // namespace\n", """}  // namespace
+extern "C" int vq_stamps(long long* out) {
+  return cudaMemcpyFromSymbol(out, g_stamps, sizeof(g_stamps));
+}
+""")
+VQ_STAMPS = (
+    ('  asm volatile("griddepcontrol.launch_dependents;\\n" ::: "memory");\n', (0, 0)),
+    ("  transform(0);\n", (0, 1)),
+    ("    merge(acc, nrm2, it / n_chunks, chunk == n_chunks - 1);\n  }\n", (0, 2)),
+    ("    idx_s[r] = bi < K ? bi : 0;  // code 0 is always scored: never K\n  }\n"
+     "  __syncthreads();\n", (0, 3)),
+    ("      qv[u] = reinterpret_cast<const float4*>(row)[i % nv4];\n    }\n  }\n", (0, 4)),
+    ("    if (i < nv * nv4) reinterpret_cast<float4*>(quant + static_cast<int64_t>(m0) * D)[i] "
+     "= qv[u];\n  }\n", (0, 5)),
+    ("  int cnt = 0;\n", (1, 0)),
+    ('  asm volatile("griddepcontrol.wait;\\n" ::: "memory");  // launch 1 is done\n', (1, 1)),
+    ("    __syncthreads();\n    int n = 0;  // entries of code c\n", (1, 2)),
+    ("    __syncthreads();  // list_s and part_s are read before the next round writes them\n"
+     "  }\n", (1, 3)),
+    ("    if (v == 0) counts[k0 + c] = static_cast<float>(cnt);\n  }\n", (1, 4)),
+)
+VQ_STAGE_NAMES = (("launch 1", ("first items landed", "codebook walk", "merge",
+                                "quantized loads", "statistics and stores")),
+                  ("launch 2", ("wait for launch 1", "map reads", "sums", "stores")))
+
+
+def vq_stages(vq_cuda, x, cb):
+    """'stage cycles min/median/max, ...' of a stamped copy of the
+    checkout's csrc/vq.cu on (x, cb)."""
+    import ctypes
+    import numpy as np
+    import torch
+
+    src = (vq_cuda._build.CSRC / "vq.cu").read_text()
+    for anchor, _ in (VQ_STAMP_HEADER, VQ_STAMP_GETTER, *VQ_STAMPS):
+        if src.count(anchor) != 1:
+            raise ValueError(f"csrc/vq.cu: stamp anchor {anchor!r} is not found once")
+    for anchor, stamp in (VQ_STAMP_HEADER, VQ_STAMP_GETTER):
+        src = src.replace(anchor, stamp)
+    for anchor, (k, j) in VQ_STAMPS:
+        src = src.replace(anchor, anchor + f"  STAMP({k}, {j})\n")
+    out = tempfile.mkdtemp(prefix="vq_stages_")
+    (Path(out) / "vq.cu").write_text(src)
+    so = f"{out}/vq.so"
+    subprocess.run([vq_cuda._build._nvcc(), *vq_cuda._build.NVCC_FLAGS, "-I",
+                    str(vq_cuda._build.CSRC), "-o", so, f"{out}/vq.cu"], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(so)
+    lib.vq_f32.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.vq_stamps.argtypes = [ctypes.c_void_p]
+    (m, d), k = x.shape, cb.shape[0]
+    quantized, counts = torch.empty_like(x), torch.empty((k,), device=x.device)
+    sums = torch.empty((k, d), device=x.device)
+    table = torch.empty((vq_cuda.scratch_bytes(m, k, d),), device=x.device, dtype=torch.uint8)
+    n_blocks = -(-m // vq_cuda.BLOCK_ROWS)
+    t_count = table.data_ptr() + 4 * n_blocks * vq_cuda.BLOCK_ROWS * d
+    t_pos = t_count + 4 * n_blocks * vq_cuda.BLOCK_ROWS
+    for _ in range(3):
+        err = lib.vq_f32(x.data_ptr(), cb.data_ptr(), quantized.data_ptr(), counts.data_ptr(),
+                         sums.data_ptr(), t_pos, t_count, table.data_ptr(), m, k, d,
+                         torch.cuda.current_stream().cuda_stream)
+        assert err == 0, f"vq_f32: cudaError {err}"
+    torch.cuda.synchronize()
+    stamps = np.zeros((2, 8192, 8), dtype=np.int64)
+    assert lib.vq_stamps(stamps.ctypes.data) == 0
+    shutil.rmtree(out, ignore_errors=True)
+    parts = []
+    for kernel, ((launch, names), ctas) in enumerate(zip(VQ_STAGE_NAMES, (n_blocks, -(-k // 4)))):
+        st = stamps[kernel, :ctas]
+        for j, name in enumerate(names):
+            dt = st[:, j + 1] - st[:, j]
+            parts.append(f"{launch} {name} {dt.min()}/{int(np.median(dt))}/{dt.max()}")
+    return ", ".join(parts)
+
+
+def vq_main(label, dev, time_ms, steps, stages=False):
+    """Row 8's times on VQ_INPUTS, the split by launch, registers and, with
+    steps, the VQ-VAE fused-route step and forward."""
+    import torch
+
+    from pytorch_generative_tpu_torch.ops import vq_cuda
+
+    m, k, d = VQ_SHAPE
+    times, splits = [], []
+    for name, n_codes in VQ_INPUTS:
+        x, cb = vq_operands(n_codes, dev)
+        _, counts, _ = vq_cuda.vq_quantize_fused(x, cb)
+        used = int((counts > 0).sum())
+        ms = time_ms(lambda: vq_cuda.vq_quantize_fused(x, cb), n=50)
+        g_ms = graph_ms(lambda: vq_cuda.vq_quantize_fused(x, cb))
+        times.append(f"{name} ({used} codes used) eager {ms:.4f} ms, graph {g_ms:.4f} ms")
+        splits.append(f"{name}: " + launch_split(lambda: vq_cuda.vq_quantize_fused(x, cb)))
+    print(f"vq times {label} [{_card()}] (M {m}, K {k}, D {d}): " + "; ".join(times),
+          flush=True)
+    print(f"vq split {label}: " + " | ".join(splits), flush=True)
+    print(f"vq ptxas {label}: " + " | ".join(_ptxas(vq_cuda, vq_cuda.KERNEL)), flush=True)
+    if stages:
+        for name, n_codes in VQ_INPUTS:
+            print(f"vq stages {label} {name}: " + vq_stages(vq_cuda, *vq_operands(n_codes, dev)),
+                  flush=True)
+    if steps:
+        print(f"vq-vae steps {label}: " + "; ".join(
+            f"{name} {ms:.3f} ms" for name, ms in vq_vae_times(dev, time_ms)), flush=True)
+
+
+def vq_vae_times(dev, time_ms):
+    """(name, ms) of the VQ-VAE reproduce() train step and eval forward at
+    batch 128 on the fused route."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from pytorch_generative_tpu_torch import optim, trainer
+    from pytorch_generative_tpu_torch.models import VectorQuantizedVAE
+    from pytorch_generative_tpu_torch.models.vae import vq_vae
+
+    os.environ["PGT_FUSED_VQ"] = "1"  # read when the quantizer is built
+    cfg = vq_vae.REPRODUCE_CONFIG
+    net = VectorQuantizedVAE(**cfg, generator=torch.Generator().manual_seed(0), device=dev)
+    os.environ.pop("PGT_FUSED_VQ")
+    t = trainer.Trainer(net, vq_vae.reproduce_loss, optim.adam_multiplicative(2e-4, 0.999977),
+                        [], [], log_dir=tempfile.mkdtemp(prefix="vq_times_"),
+                        use_tensorboard=False, device=dev)
+    xb = np.random.default_rng(1).random((VQ_BATCH, *cfg["in_shape"])).astype(np.float32)
+    xs = torch.from_numpy(xb).to(dev)
+
+    def forward():
+        net.eval()
+        with torch.no_grad():
+            return net(xs)
+
+    out = [("train step", time_ms(lambda: t.train_one_step(xb, None), n=10)),
+           ("forward", time_ms(forward, n=10))]
+    shutil.rmtree(t.log_dir, ignore_errors=True)
+    return out
 
 
 def _block_operands(b, l, c, seed, dev):
@@ -361,5 +600,7 @@ if __name__ == "__main__":
         parser.add_argument("label")
         parser.add_argument("--dump")
         parser.add_argument("--steps", action="store_true")
+        parser.add_argument("--vq", action="store_true")
+        parser.add_argument("--stages", action="store_true")
         args = parser.parse_args()
-        main(args.checkout, args.label, args.dump, args.steps)
+        main(args.checkout, args.label, args.dump, args.steps, args.vq, args.stages)
