@@ -59,7 +59,20 @@ recompute and pipelined routes (``fused_attn_phases``): the block kernel
 versions, the forward and a train step a route with their launches,
 gradients and 3 Adam steps against the CPU, times (the block at its three
 widths beside its composition, and its 3xTF32 GEMM beside
-``torch.addmm``). The line before the last is the per-kernel JSON summary;
+``torch.addmm``). Then ImageGPT's mixed-precision training,
+``Trainer(compute_dtype=torch.bfloat16)`` (``bf16_phases``): the bf16 modes
+of the flash kernels at d = 32, 64 and 128 (B 64, L 784) and of the
+LayerNorm and fused MLP kernels at R = 50,176, C = 512 (and a ragged R)
+against their plain versions, two calls giving equal bits and the MLP's
+three backward routes the same bits, each timed beside its plain version,
+its bound at the bf16 tensor-core rate (989 TFLOP/s) and a bf16 library
+yardstick (causal SDPA, ``F.layer_norm``, the ``F.layer_norm`` ->
+``addmm`` -> ``F.gelu`` -> ``addmm`` composition); a Trainer epoch of 3
+steps with eval and a checkpoint at batch 64 at C = 64 (2 heads), C = 512
+with 8 heads and with 4, each with its launches (bf16 kernels only, no
+plain version called) and its step time; one bf16 step on each opt-in MLP
+route; 3 Adam steps against the CPU's bf16 Trainer at C = 64 and C = 512.
+The line before the last is the per-kernel JSON summary;
 the last line is ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero before that line; without a CUDA device it fails at once.
 """
@@ -156,6 +169,31 @@ BLOCK_WIDTHS = ((64, 2), (512, 8), (512, 4))
 # The MLP backward's routes: saved y (the default), recompute
 # (_SAVE_PREACT = False) and the pipelined one (PGT_MLP_BWD=pipe).
 MLP_ROUTES = ("saved", "recompute", "pipe")
+# The bf16 modes (bf16_phases): kernel against plain version, both rounding
+# to bf16 at the same points but summing in other orders, so an output may
+# land one bf16 step (2^-8 of its size) apart: bf16 outputs within 2 steps
+# of the plain version's largest magnitude; f32 statistics and the
+# LayerNorm's parameter sums within 1e-6 and 1e-5 of it; the MLP's f32
+# parameter sums within 5e-4 (dy is rounded to bf16 for dW1 and dln, and
+# the two sides' dy may round apart).
+BF16_TOL = 2.0 ** -7
+BF16_LSE_RTOL = 1e-6
+BF16_LN_SUM_RTOL = 1e-5
+BF16_MLP_SUM_RTOL = 5e-4
+# The bf16 Trainer's epoch at each configuration, and the steps timed after it.
+BF16_TRAIN_STEPS = 3
+BF16_TIMED_STEPS = 5
+# Card against CPU, both Trainer(compute_dtype=torch.bfloat16), 3 Adam
+# steps of lr 5e-3 from the same weights and batches: losses within
+# BF16_LOSS_RTOL; each parameter tensor's update within BF16_UPDATE_RL2
+# relative L2 of the CPU's (Adam turns a near-zero gradient's flipped sign
+# into a step of about lr the other way; a wrong gradient gives about 1 or
+# more); the key bias, whose exact gradient is 0 (both sides feed Adam
+# rounding noise), within 3 steps of 4 lr: Adam's step exceeds lr where
+# the noise's size changes from step to step.
+BF16_LOSS_RTOL = 1e-2
+BF16_UPDATE_RL2 = 0.35
+BF16_KEY_BIAS_ATOL = 3 * 4 * 5e-3
 # Bounds: NVIDIA's H100 SXM data sheet, at its 700 W limit.
 F32_FLOPS = 67e12   # f32 on the CUDA cores, FMA = 2 operations
 # f32-accurate products on the tensor cores: 3xTF32 (the flash kernels'
@@ -163,6 +201,7 @@ F32_FLOPS = 67e12   # f32 on the CUDA cores, FMA = 2 operations
 # takes three TF32 products (495 TFLOP/s) per f32 one.
 TF32X3_FLOPS = 495e12 / 3
 HBM_BYTES = 3.35e12  # HBM3 bytes/s
+BF16_FLOPS = 989e12  # bf16 on the tensor cores, dense
 
 
 def fail(msg):
@@ -1836,6 +1875,431 @@ def fused_attn_phases(dev, gen, smi, reset_counts, read_counts):
           for route, line in (("recompute", 112), ("pipe", 187)))]}
 
 
+def bf16_flash_bytes(b, l, n_heads, d, backward=False):
+    """flash_bytes for the bf16 mode: q, k, v, out, dout, dq, dk and dv of 2
+    bytes, lse of 4."""
+    c = n_heads * d
+    if backward:
+        return 2 * b * l * 8 * c + 4 * b * l * n_heads
+    return 2 * b * l * 4 * c + 4 * b * l * n_heads
+
+
+def bf16_ln_work(r, c):
+    """ln_work for bf16 rows: x, y, dy and dx of 2 bytes, gamma and beta of
+    2, dgamma and dbeta written as f32."""
+    return (8 * r * c, 2 * (2 * r * c + 2 * c)), (18 * r * c, 2 * (3 * r * c + c) + 4 * 2 * c)
+
+
+def bf16_mlp_work(r, c, f):
+    """mlp_work for bf16 rows and weights: inputs and dx of 2 bytes, the
+    parameter gradients written as f32."""
+    vec = 2 * c + f + c
+    fwd = (4 * r * c * f, 2 * (r * c + 2 * c * f + vec + r * c + r * f))
+    bwd = (8 * r * c * f, 2 * (2 * r * c + r * f + 2 * c * f + 2 * c + r * c)
+           + 4 * (2 * c * f + f + 3 * c))
+    return fwd, bwd
+
+
+class PlainCalls:
+    """Counts the calls of the flash, LayerNorm and MLP plain versions while
+    it is entered (the wrappers look them up by module attribute)."""
+
+    NAMES = {"attention_cuda": ("flash_forward_plain", "flash_backward_plain"),
+             "ln_cuda": ("layernorm_forward_plain", "layernorm_backward_plain"),
+             "mlp_cuda": ("ln_mlp_forward_plain", "ln_mlp_backward_plain",
+                          "ln_mlp_backward_recompute_plain")}
+
+    def __init__(self, modules):
+        self.modules = {m.__name__.rsplit(".", 1)[1]: m for m in modules}
+        self.calls = 0
+
+    def __enter__(self):
+        self.saved = []
+        for key, names in self.NAMES.items():
+            mod = self.modules[key]
+            for name in names:
+                real = getattr(mod, name)
+                self.saved.append((mod, name, real))
+
+                def counted(*args, _real=real):
+                    self.calls += 1
+                    return _real(*args)
+
+                setattr(mod, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, real in self.saved:
+            setattr(mod, name, real)
+
+
+def bf16_update_errors(model, cpu_model, init, c):
+    """{name: relative L2 of the card's update against the CPU's} and the
+    key bias' largest difference (its first c entries)."""
+    out, key_bias = {}, 0.0
+    for (name, p), (_, pc) in zip(model.named_parameters(), cpu_model.named_parameters()):
+        got, ref, start = p.detach().cpu().double(), pc.detach().double(), init[name]
+        if name.endswith("attn.kv_proj.bias"):
+            key_bias = max(key_bias, float((got[:c] - ref[:c]).abs().max()))
+            got, ref, start = got[c:], ref[c:], start[c:]
+        out[name] = float((got - ref).norm() / (ref - start).norm())
+    return out, key_bias
+
+
+def bf16_phases(dev, gen, smi, reset_counts, read_counts):
+    """ImageGPT's mixed-precision training, Trainer(compute_dtype=
+    torch.bfloat16), at the reproduce() config (C = 64, 2 heads of 32) and
+    at LARGE_CONFIG (C = 512, 8 heads of 64 and 4 of 128), batch 64: the
+    bf16 modes of the flash kernels (at the three head widths), of the
+    LayerNorm kernels and of the fused MLP's forward and three backward
+    routes against their plain versions (two calls give equal bits, and
+    the MLP routes the saved-y route's bits), each timed beside its plain
+    version, its bound at the bf16 tensor-core rate and a bf16 library
+    yardstick; one Trainer epoch of BF16_TRAIN_STEPS steps with eval at
+    each configuration, with its bf16 launches (f32 ones and plain calls
+    0) and its step time; one step on each opt-in MLP route; 3 Adam steps
+    against the CPU's bf16 Trainer. Returns the runs' launch counts and
+    the bf16 entries of the per-kernel JSON."""
+    from pytorch_generative_tpu_torch import datasets, optim, trainer
+    from pytorch_generative_tpu_torch.models import ImageGPT
+    from pytorch_generative_tpu_torch.models.autoregressive import image_gpt
+    from pytorch_generative_tpu_torch.ops import attention_cuda, ln_cuda, mlp_cuda
+
+    bf = torch.bfloat16
+    h = w = 28
+    l = h * w
+    large = image_gpt.LARGE_CONFIG
+    configs = (("C=64 H=2", image_gpt.REPRODUCE_CONFIG),
+               ("C=512 H=8", large), ("C=512 H=4", dict(large, n_attention_heads=4)))
+
+    # Phase bf16-1: the flash kernels' bf16 mode at the three widths, (B 64,
+    # L 784), k and v feature slices of one kv tensor, as the layer passes
+    # them.
+    flash = {}
+    for c, n_heads in ((64, 2), (512, 8), (512, 4)):
+        d = c // n_heads
+        q = torch.randn((BATCH, l, c), generator=gen).to(dev, bf)
+        kv = torch.randn((BATCH, l, 2 * c), generator=gen).to(dev, bf)
+        dout = torch.randn((BATCH, l, c), generator=gen).to(dev, bf)
+        k, v = kv[..., :c], kv[..., c:]
+        out, lse = attention_cuda.flash_forward(q, k, v, False, n_heads)
+        grads = attention_cuda.flash_backward(q, k, v, out, lse, dout, False, n_heads)
+        again = (*attention_cuda.flash_forward(q, k, v, False, n_heads),
+                 *attention_cuda.flash_backward(q, k, v, out, lse, dout, False, n_heads))
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip((out, lse, *grads), again))
+        ref_out, ref_lse = attention_cuda.flash_forward_plain(q, k, v, False, n_heads)
+        e_out, e_lse = rel_err(out.float(), ref_out.float()), rel_err(lse, ref_lse)
+        ref_grads = attention_cuda.flash_backward_plain(q, k, v, out, lse, dout, False, n_heads)
+        e_grads = [rel_err(g.float(), r.float()) for g, r in zip(grads, ref_grads)]
+        print(f"phase bf16 flash d={d} (B={BATCH}, L={l}, H={n_heads}): max_abs_err (max |plain|) "
+              f"out={e_out[0]:.3e} ({e_out[1]:.3e}) lse={e_lse[0]:.3e} ({e_lse[1]:.3e}); "
+              + " ".join(f"{n}={e[0]:.3e} ({e[1]:.3e})" for n, e in zip(("dq", "dk", "dv"), e_grads))
+              + f" (tol {BF16_TOL:.4g} x max |plain|, lse {BF16_LSE_RTOL}); two calls give "
+              f"equal bits: {same}", flush=True)
+        check(same, f"the bf16 flash kernels gave other bits in a second call (d = {d})")
+        check(e_out[0] <= BF16_TOL * e_out[1] and e_lse[0] <= BF16_LSE_RTOL * e_lse[1],
+              f"the bf16 flash forward disagrees with its plain version (d = {d})")
+        check(all(e[0] <= BF16_TOL * e[1] for e in e_grads),
+              f"the bf16 flash backward disagrees with its plain version (d = {d})")
+        del ref_out, ref_lse, ref_grads, again
+        t = flash_times(q, k, v, dout, n_heads)
+        fb = bound(flash_work(BATCH, l, n_heads, d, d, False),
+                   bf16_flash_bytes(BATCH, l, n_heads, d), BF16_FLOPS)
+        bb = bound(flash_work(BATCH, l, n_heads, d, d, False, backward=True),
+                   bf16_flash_bytes(BATCH, l, n_heads, d, backward=True), BF16_FLOPS)
+        print(f"phase bf16 times flash d={d} [{smi}]: flash_fwd_bf16 (B={BATCH}, L={l}, "
+              f"H={n_heads}) kernel {t['fwd']:.4f}/{t['fwd2']:.4f} ms, plain {t['fwd_plain']:.4f} "
+              f"ms, bf16 causal SDPA {t['fwd_lib']:.4f} ms, bf16 bound {fb[0]:.4f} ms ({fb[1]}); "
+              f"flash_bwd_bf16 kernel {t['bwd']:.4f}/{t['bwd2']:.4f} ms, plain "
+              f"{t['bwd_plain']:.4f} ms, bf16 SDPA autograd.grad {t['bwd_lib']:.4f} ms, bf16 "
+              f"bound {bb[0]:.4f} ms ({bb[1]})", flush=True)
+        flash[d] = dict(fwd_err=e_out[0], bwd_err=max(e[0] for e in e_grads), t=t,
+                        fwd_bound=fb, bwd_bound=bb)
+        del q, kv, dout, out, lse, grads
+
+    # Phase bf16-2: the LayerNorm and MLP kernels' bf16 mode at the blocks'
+    # rows at batch 64 (R = 50,176, C = 512, F = 2048) and a ragged R; the
+    # MLP's three backward routes from the forward's own saved y.
+    c = large["n_embedding_channels"]
+    f = 4 * c
+    r = BATCH * l
+    errs = {}
+    for rows in (r, r - 7):
+        x = (2.0 * torch.randn((rows, c), generator=gen) + 0.5).to(dev, bf)
+        gamma = (1.0 + 0.1 * torch.randn((c,), generator=gen)).to(dev, bf)
+        beta = (0.1 * torch.randn((c,), generator=gen)).to(dev, bf)
+        w1 = (torch.randn((c, f), generator=gen) / c ** 0.5).to(dev, bf)
+        b1 = (0.1 * torch.randn((f,), generator=gen)).to(dev, bf)
+        w2 = (torch.randn((f, c), generator=gen) / f ** 0.5).to(dev, bf)
+        b2 = (0.1 * torch.randn((c,), generator=gen)).to(dev, bf)
+        dy = torch.randn((rows, c), generator=gen).to(dev, bf)
+        y_ln = ln_cuda.ln_forward(x, gamma, beta, 1e-5)
+        g_ln = ln_cuda.ln_backward(x, dy, gamma, 1e-5)
+        same_ln = torch.equal(y_ln, ln_cuda.ln_forward(x, gamma, beta, 1e-5)) and all(
+            torch.equal(a, b) for a, b in zip(g_ln, ln_cuda.ln_backward(x, dy, gamma, 1e-5)))
+        e = {"ln_fwd_bf16": rel_err(y_ln.float(), ln_cuda.layernorm_forward_plain(
+            x, gamma, beta, 1e-5).float())}
+        for name, got, want in zip(("dx", "dgamma", "dbeta"), g_ln,
+                                   ln_cuda.layernorm_backward_plain(x, dy, gamma, 1e-5)):
+            e[f"ln_bwd_bf16 {name}"] = rel_err(got.float(), want.float())
+        out, y = mlp_cuda.ln_mlp_forward(x, gamma, beta, w1, b1, w2, b2, 1e-5)
+        out2, y2 = mlp_cuda.ln_mlp_forward(x, gamma, beta, w1, b1, w2, b2, 1e-5)
+        routes = {
+            "saved": lambda: mlp_cuda.ln_mlp_backward(x, dy, y, gamma, beta, w1, b1, w2, 1e-5),
+            "recompute": lambda: mlp_cuda.ln_mlp_backward_recompute(x, dy, gamma, beta, w1, b1,
+                                                                    w2, 1e-5),
+            "pipe": lambda: mlp_cuda.ln_mlp_backward_pipe(x, dy, y, gamma, beta, w1, b1, w2,
+                                                          1e-5)}
+        grads = {route: (fn(), fn()) for route, fn in routes.items()}
+        torch.cuda.synchronize()
+        same_mlp = torch.equal(out, out2) and torch.equal(y, y2) and all(
+            all(torch.equal(a, b) for a, b in zip(first, second)) for first, second in grads.values())
+        routes_equal = all(all(torch.equal(a, b) for a, b in zip(g[0], grads["saved"][0]))
+                           for g in grads.values())
+        want_out, want_y = mlp_cuda.ln_mlp_forward_plain(x, gamma, beta, w1, b1, w2, b2, 1e-5)
+        e["mlp_fwd_bf16 out"] = rel_err(out.float(), want_out.float())
+        e["mlp_fwd_bf16 y"] = rel_err(y.float(), want_y.float())
+        want = mlp_cuda.ln_mlp_backward_plain(x, dy, y, gamma, beta, w1, b1, w2, 1e-5)
+        for name, got, wnt in zip(("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2"),
+                                  grads["saved"][0], want):
+            e[f"mlp_bwd_bf16 {name}"] = rel_err(got.float(), wnt.float())
+        print(f"phase bf16 ln/mlp R={rows} C={c} F={f}: max_abs_err (max |plain|) " + ", ".join(
+            f"{k_} {v_[0]:.3e} ({v_[1]:.3e})" for k_, v_ in e.items())
+            + f"; two calls give equal bits: ln {same_ln}, mlp {same_mlp}; the recompute and "
+            f"pipelined routes give the saved-y route's bits: {routes_equal}", flush=True)
+        check(same_ln and same_mlp, "a bf16 LayerNorm or MLP kernel gave other bits in a second call")
+        check(routes_equal, "the bf16 MLP backward routes gave other bits than the saved-y route")
+        for k_, (err, scale) in e.items():
+            tol = (BF16_LN_SUM_RTOL if k_ in ("ln_bwd_bf16 dgamma", "ln_bwd_bf16 dbeta") else
+                   BF16_MLP_SUM_RTOL if k_.startswith("mlp_bwd") and not k_.endswith("dx") else
+                   BF16_TOL)
+            check(err <= tol * scale, f"{k_} disagrees with its plain version (R = {rows})")
+            kern = k_.split()[0]
+            errs[kern] = max(errs.get(kern, 0.0), err)
+        del grads, out, out2, y2, want, want_out, want_y, g_ln, y_ln
+
+    # Times at R = 50,176 (the last loop's tensors are at R - 7: make them
+    # again at R), each backward's yardstick autograd.grad through bf16
+    # F.layer_norm or through the bf16 composition F.layer_norm -> addmm ->
+    # F.gelu -> addmm -> + x.
+    x = (2.0 * torch.randn((r, c), generator=gen) + 0.5).to(dev, bf)
+    dy = torch.randn((r, c), generator=gen).to(dev, bf)
+    leaves = [t.requires_grad_() for t in (x.clone(), gamma.clone(), beta.clone(), w1.clone(),
+                                           b1.clone(), w2.clone(), b2.clone())]
+    xr, gr, br, w1r, b1r, w2r, b2r = leaves
+    ln_lib_out = F.layer_norm(xr, (c,), gr, br, 1e-5)
+    comp = lambda: torch.addmm(b2r, F.gelu(torch.addmm(b1r, F.layer_norm(xr, (c,), gr, br, 1e-5),
+                                                       w1r)), w2r) + xr
+    mlp_lib_out = comp()
+    _, y = mlp_cuda.ln_mlp_forward(x, gamma, beta, w1, b1, w2, b2, 1e-5)
+
+    def no_grad(fn):
+        def run():
+            with torch.no_grad():
+                return fn()
+        return run
+
+    fns = {
+        "ln_fwd_bf16": (lambda: ln_cuda.ln_forward(x, gamma, beta, 1e-5),
+                        lambda: ln_cuda.layernorm_forward_plain(x, gamma, beta, 1e-5),
+                        no_grad(lambda: F.layer_norm(x, (c,), gamma, beta, 1e-5)), 20),
+        "ln_bwd_bf16": (lambda: ln_cuda.ln_backward(x, dy, gamma, 1e-5),
+                        lambda: ln_cuda.layernorm_backward_plain(x, dy, gamma, 1e-5),
+                        lambda: torch.autograd.grad(ln_lib_out, (xr, gr, br), dy,
+                                                    retain_graph=True), 20),
+        "mlp_fwd_bf16": (lambda: mlp_cuda.ln_mlp_forward(x, gamma, beta, w1, b1, w2, b2, 1e-5),
+                         lambda: mlp_cuda.ln_mlp_forward_plain(x, gamma, beta, w1, b1, w2, b2,
+                                                               1e-5), no_grad(comp), 5),
+    }
+    bwd_lib = lambda: torch.autograd.grad(mlp_lib_out, leaves, dy, retain_graph=True)
+    bwd_plain = lambda: mlp_cuda.ln_mlp_backward_plain(x, dy, y, gamma, beta, w1, b1, w2, 1e-5)
+    for kern, route in ((mlp_cuda.BF16_BWD_KERNEL, lambda: mlp_cuda.ln_mlp_backward(
+            x, dy, y, gamma, beta, w1, b1, w2, 1e-5)),
+            (mlp_cuda.BF16_RECOMPUTE_KERNEL, lambda: mlp_cuda.ln_mlp_backward_recompute(
+                x, dy, gamma, beta, w1, b1, w2, 1e-5)),
+            (mlp_cuda.BF16_PIPE_KERNEL, lambda: mlp_cuda.ln_mlp_backward_pipe(
+                x, dy, y, gamma, beta, w1, b1, w2, 1e-5))):
+        fns[kern] = (route, bwd_plain, bwd_lib, 5)
+    errs[mlp_cuda.BF16_RECOMPUTE_KERNEL] = errs[mlp_cuda.BF16_PIPE_KERNEL] = errs["mlp_bwd_bf16"]
+    (ln_f, ln_b), (mlp_f, mlp_b) = bf16_ln_work(r, c), bf16_mlp_work(r, c, f)
+    # The recompute route also computes y = LN(x) W1 + b1 (2 R C F more
+    # operations) and reads b1 where the others read y.
+    works = {"ln_fwd_bf16": ln_f, "ln_bwd_bf16": ln_b, "mlp_fwd_bf16": mlp_f,
+             mlp_cuda.BF16_RECOMPUTE_KERNEL: (mlp_b[0] + 2 * r * c * f,
+                                              mlp_b[1] - 2 * r * f + 2 * f)}
+    rows_times = {}
+    for kern, (fn, plain, lib, iters) in fns.items():
+        tt = {"plain": time_ms(plain, iters, 2), "kernel": time_ms(fn, iters, 2),
+              "library": time_ms(lib, iters, 2), "kernel2": time_ms(fn, iters, 2)}
+        b_ = bound(*works.get(kern, mlp_b), BF16_FLOPS)
+        rows_times[kern] = dict(tt, bound=b_)
+        print(f"phase bf16 times {kern} (R={r}, C={c}, F={f}) [{smi}]: kernel "
+              f"{tt['kernel']:.4f}/{tt['kernel2']:.4f} ms, plain {tt['plain']:.4f} ms, bf16 "
+              f"library {tt['library']:.4f} ms, bf16 bound {b_[0]:.4f} ms ({b_[1]})", flush=True)
+    del leaves, ln_lib_out, mlp_lib_out, x, dy, y
+
+    # Phase bf16-3: the Trainer with compute_dtype=torch.bfloat16 through
+    # its entry point, one epoch of BF16_TRAIN_STEPS steps at batch 64 with
+    # eval and a checkpoint, at each configuration: every launch of the
+    # flash, LayerNorm and MLP kernels is a bf16 one, no plain version runs;
+    # then the step's time.
+    counts_all = []
+    mods = (attention_cuda, ln_cuda, mlp_cuda)
+    bf16_fwd_bwd = (attention_cuda.BF16_KERNEL, attention_cuda.BF16_BWD_KERNEL)
+    bf16_fused = (ln_cuda.BF16_KERNEL, ln_cuda.BF16_BWD_KERNEL, mlp_cuda.BF16_KERNEL,
+                  mlp_cuda.BF16_BWD_KERNEL)
+    f32_kernels = (attention_cuda.KERNEL, attention_cuda.BWD_KERNEL, ln_cuda.KERNEL,
+                   ln_cuda.BWD_KERNEL, mlp_cuda.KERNEL, mlp_cuda.BWD_KERNEL)
+    step_ms = {}
+    for label, cfg in configs:
+        train_loader, test_loader = datasets.get_synthetic_mnist_loaders(
+            BATCH, n_train=BF16_TRAIN_STEPS * BATCH, n_test=BATCH, image_size=h, seed=0)
+        log_dir = tempfile.mkdtemp(prefix="chip_smoke_bf16_")
+        try:
+            net = ImageGPT(**cfg, generator=torch.Generator().manual_seed(SEED), device=dev)
+            t = trainer.Trainer(net, image_gpt.reproduce_loss,
+                                optim.adam_multiplicative(5e-3, 0.999977), train_loader,
+                                test_loader, log_dir=log_dir, sample_epochs=None,
+                                use_tensorboard=False, device=dev, compute_dtype=torch.bfloat16)
+            reset_counts()
+            with PlainCalls(mods) as plain:
+                t.interleaved_train_and_eval(1)
+                torch.cuda.synchronize()
+            counts = read_counts()
+            counts_all.append(counts)
+            losses, _ = read_losses(log_dir)
+            saved = torch.load(os.path.join(log_dir, "trainer_state_1.ckpt"), weights_only=False)
+            master = all(t_.dtype == torch.float32 for t_ in saved["state"]["model"].values()
+                         if t_.is_floating_point())
+            fused_on = cfg["n_embedding_channels"] % 128 == 0
+            want = bf16_fwd_bwd + (bf16_fused if fused_on else ())
+            print(f"phase bf16 train {label}: steps {t._step}, losses "
+                  f"{[round(losses[k_], 3) for k_ in sorted(losses)]}; checkpoint float32: "
+                  f"{master}; plain calls {plain.calls}; launches " + ", ".join(
+                      f"{k_}={v_}" for k_, v_ in counts.items() if v_), flush=True)
+            check(t._step == BF16_TRAIN_STEPS and all(math.isfinite(v_) for v_ in losses.values()),
+                  f"the bf16 Trainer epoch failed ({label})")
+            check(master, f"the bf16 Trainer's checkpoint is not float32 ({label})")
+            check(plain.calls == 0, f"a plain version served the bf16 path ({label})")
+            check(all(counts[k_] > 0 for k_ in want),
+                  f"a bf16 kernel of the path never launched ({label}): {counts}")
+            check(all(counts[k_] == 0 for k_ in f32_kernels),
+                  f"an f32 kernel launched on the bf16 path ({label})")
+            check(fused_on or all(counts[k_] == 0 for k_ in bf16_fused),
+                  f"a fused kernel launched at C = 64 ({label})")
+            xb = next(iter(train_loader))[0]
+            step_ms[label] = time_ms(lambda: t.train_one_step(xb, None), BF16_TIMED_STEPS, 1)
+            print(f"phase bf16 step {label} batch {BATCH} [{smi}]: {step_ms[label]:.2f} ms a "
+                  f"step, {BATCH * 1000 / step_ms[label]:.1f} samples/s", flush=True)
+            if label != configs[2][0]:  # the 4-head step's split is the 8-head one's
+                profile_steps(lambda: t.train_one_step(xb, None), 2, step_ms[label],
+                              f"bf16 train step batch {BATCH}", (BATCH, "samples"),
+                              f"profile bf16 step {label}", smi,
+                              ("gemmb::", "flash_bwd", "flash_fwd", "ln_", "elementwise"),
+                              host=True)
+        finally:
+            shutil.rmtree(log_dir, ignore_errors=True)
+        del t, net
+
+    # Phase bf16-4: one bf16 step at LARGE_CONFIG on each opt-in MLP
+    # backward route (the routes' launches).
+    xb = (torch.rand((BATCH, h, w, 1), generator=gen) < 0.13).float().numpy()
+    t = trainer.Trainer(ImageGPT(**large, generator=torch.Generator().manual_seed(SEED),
+                                 device=dev), image_gpt.reproduce_loss,
+                        optim.adam_multiplicative(5e-3, 0.999977), [], [],
+                        log_dir=tempfile.mkdtemp(prefix="chip_smoke_bf16_routes_"),
+                        use_tensorboard=False, device=dev, compute_dtype=torch.bfloat16)
+    nb = large["n_transformer_blocks"]
+    for route, kern in (("recompute", mlp_cuda.BF16_RECOMPUTE_KERNEL),
+                        ("pipe", mlp_cuda.BF16_PIPE_KERNEL)):
+        set_mlp_route(route)
+        try:
+            reset_counts()
+            with PlainCalls(mods) as plain:
+                loss = float(t.train_one_step(xb, None)[0]["loss"])
+                torch.cuda.synchronize()
+            counts = read_counts()
+            counts_all.append(counts)
+            route_ms = time_ms(lambda: t.train_one_step(xb, None), 3, 1)
+        finally:
+            set_mlp_route("saved")
+        print(f"phase bf16 route {route} C={c}: loss {loss:.3f}, {kern} launches {counts[kern]}, "
+              f"{mlp_cuda.BF16_BWD_KERNEL} {counts[mlp_cuda.BF16_BWD_KERNEL]}, plain calls "
+              f"{plain.calls}; step {route_ms:.2f} ms [{smi}]", flush=True)
+        check(counts[kern] == nb and counts[mlp_cuda.BF16_BWD_KERNEL] == 0 and plain.calls == 0,
+              f"the bf16 step on the {route} route did not run its kernel once a block")
+    shutil.rmtree(t.log_dir, ignore_errors=True)
+    del t
+
+    # Phase bf16-5: 3 Adam steps of the bf16 Trainer on the card and on the
+    # CPU (the plain versions), same weights and batches.
+    for label, cfg, batch in (("C=64 H=2", image_gpt.REPRODUCE_CONFIG, TRAJ_BATCH),
+                              ("C=512 H=8", large, 2)):
+        model = ImageGPT(**cfg, generator=torch.Generator().manual_seed(SEED + 3), device=dev)
+        cpu_model = ImageGPT(**cfg, device="cpu")
+        cpu_model.load_state_dict({k_: v_.cpu() for k_, v_ in model.state_dict().items()})
+        init = {k_: v_.detach().cpu().double().clone() for k_, v_ in model.named_parameters()}
+        batches = [(torch.rand((batch, h, w, 1), generator=gen) < 0.13).float().numpy()
+                   for _ in range(3)]
+        losses = {}
+        for where, net in ((dev, model), ("cpu", cpu_model)):
+            t = trainer.Trainer(net, image_gpt.reproduce_loss,
+                                optim.adam_multiplicative(5e-3, 0.999977), [], [],
+                                log_dir=tempfile.mkdtemp(prefix="chip_smoke_bf16_traj_"),
+                                use_tensorboard=False, device=where, compute_dtype=torch.bfloat16)
+            losses[str(where)] = [float(t.train_one_step(xb_, None)[0]["loss"]) for xb_ in batches]
+            shutil.rmtree(t.log_dir, ignore_errors=True)
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses[str(dev)], losses["cpu"]))
+        updates, key_bias = bf16_update_errors(model, cpu_model, init, cfg["n_embedding_channels"])
+        worst = max(updates, key=updates.get)
+        print(f"phase bf16 trajectory {label} batch {batch}: losses card {losses[str(dev)]} cpu "
+              f"{losses['cpu']} max rel err {loss_err:.3e} (tol {BF16_LOSS_RTOL}); update "
+              f"relative L2 largest {updates[worst]:.3e} ({worst}), median "
+              f"{sorted(updates.values())[len(updates) // 2]:.3e} (tol {BF16_UPDATE_RL2}); key "
+              f"bias max abs diff {key_bias:.3e} (tol {BF16_KEY_BIAS_ATOL:.3g})", flush=True)
+        check(loss_err <= BF16_LOSS_RTOL, f"bf16 losses disagree with the CPU ({label})")
+        check(updates[worst] <= BF16_UPDATE_RL2 and key_bias <= BF16_KEY_BIAS_ATOL,
+              f"bf16 updates disagree with the CPU ({label})")
+        del model, cpu_model
+
+    def entry(name, source, replaces, err, tt, bound_, instances=None):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "max_abs_err": err, "ms": tt["kernel"], "plain_ms": tt["plain"],
+                "bound_ms": bound_[0], "bound_by": bound_[1], "library_ms": tt["library"],
+                **({"instances": instances} if instances else {})}
+
+    # The flash entries' ms, plain_ms, library_ms and bound at LARGE_CONFIG's
+    # d = 64; every instance was held against its plain version above.
+    f64 = flash[64]
+    instances = [f"{d}x{d}" for d in sorted(flash)]
+    src = "pytorch_generative_tpu_torch/csrc/"
+    kernels = [
+        entry(attention_cuda.BF16_KERNEL, src + "flash_fwd.cu",
+              "pytorch_generative_tpu/ops/attention_pallas.py:100",
+              max(v_["fwd_err"] for v_ in flash.values()),
+              {"kernel": f64["t"]["fwd"], "plain": f64["t"]["fwd_plain"],
+               "library": f64["t"]["fwd_lib"]}, f64["fwd_bound"], instances),
+        entry(attention_cuda.BF16_BWD_KERNEL, src + "flash_bwd.cu",
+              "pytorch_generative_tpu/ops/attention_pallas.py:205",
+              max(v_["bwd_err"] for v_ in flash.values()),
+              {"kernel": f64["t"]["bwd"], "plain": f64["t"]["bwd_plain"],
+               "library": f64["t"]["bwd_lib"]}, f64["bwd_bound"], instances),
+        *(entry(kern, src + source, replaces, errs[kern], rows_times[kern],
+                rows_times[kern]["bound"])
+          for kern, source, replaces in (
+              (ln_cuda.BF16_KERNEL, "ln_fwd.cu", "pytorch_generative_tpu/ops/ln_pallas.py:41"),
+              (ln_cuda.BF16_BWD_KERNEL, "ln_bwd.cu", "pytorch_generative_tpu/ops/ln_pallas.py:48"),
+              (mlp_cuda.BF16_KERNEL, "mlp_fwd.cu", "pytorch_generative_tpu/ops/mlp_pallas.py:81"),
+              (mlp_cuda.BF16_BWD_KERNEL, "mlp_bwd.cu",
+               "pytorch_generative_tpu/ops/mlp_pallas.py:102"),
+              (mlp_cuda.BF16_RECOMPUTE_KERNEL, "mlp_bwd.cu",
+               "pytorch_generative_tpu/ops/mlp_pallas.py:112"),
+              (mlp_cuda.BF16_PIPE_KERNEL, "mlp_bwd.cu",
+               "pytorch_generative_tpu/ops/mlp_pallas.py:187")))]
+    return {"counts": counts_all, "kernels": kernels, "step_ms": step_ms}
+
+
 def main():
     # Phase 1: device.
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
@@ -2005,6 +2469,8 @@ def main():
     def reset_counts():
         for mod in pairs:
             mod.launches = mod.bwd_launches = 0
+            mod.bf16_launches = mod.bf16_bwd_launches = 0
+        mlp_cuda.bf16_recompute_launches = mlp_cuda.bf16_pipe_launches = 0
         decode_cuda.launches = decode_cuda.step_launches = 0
         snail_decode_cuda.launches = vq_cuda.launches = 0
         attn_block_cuda.launches = attn_block_cuda.project_launches = 0
@@ -2021,6 +2487,10 @@ def main():
                   mlp_cuda.PIPE_KERNEL: mlp_cuda.pipe_launches}
         for mod in pairs:
             counts[mod.KERNEL], counts[mod.BWD_KERNEL] = mod.launches, mod.bwd_launches
+            counts[mod.BF16_KERNEL] = mod.bf16_launches
+            counts[mod.BF16_BWD_KERNEL] = mod.bf16_bwd_launches
+        counts[mlp_cuda.BF16_RECOMPUTE_KERNEL] = mlp_cuda.bf16_recompute_launches
+        counts[mlp_cuda.BF16_PIPE_KERNEL] = mlp_cuda.bf16_pipe_launches
         return counts
 
     # At C = 64 the fused LayerNorm and MLP kernels stay off, as on the TPU.
@@ -2541,9 +3011,13 @@ def main():
     # backward's three routes (fused_attn_phases). ----
     gated = fused_attn_phases(dev, gen, smi, reset_counts, read_counts)
 
+    # ---- ImageGPT's mixed-precision training, compute_dtype=torch.bfloat16,
+    # at C = 64 and C = 512 (bf16_phases). ----
+    bf16 = bf16_phases(dev, gen, smi, reset_counts, read_counts)
+
     all_counts = (serve_counts, train_counts, big_serve_counts, big_train_counts,
                   *big_sample_counts, *route_counts, *snail["counts"], *wide["counts"],
-                  *vq["counts"], *gated["counts"])
+                  *vq["counts"], *gated["counts"], *bf16["counts"])
     # The flash kernels' (d_k, d_v) instances this run held against the
     # plain version; ms, plain_ms and library_ms are reproduce()'s d = 32,
     # bound_ms its 3xTF32 bound and bound_f32_ms the f32 one beside it.
@@ -2591,6 +3065,7 @@ def main():
         dict(snail["kernel"], launches=sum(cs[snail_decode_cuda.KERNEL] for cs in all_counts)),
         dict(vq["kernel"], launches=sum(cs[vq_cuda.KERNEL] for cs in all_counts)),
         *(dict(k_, launches=sum(cs[k_["name"]] for cs in all_counts)) for k_ in gated["kernels"]),
+        *(dict(k_, launches=sum(cs[k_["name"]] for cs in all_counts)) for k_ in bf16["kernels"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,7 @@ raises.
 
 from pytorch_generative_tpu_torch import (  # noqa: F401
     convert,
+    core,
     datasets,
     models,
     nn,

@@ -18,6 +18,13 @@
 // 3xTF32 mma.sync: fmma::flash_fwd_mma_kernel of flash_fwd_mma.cuh, which the
 // fused attention block (attn_block_fwd.cu) runs as well.
 //
+// flash_fwd_bf16 takes bf16 q, k, v and writes bf16 out and f32 lse, for
+// d_k == d_v = 16, 32, 64, 128 (fmma::flash_fwd_bf16_kernel of
+// flash_fwd_mma.cuh): one bf16 mma.sync per product, at the TPU kernel's
+// rounding points for bf16 operands. Its bound at ImageGPT's C = 512: 40
+// GFLOP at 989 TFLOP/s, ~0.041 ms, against 4 x 51 MB of q, k, v and out at
+// 3.35 TB/s, ~0.061 ms: bytes.
+//
 // (d_k, d_v) = (4, 32) and (4, 8) (PixelSNAIL) keep the SIMT tile pass of
 // flash_fwd.cuh: d_k = 4 is under one mma's depth of 8, and they beat their
 // yardstick already.
@@ -86,5 +93,29 @@ extern "C" int flash_fwd_f32(const float* q, const float* k, const float* v,
   FLASH_FWD_MMA_CASE(64)
   FLASH_FWD_MMA_CASE(128)
 #undef FLASH_FWD_MMA_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// As flash_fwd_f32 for bf16 q, k, v and out (lse f32): d_k == d_v, one of
+// 16, 32, 64, 128; each operand's start 16-byte aligned and its (batch,
+// row) strides multiples of 8 values.
+extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, void* out,
+                              float* lse, int B, int L, int H, int d_k, int d_v,
+                              int64_t q_bs, int64_t q_rs, int64_t k_bs, int64_t k_rs,
+                              int64_t v_bs, int64_t v_rs, int mask_center, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* qb = static_cast<const bf16::T*>(q);
+  const auto* kb = static_cast<const bf16::T*>(k);
+  const auto* vb = static_cast<const bf16::T*>(v);
+  auto* ob = static_cast<bf16::T*>(out);
+#define FLASH_FWD_BF16_CASE(D)                                                      \
+  if (d_k == D && d_v == D)                                                         \
+    return fmma::launch_fwd_bf16<D>(qb, kb, vb, ob, lse, B, L, H, q_bs, q_rs, k_bs, \
+                                    k_rs, v_bs, v_rs, mask_center, s);
+  FLASH_FWD_BF16_CASE(16)
+  FLASH_FWD_BF16_CASE(32)
+  FLASH_FWD_BF16_CASE(64)
+  FLASH_FWD_BF16_CASE(128)
+#undef FLASH_FWD_BF16_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -15,11 +15,25 @@
 // which cost more on an H100 than the extra writes (PERF.md section 6
 // times both). The LayerNorm is never folded into the weights: the mean
 // is subtracted before the product, as in the plain version.
+//
+// Every piece is a template on the element type T of the rows, the
+// weights and the scratch (float, or bf16 for the bf16 entries). In bf16
+// the products run on gemm_bf16.cuh (one bf16 mma a product, f32 sums),
+// and each bf16 store rounds to nearest even where the TPU kernel casts
+// (mlp_pallas.py:83-99, :138-184 with bf16 operands): LN(x) (xn) before
+// W1; y stored bf16 while the forward's gelu takes the f32 y; gelu(y)
+// before W2; out = f32 sum + x, then rounded; in the backward, gelu and
+// gelu' of the stored bf16 y, dy rounded for dW1 and dln (dy) while db1
+// sums the f32 dy (dyf); dln, the weight-gradient partials and every sum
+// stay f32.
 
 #pragma once
 
 #include <algorithm>
 
+#include <type_traits>
+
+#include "gemm_bf16.cuh"
 #include "gemm_tf32x3.cuh"
 #include "rows.cuh"
 
@@ -39,46 +53,66 @@ __device__ __forceinline__ float gelu_grad(float y) {
   return cdf + y * (expf(-0.5f * y * y) * kInvSqrt2Pi);
 }
 
+// Two neighbouring values as f32, and their store (a bf16 store rounds to
+// nearest even).
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 ld2(const bf16::T* p) {
+  const uint32_t v = *reinterpret_cast<const uint32_t*>(p);
+  return make_float2(bf16::lo(v), bf16::hi(v));
+}
+__device__ __forceinline__ void st2(float* p, float2 v) { *reinterpret_cast<float2*>(p) = v; }
+__device__ __forceinline__ void st2(bf16::T* p, float2 v) {
+  *reinterpret_cast<uint32_t*>(p) = bf16::pack(v.x, v.y);
+}
+__device__ __forceinline__ float2 gelu2(float2 v) { return make_float2(gelu(v.x), gelu(v.y)); }
+
 // y[m][n, n + 1] = acc + bias[n, n + 1] and, unless g is null,
-// g[m][n, n + 1] = gelu(y).
+// g[m][n, n + 1] = gelu(y), of the f32 y.
+template <class T>
 struct PreactStore {
-  const float* bias;
-  float* y;
-  float* g;
+  const T* bias;
+  T* y;
+  T* g;
   int64_t ld;
   __device__ void operator()(int m, int n, float2 acc, int) const {
-    const float2 b = *reinterpret_cast<const float2*>(bias + n);
+    const float2 b = ld2(bias + n);
     const float2 v = make_float2(acc.x + b.x, acc.y + b.y);
-    *reinterpret_cast<float2*>(y + m * ld + n) = v;
-    if (g) *reinterpret_cast<float2*>(g + m * ld + n) = make_float2(gelu(v.x), gelu(v.y));
+    st2(y + m * ld + n, v);
+    if (g) st2(g + m * ld + n, gelu2(v));
   }
 };
 
 // out[m][n, n + 1] = acc + bias[n, n + 1] + resid[m][n, n + 1].
+template <class T>
 struct BiasResidStore {
-  const float* bias;
-  const float* resid;
-  float* out;
+  const T* bias;
+  const T* resid;
+  T* out;
   int64_t ld;
   __device__ void operator()(int m, int n, float2 acc, int) const {
-    const float2 b = *reinterpret_cast<const float2*>(bias + n);
-    const float2 r = *reinterpret_cast<const float2*>(resid + m * ld + n);
-    *reinterpret_cast<float2*>(out + m * ld + n) =
-        make_float2(acc.x + b.x + r.x, acc.y + b.y + r.y);
+    const float2 b = ld2(bias + n);
+    const float2 r = ld2(resid + m * ld + n);
+    st2(out + m * ld + n, make_float2(acc.x + b.x + r.x, acc.y + b.y + r.y));
   }
 };
 
-// dy[m][n, n + 1] = acc * gelu'(y[m][n, n + 1]), g[m][n, n + 1] = gelu(y).
+// dy[m][n, n + 1] = acc * gelu'(y[m][n, n + 1]), and the same f32 values in
+// dyf unless it is null; g[m][n, n + 1] = gelu(y).
+template <class T>
 struct GeluGradStore {
-  const float* y;
-  float* dy;
-  float* g;
+  const T* y;
+  T* dy;
+  float* dyf;
+  T* g;
   int64_t ld;
   __device__ void operator()(int m, int n, float2 acc, int) const {
-    const float2 v = *reinterpret_cast<const float2*>(y + m * ld + n);
-    *reinterpret_cast<float2*>(dy + m * ld + n) =
-        make_float2(acc.x * gelu_grad(v.x), acc.y * gelu_grad(v.y));
-    *reinterpret_cast<float2*>(g + m * ld + n) = make_float2(gelu(v.x), gelu(v.y));
+    const float2 v = ld2(y + m * ld + n);
+    const float2 d = make_float2(acc.x * gelu_grad(v.x), acc.y * gelu_grad(v.y));
+    st2(dy + m * ld + n, d);
+    if (dyf) st2(dyf + m * ld + n, d);
+    st2(g + m * ld + n, gelu2(v));
   }
 };
 
@@ -92,28 +126,61 @@ struct Store {
   }
 };
 
-// out = A B by the MLP's tile, K in one part.
+// The product over `np` parts of K by the MLP's tile: 3xTF32 for float
+// operands, bf16 mma for bf16 ones.
 template <bool kAT, bool kBT, class Epi>
-cudaError_t product(const float* a, int64_t lda, const float* b, int64_t ldb, int M, int N,
-                    int K, Epi epi, cudaStream_t s) {
+cudaError_t parts(const float* a, int64_t lda, const float* b, int64_t ldb, int M, int N,
+                  int K, int np, int k_split, Epi epi, cudaStream_t s) {
+  return gemm3::gemm_parts<kBM, kBN, kAT, kBT>(a, lda, b, ldb, M, N, K, np, k_split, epi, s);
+}
+template <bool kAT, bool kBT, class Epi>
+cudaError_t parts(const bf16::T* a, int64_t lda, const bf16::T* b, int64_t ldb, int M, int N,
+                  int K, int np, int k_split, Epi epi, cudaStream_t s) {
+  return gemmb::gemm_parts<kBM, kBN, kAT, kBT>(a, lda, b, ldb, M, N, K, np, k_split, epi, s);
+}
+
+// out = A B by the MLP's tile, K in one part.
+template <bool kAT, bool kBT, class T, class Epi>
+cudaError_t product(const T* a, int64_t lda, const T* b, int64_t ldb, int M, int N, int K,
+                    Epi epi, cudaStream_t s) {
   const int k_split = (K + gemm3::kBK - 1) / gemm3::kBK * gemm3::kBK;
-  return gemm3::gemm_parts<kBM, kBN, kAT, kBT>(a, lda, b, ldb, M, N, K, 1, k_split, epi, s);
+  return parts<kAT, kBT>(a, lda, b, ldb, M, N, K, 1, k_split, epi, s);
+}
+
+// Values a 16-byte copy of T moves: C and F are multiples of it.
+template <class T>
+constexpr int vec() {
+  return 16 / static_cast<int>(sizeof(T));
 }
 
 // xn = LN(x) (R, C), then y = xn W1 + b1 (R, F) and, unless g is null,
 // g = gelu(y).
-inline cudaError_t preact(const float* x, const float* gamma, const float* beta,
-                          const float* w1, const float* b1, float* xn, float* y, float* g,
-                          int R, int C, int F, float eps, cudaStream_t s) {
+template <class T>
+cudaError_t preact(const T* x, const T* gamma, const T* beta, const T* w1, const T* b1, T* xn,
+                   T* y, T* g, int R, int C, int F, float eps, cudaStream_t s) {
   cudaError_t err = rows::layer_norm(x, gamma, beta, xn, R, C, eps, s);
   if (err != cudaSuccess) return err;
-  return product<false, false>(xn, C, w1, F, R, F, C, PreactStore{b1, y, g, F}, s);
+  return product<false, false>(xn, C, w1, F, R, F, C, PreactStore<T>{b1, y, g, F}, s);
 }
 
-// The backward's operands and outputs, all contiguous float32: x, dout
-// (R, C), y (R, F), gamma, beta (C,), w1 (C, F), w2 (F, C); dx (R, C), dw1
-// (C, F), db1 (F,), dw2 (F, C), sums (3, C) = (dgamma, dbeta, db2). Scratch:
-// xn = LN(x) (R, C), g = gelu(y) and dy (R, F), dln (R, C), per-slice
+// The forward: out = x + gelu(LN(x) W1 + b1) W2 + b2, y = LN(x) W1 + b1;
+// xn (R, C) and g (R, F) are scratch.
+template <class T>
+cudaError_t forward(const T* x, const T* gamma, const T* beta, const T* w1, const T* b1,
+                    const T* w2, const T* b2, T* out, T* y, T* xn, T* g, int R, int C, int F,
+                    float eps, cudaStream_t s) {
+  if (F % vec<T>() != 0 || C % vec<T>() != 0) return cudaErrorInvalidValue;
+  cudaError_t err = preact(x, gamma, beta, w1, b1, xn, y, g, R, C, F, eps, s);
+  if (err != cudaSuccess) return err;
+  return product<false, false>(g, F, w2, C, R, C, F, BiasResidStore<T>{b2, x, out, C}, s);
+}
+
+// The backward's operands and outputs, all contiguous, of type T: x, dout
+// (R, C), y (R, F), gamma, beta (C,), w1 (C, F), w2 (F, C); dx (R, C).
+// f32 outputs: dw1 (C, F), db1 (F,), dw2 (F, C), sums (3, C) = (dgamma,
+// dbeta, db2). Scratch of type T: xn = LN(x) (R, C), g = gelu(y) and dy
+// (R, F); f32 scratch: dyf (R, F), the f32 dy that db1 sums (bf16 only;
+// null for float, where dy is f32), dln (R, C), per-slice
 // weight-gradient partials wpart2 and wpart1 (slices, C * F; the same buffer where the
 // stages run one after the other), rpart (ceil(R / rows_per_cta), 3, C)
 // and cpart (ceil(R / rows_per_chunk), F). The R rows are cut into slices
@@ -121,22 +188,24 @@ inline cudaError_t preact(const float* x, const float* gamma, const float* beta,
 // for the dW products; every route cuts them alike, so that a slice's
 // partials, and its LayerNorm partials (whole CTAs of the same rows), are
 // the same on every route.
+template <class T>
 struct Backward {
-  const float* x;
-  const float* dout;
-  const float* y;
-  const float* gamma;
-  const float* beta;
-  const float* w1;
-  const float* w2;
-  float* dx;
+  const T* x;
+  const T* dout;
+  const T* y;
+  const T* gamma;
+  const T* beta;
+  const T* w1;
+  const T* w2;
+  T* dx;
   float* dw1;
   float* db1;
   float* dw2;
   float* sums;
-  const float* xn;
-  float* g;
-  float* dy;
+  const T* xn;
+  T* g;
+  T* dy;
+  float* dyf;
   float* dln;
   float* wpart2;
   float* wpart1;
@@ -148,19 +217,28 @@ struct Backward {
   int parts() const { return (R + part_rows - 1) / part_rows; }
   int64_t cf() const { return static_cast<int64_t>(C) * F; }
 
+  // The f32 dy that db1 sums.
+  const float* dy_f32() const {
+    if constexpr (std::is_same<T, float>::value) return dy;
+    else return dyf;
+  }
+
   // Rows [r0, r0 + n) of dy = (dO W2^T) * gelu'(y), a product over C with
   // W2 K-contiguous, and of g = gelu(y).
   cudaError_t dy_rows(int r0, int n, cudaStream_t s) const {
     const int64_t rf = static_cast<int64_t>(r0) * F;
     return product<false, true>(dout + static_cast<int64_t>(r0) * C, C, w2, C, n, F, C,
-                                GeluGradStore{y + rf, dy + rf, g + rf, F}, s);
+                                GeluGradStore<T>{y + rf, dy + rf, dyf ? dyf + rf : nullptr,
+                                                 g + rf, F},
+                                s);
   }
 
-  // db1 = sum dy: per-chunk column sums of all R rows of dy, added in order.
+  // db1 = sum dy: per-chunk column sums of all R rows of the f32 dy, added
+  // in order.
   cudaError_t db1_sum(cudaStream_t s) const {
     const int n_chunks = (R + rows_per_chunk - 1) / rows_per_chunk;
     rows::colsum_kernel<<<dim3((F + 31) / 32, n_chunks), rows::kThreads, 0, s>>>(
-        dy, cpart, R, F, rows_per_chunk);
+        dy_f32(), cpart, R, F, rows_per_chunk);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     return rows::sum_slices(cpart, db1, n_chunks, F, s);
@@ -171,7 +249,7 @@ struct Backward {
   // dW2 = g^T dO into wpart2, A(m = f, k = r) = g[r][f] M-contiguous.
   cudaError_t dw2_parts(int p0, int np, cudaStream_t s) const {
     const int r0 = p0 * part_rows, n = std::min(R - r0, np * part_rows);
-    return gemm3::gemm_parts<kBM, kBN, true, false>(
+    return mlp::parts<true, false>(
         g + static_cast<int64_t>(r0) * F, F, dout + static_cast<int64_t>(r0) * C, C, F, C,
         n, np, part_rows, Store{wpart2 + p0 * cf(), C, cf()}, s);
   }
@@ -179,7 +257,7 @@ struct Backward {
   // dW1 = LN(x)^T dy into wpart1, A(m = c, k = r) = xn[r][c].
   cudaError_t dw1_parts(int p0, int np, cudaStream_t s) const {
     const int r0 = p0 * part_rows, n = std::min(R - r0, np * part_rows);
-    return gemm3::gemm_parts<kBM, kBN, true, false>(
+    return mlp::parts<true, false>(
         xn + static_cast<int64_t>(r0) * C, C, dy + static_cast<int64_t>(r0) * F, F, C, F, n,
         np, part_rows, Store{wpart1 + p0 * cf(), F, cf()}, s);
   }
@@ -210,8 +288,9 @@ struct Backward {
   }
 
   bool valid() const {
-    return R > 0 && C % 4 == 0 && F % 4 == 0 && rows_per_cta > 0 && rows_per_chunk > 0 &&
-           part_rows > 0 && part_rows % rows_per_cta == 0 && part_rows % gemm3::kBK == 0;
+    return R > 0 && C % vec<T>() == 0 && F % vec<T>() == 0 && rows_per_cta > 0 &&
+           rows_per_chunk > 0 && part_rows > 0 && part_rows % rows_per_cta == 0 &&
+           part_rows % gemm3::kBK == 0 && (std::is_same<T, float>::value || dyf != nullptr);
   }
 
   // Every stage after xn over all rows on one stream, each dW product as

@@ -63,73 +63,48 @@
 // step 6's rows per CTA and of the GEMM's k-step, each slice a part of
 // the products' grid (ops/mlp_cuda.py says how many), so that every route
 // cuts its sums alike.
+//
+// The bf16 entries (mlp_bwd_bf16, mlp_bwd_recompute_bf16, mlp_bwd_pipe_bf16)
+// run the same stages on bf16 rows, weights and scratch (mlp.cuh says
+// where they round), every product on gemm_bf16.cuh (one bf16 mma a
+// product, 989 TFLOP/s: ~0.43 ms at best at R = 50,176, C = 512), the f32
+// dy kept beside the bf16 one for db1, and every gradient sum in f32. The
+// three give the same bits: the recompute route rounds its y to bf16 as the
+// forward stores it.
 
 #include "mlp.cuh"
 
-// Inputs, contiguous float32: x, dout (R, C), y (R, F), gamma, beta (C,),
-// w1 (C, F), w2 (F, C). Outputs: dx (R, C), dw1 (C, F), db1 (F,),
-// dw2 (F, C), and sums (3, C) = (dgamma, dbeta, db2). Scratch: xn (R, C),
-// g and dy (R, F), dln (R, C), wpart (ceil(R / part_rows), C * F), rpart (ceil(R /
-// rows_per_cta), 3, C), cpart (ceil(R / rows_per_chunk), F). C and F
-// multiples of 4, C at most rows::kMaxChannels (4096); part_rows a multiple
-// of rows_per_cta and of 32 (gemm3::kBK).
-extern "C" int mlp_bwd_f32(const float* x, const float* dout, const float* y,
-                           const float* gamma, const float* beta, const float* w1,
-                           const float* w2, float* dx, float* dw1, float* db1,
-                           float* dw2, float* sums, float* xn, float* g, float* dy,
-                           float* dln, float* wpart, float* rpart, float* cpart,
-                           int R, int C, int F, int part_rows, int rows_per_cta,
-                           int rows_per_chunk, float eps, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const mlp::Backward bw{x,     dout,  y,     gamma, beta, w1,   w2,    dx,
-                         dw1,   db1,   dw2,   sums,  xn,   g,    dy,    dln,
-                         wpart, wpart, rpart, cpart, R,    C,    F,     part_rows,
-                         rows_per_cta, rows_per_chunk, eps};
-  if (!bw.valid()) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = rows::layer_norm(x, gamma, beta, xn, R, C, eps, s);
+namespace {
+
+// The saved-y route: xn = LN(x), then the stages of mlp::Backward::run.
+template <class T>
+cudaError_t backward(const mlp::Backward<T>& bw, cudaStream_t s) {
+  if (!bw.valid()) return cudaErrorInvalidValue;
+  cudaError_t err = rows::layer_norm(bw.x, bw.gamma, bw.beta, const_cast<T*>(bw.xn), bw.R,
+                                     bw.C, bw.eps, s);
   if (err != cudaSuccess) return err;
   return bw.run(s);
 }
 
-// As mlp_bwd_f32 without a saved y: b1 (F,) joins the inputs and y (R, F)
-// is scratch, recomputed as the forward computes it (and its gelu left to
-// step 2).
-extern "C" int mlp_bwd_recompute_f32(
-    const float* x, const float* dout, const float* gamma, const float* beta,
-    const float* w1, const float* b1, const float* w2, float* dx, float* dw1,
-    float* db1, float* dw2, float* sums, float* xn, float* g, float* y, float* dy,
-    float* dln, float* wpart, float* rpart, float* cpart, int R, int C, int F,
-    int part_rows, int rows_per_cta, int rows_per_chunk, float eps, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const mlp::Backward bw{x,     dout,  y,     gamma, beta, w1,   w2,    dx,
-                         dw1,   db1,   dw2,   sums,  xn,   g,    dy,    dln,
-                         wpart, wpart, rpart, cpart, R,    C,    F,     part_rows,
-                         rows_per_cta, rows_per_chunk, eps};
-  if (!bw.valid()) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = mlp::preact(x, gamma, beta, w1, b1, xn, y, nullptr, R, C, F, eps, s);
+// The recompute route: y (scratch) is recomputed by the forward's own
+// launches, then the stages of mlp::Backward::run.
+template <class T>
+cudaError_t backward_recompute(const mlp::Backward<T>& bw, const T* b1, cudaStream_t s) {
+  if (!bw.valid()) return cudaErrorInvalidValue;
+  cudaError_t err = mlp::preact(bw.x, bw.gamma, bw.beta, bw.w1, b1, const_cast<T*>(bw.xn),
+                                const_cast<T*>(bw.y), static_cast<T*>(nullptr), bw.R, bw.C,
+                                bw.F, bw.eps, s);
   if (err != cudaSuccess) return err;
   return bw.run(s);
 }
 
-// As mlp_bwd_f32, with the dW2 and dW1 partials in two buffers wpart2 and
-// wpart1 (each ceil(R / part_rows) x C * F), run on `stream` and
-// `back_stream` a granule of `granule` slices at a time as the header says;
-// `stream` waits for all of it before the partials are added.
-extern "C" int mlp_bwd_pipe_f32(const float* x, const float* dout, const float* y,
-                                const float* gamma, const float* beta, const float* w1,
-                                const float* w2, float* dx, float* dw1, float* db1,
-                                float* dw2, float* sums, float* xn, float* g, float* dy,
-                                float* dln, float* wpart2, float* wpart1, float* rpart,
-                                float* cpart, int R, int C, int F, int part_rows,
-                                int rows_per_cta, int rows_per_chunk, int granule, float eps,
-                                void* stream, void* back_stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaStream_t s1 = static_cast<cudaStream_t>(back_stream);
-  const mlp::Backward bw{x,      dout,   y,     gamma, beta, w1,   w2,    dx,
-                         dw1,    db1,    dw2,   sums,  xn,   g,    dy,    dln,
-                         wpart2, wpart1, rpart, cpart, R,    C,    F,     part_rows,
-                         rows_per_cta, rows_per_chunk, eps};
-  if (!bw.valid() || granule <= 0 || s == s1) return static_cast<int>(cudaErrorInvalidValue);
+// The pipelined route on `s` and `s1`, a granule of `granule` slices at a
+// time, as the header says; `s` waits for all of it before the partials
+// are added.
+template <class T>
+cudaError_t backward_pipe(const mlp::Backward<T>& bw, int granule, cudaStream_t s,
+                          cudaStream_t s1) {
+  if (!bw.valid() || granule <= 0 || s == s1) return cudaErrorInvalidValue;
   cudaEvent_t front_done, back_done;
   cudaError_t err = cudaEventCreateWithFlags(&front_done, cudaEventDisableTiming);
   if (err != cudaSuccess) return err;
@@ -138,10 +113,11 @@ extern "C" int mlp_bwd_pipe_f32(const float* x, const float* dout, const float* 
     cudaEventDestroy(front_done);
     return err;
   }
-  err = rows::layer_norm(x, gamma, beta, xn, R, C, eps, s);
+  err = rows::layer_norm(bw.x, bw.gamma, bw.beta, const_cast<T*>(bw.xn), bw.R, bw.C, bw.eps,
+                         s);
   for (int p0 = 0; p0 < bw.parts() && err == cudaSuccess; p0 += granule) {
     const int np = std::min(granule, bw.parts() - p0);
-    const int r0 = p0 * part_rows, n = std::min(np * part_rows, R - r0);
+    const int r0 = p0 * bw.part_rows, n = std::min(np * bw.part_rows, bw.R - r0);
     err = bw.dy_rows(r0, n, s);
     if (err == cudaSuccess) err = bw.dw2_parts(p0, np, s);
     // The back stage of this granule waits for its front stage (and for
@@ -164,4 +140,116 @@ extern "C" int mlp_bwd_pipe_f32(const float* x, const float* dout, const float* 
   cudaEventDestroy(front_done);
   cudaEventDestroy(back_done);
   return err;
+}
+
+}  // namespace
+
+// Inputs, contiguous float32: x, dout (R, C), y (R, F), gamma, beta (C,),
+// w1 (C, F), w2 (F, C). Outputs: dx (R, C), dw1 (C, F), db1 (F,),
+// dw2 (F, C), and sums (3, C) = (dgamma, dbeta, db2). Scratch: xn (R, C),
+// g and dy (R, F), dln (R, C), wpart (ceil(R / part_rows), C * F), rpart (ceil(R /
+// rows_per_cta), 3, C), cpart (ceil(R / rows_per_chunk), F). C and F
+// multiples of 4, C at most rows::kMaxChannels (4096); part_rows a multiple
+// of rows_per_cta and of 32 (gemm3::kBK).
+extern "C" int mlp_bwd_f32(const float* x, const float* dout, const float* y,
+                           const float* gamma, const float* beta, const float* w1,
+                           const float* w2, float* dx, float* dw1, float* db1,
+                           float* dw2, float* sums, float* xn, float* g, float* dy,
+                           float* dln, float* wpart, float* rpart, float* cpart,
+                           int R, int C, int F, int part_rows, int rows_per_cta,
+                           int rows_per_chunk, float eps, void* stream) {
+  const mlp::Backward<float> bw{x,   dout,  y,     gamma, beta,  w1,    w2,    dx,
+                                dw1, db1,   dw2,   sums,  xn,    g,     dy,    nullptr,
+                                dln, wpart, wpart, rpart, cpart, R,     C,     F,
+                                part_rows, rows_per_cta, rows_per_chunk, eps};
+  return static_cast<int>(backward(bw, static_cast<cudaStream_t>(stream)));
+}
+
+// As mlp_bwd_f32 without a saved y: b1 (F,) joins the inputs and y (R, F)
+// is scratch, recomputed as the forward computes it (and its gelu left to
+// step 2).
+extern "C" int mlp_bwd_recompute_f32(
+    const float* x, const float* dout, const float* gamma, const float* beta,
+    const float* w1, const float* b1, const float* w2, float* dx, float* dw1,
+    float* db1, float* dw2, float* sums, float* xn, float* g, float* y, float* dy,
+    float* dln, float* wpart, float* rpart, float* cpart, int R, int C, int F,
+    int part_rows, int rows_per_cta, int rows_per_chunk, float eps, void* stream) {
+  const mlp::Backward<float> bw{x,   dout,  y,     gamma, beta,  w1,    w2,    dx,
+                                dw1, db1,   dw2,   sums,  xn,    g,     dy,    nullptr,
+                                dln, wpart, wpart, rpart, cpart, R,     C,     F,
+                                part_rows, rows_per_cta, rows_per_chunk, eps};
+  return static_cast<int>(backward_recompute(bw, b1, static_cast<cudaStream_t>(stream)));
+}
+
+// As mlp_bwd_f32, with the dW2 and dW1 partials in two buffers wpart2 and
+// wpart1 (each ceil(R / part_rows) x C * F), run on `stream` and
+// `back_stream` a granule of `granule` slices at a time as the header says;
+// `stream` waits for all of it before the partials are added.
+extern "C" int mlp_bwd_pipe_f32(const float* x, const float* dout, const float* y,
+                                const float* gamma, const float* beta, const float* w1,
+                                const float* w2, float* dx, float* dw1, float* db1,
+                                float* dw2, float* sums, float* xn, float* g, float* dy,
+                                float* dln, float* wpart2, float* wpart1, float* rpart,
+                                float* cpart, int R, int C, int F, int part_rows,
+                                int rows_per_cta, int rows_per_chunk, int granule, float eps,
+                                void* stream, void* back_stream) {
+  const mlp::Backward<float> bw{x,   dout,   y,      gamma, beta,  w1,    w2,    dx,
+                                dw1, db1,    dw2,    sums,  xn,    g,     dy,    nullptr,
+                                dln, wpart2, wpart1, rpart, cpart, R,     C,     F,
+                                part_rows, rows_per_cta, rows_per_chunk, eps};
+  return static_cast<int>(backward_pipe(bw, granule, static_cast<cudaStream_t>(stream),
+                                        static_cast<cudaStream_t>(back_stream)));
+}
+
+// The bf16 entries: as the f32 ones with x, dout, y, gamma, beta, w1, b1,
+// w2, dx and the scratch xn, g, dy bf16, and one more f32 scratch dyf
+// (R, F) after dy; dw1, db1, dw2, sums, dln and the partials stay f32. C
+// and F multiples of 8.
+using BP = const bf16::T*;
+using BW = bf16::T*;
+
+extern "C" int mlp_bwd_bf16(const void* x, const void* dout, const void* y,
+                            const void* gamma, const void* beta, const void* w1,
+                            const void* w2, void* dx, float* dw1, float* db1, float* dw2,
+                            float* sums, void* xn, void* g, void* dy, float* dyf, float* dln,
+                            float* wpart, float* rpart, float* cpart, int R, int C, int F,
+                            int part_rows, int rows_per_cta, int rows_per_chunk, float eps,
+                            void* stream) {
+  const mlp::Backward<bf16::T> bw{
+      BP(x),   BP(dout), BP(y),   BP(gamma), BP(beta),  BP(w1), BP(w2), BW(dx),
+      dw1,     db1,      dw2,     sums,      BP(xn),    BW(g),  BW(dy), dyf,
+      dln,     wpart,    wpart,   rpart,     cpart,     R,      C,      F,
+      part_rows, rows_per_cta, rows_per_chunk, eps};
+  return static_cast<int>(backward(bw, static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int mlp_bwd_recompute_bf16(
+    const void* x, const void* dout, const void* gamma, const void* beta, const void* w1,
+    const void* b1, const void* w2, void* dx, float* dw1, float* db1, float* dw2,
+    float* sums, void* xn, void* g, void* y, void* dy, float* dyf, float* dln, float* wpart,
+    float* rpart, float* cpart, int R, int C, int F, int part_rows, int rows_per_cta,
+    int rows_per_chunk, float eps, void* stream) {
+  const mlp::Backward<bf16::T> bw{
+      BP(x),   BP(dout), BP(y),   BP(gamma), BP(beta),  BP(w1), BP(w2), BW(dx),
+      dw1,     db1,      dw2,     sums,      BP(xn),    BW(g),  BW(dy), dyf,
+      dln,     wpart,    wpart,   rpart,     cpart,     R,      C,      F,
+      part_rows, rows_per_cta, rows_per_chunk, eps};
+  return static_cast<int>(backward_recompute(bw, BP(b1), static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int mlp_bwd_pipe_bf16(const void* x, const void* dout, const void* y,
+                                 const void* gamma, const void* beta, const void* w1,
+                                 const void* w2, void* dx, float* dw1, float* db1, float* dw2,
+                                 float* sums, void* xn, void* g, void* dy, float* dyf,
+                                 float* dln, float* wpart2, float* wpart1, float* rpart,
+                                 float* cpart, int R, int C, int F, int part_rows,
+                                 int rows_per_cta, int rows_per_chunk, int granule, float eps,
+                                 void* stream, void* back_stream) {
+  const mlp::Backward<bf16::T> bw{
+      BP(x),   BP(dout), BP(y),   BP(gamma), BP(beta),  BP(w1), BP(w2), BW(dx),
+      dw1,     db1,      dw2,     sums,      BP(xn),    BW(g),  BW(dy), dyf,
+      dln,     wpart2,   wpart1,  rpart,     cpart,     R,      C,      F,
+      part_rows, rows_per_cta, rows_per_chunk, eps};
+  return static_cast<int>(backward_pipe(bw, granule, static_cast<cudaStream_t>(stream),
+                                        static_cast<cudaStream_t>(back_stream)));
 }

@@ -22,6 +22,11 @@
 // out and weights: operations. Both products run on the tensor cores by
 // 3xTF32 (gemm_tf32x3.cuh, 495 / 3 = 165 TFLOP/s: ~1.3 ms at best; f32 on
 // the CUDA cores would stop at 67 TFLOP/s, ~3.1 ms).
+//
+// mlp_fwd_bf16 runs the same three launches on bf16 rows, weights and
+// scratch: the products on gemm_bf16.cuh (one bf16 mma a product, 989
+// TFLOP/s: ~0.21 ms at best), bf16 stores where the TPU kernel casts
+// (mlp.cuh says where).
 
 #include "mlp.cuh"
 
@@ -33,10 +38,21 @@ extern "C" int mlp_fwd_f32(const float* x, const float* gamma, const float* beta
                            const float* w1, const float* b1, const float* w2,
                            const float* b2, float* out, float* y, float* xn, float* g,
                            int R, int C, int F, float eps, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (F % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = mlp::preact(x, gamma, beta, w1, b1, xn, y, g, R, C, F, eps, s);
-  if (err != cudaSuccess) return err;
-  return mlp::product<false, false>(g, F, w2, C, R, C, F,
-                                    mlp::BiasResidStore{b2, x, out, C}, s);
+  return static_cast<int>(mlp::forward(x, gamma, beta, w1, b1, w2, b2, out, y, xn, g, R, C,
+                                       F, eps, static_cast<cudaStream_t>(stream)));
+}
+
+// As mlp_fwd_f32 with every operand, output and scratch bf16; C and F
+// multiples of 8.
+extern "C" int mlp_fwd_bf16(const void* x, const void* gamma, const void* beta,
+                            const void* w1, const void* b1, const void* w2, const void* b2,
+                            void* out, void* y, void* xn, void* g, int R, int C, int F,
+                            float eps, void* stream) {
+  using P = const bf16::T*;
+  using W = bf16::T*;
+  return static_cast<int>(mlp::forward(
+      static_cast<P>(x), static_cast<P>(gamma), static_cast<P>(beta), static_cast<P>(w1),
+      static_cast<P>(b1), static_cast<P>(w2), static_cast<P>(b2), static_cast<W>(out),
+      static_cast<W>(y), static_cast<W>(xn), static_cast<W>(g), R, C, F, eps,
+      static_cast<cudaStream_t>(stream)));
 }

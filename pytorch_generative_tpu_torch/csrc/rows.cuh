@@ -1,6 +1,14 @@
 // Row-wise LayerNorm pieces and fixed-order column sums, shared by
 // ln_fwd.cu, ln_bwd.cu, mlp_fwd.cu and mlp_bwd.cu.
 //
+// The LayerNorm kernels take their rows (x, dy, resid, out, dx) and gamma,
+// beta as float32 or bf16 (the element type T, and TD for dy), and hold
+// everything in registers as f32: statistics, sums and the arithmetic are
+// f32 in both, and a bf16 output is rounded to nearest even once, at its
+// store (ln_pallas.py:41-66 with bf16 rows). Four channels are one 16-byte
+// load of f32 or one 8-byte load of bf16, so the column layout below is
+// the same for both types.
+//
 // A row of C float32 channels (C a multiple of 4, at most 512) is held by
 // one warp: lane l owns the float4s at columns 4 * (l + 32 * i), i < NV,
 // NV = 1, 2 or 4 for C up to 128, 256 or 512, so a row is read with
@@ -24,6 +32,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace rows {
 
 constexpr int kWarps = 8;  // rows in flight per CTA
@@ -39,8 +49,17 @@ __device__ __forceinline__ float4 ld4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
 
+__device__ __forceinline__ float4 ld4(const bf16::T* p) {
+  const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(bf16::lo(v.x), bf16::hi(v.x), bf16::lo(v.y), bf16::hi(v.y));
+}
+
 __device__ __forceinline__ void st4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
+}
+
+__device__ __forceinline__ void st4(bf16::T* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(bf16::pack(v.x, v.y), bf16::pack(v.z, v.w));
 }
 
 __device__ __forceinline__ float hsum(float4 v) { return v.x + v.y + v.z + v.w; }
@@ -57,9 +76,8 @@ __device__ __forceinline__ void add_to(float* p, float4 v, bool first) {
 }
 
 // The lane's float4s of one row; columns past C read as 0.
-template <int NV>
-__device__ __forceinline__ void load_row(float4 (&v)[NV], const float* p, int C,
-                                         int lane) {
+template <int NV, class T>
+__device__ __forceinline__ void load_row(float4 (&v)[NV], const T* p, int C, int lane) {
 #pragma unroll
   for (int i = 0; i < NV; ++i)
     v[i] = col(lane, i) < C ? ld4(p + col(lane, i)) : make_float4(0.f, 0.f, 0.f, 0.f);
@@ -87,11 +105,10 @@ __device__ __forceinline__ float2 row_stats(const float4 (&v)[NV], int C, int la
 
 // out = (x - mean) * rstd * gamma + beta over (R, C) rows, one warp per
 // row (ln_fwd.cu, and the fused MLP's LN(x)).
-template <int NV>
+template <int NV, class T>
 __global__ void __launch_bounds__(kThreads)
-ln_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
-              const float* __restrict__ beta, float* __restrict__ out, int R, int C,
-              float eps) {
+ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
+              const T* __restrict__ beta, T* __restrict__ out, int R, int C, float eps) {
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (r >= R) return;
@@ -119,12 +136,13 @@ ln_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
 // (sum dy * xhat, sum dy) and, with kResid, sum resid. Statistics are
 // recomputed from x. Warp w takes rows r0 + w, r0 + w + 8, ...; the eight
 // warps' sums are then added in warp order through shared memory
-// (kAcc * C floats of dynamic shared memory).
-template <int NV, bool kResid>
+// (kAcc * C floats of dynamic shared memory). x, gamma, resid and dx are
+// of type T, dy of TD (the fused MLP's f32 dln beside bf16 rows).
+template <int NV, bool kResid, class T, class TD>
 __global__ void __launch_bounds__(kThreads)
-ln_bwd_rows_kernel(const float* __restrict__ x, const float* __restrict__ dy,
-                   const float* __restrict__ gamma, const float* __restrict__ resid,
-                   float* __restrict__ dx, float* __restrict__ part, int R, int C,
+ln_bwd_rows_kernel(const T* __restrict__ x, const TD* __restrict__ dy,
+                   const T* __restrict__ gamma, const T* __restrict__ resid,
+                   T* __restrict__ dx, float* __restrict__ part, int R, int C,
                    int rows_per_cta, float eps) {
   constexpr int kAcc = kResid ? 3 : 2;
   extern __shared__ float acc_s[];  // kAcc x C
@@ -265,8 +283,8 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
 }
 
 // The thread's float4s of one row; columns past C read as 0.
-template <int NVC>
-__device__ __forceinline__ void load_row_wide(float4 (&v)[NVC], const float* p, int C) {
+template <int NVC, class T>
+__device__ __forceinline__ void load_row_wide(float4 (&v)[NVC], const T* p, int C) {
 #pragma unroll
   for (int i = 0; i < NVC; ++i) {
     const int c = wcol(threadIdx.x, i);
@@ -295,11 +313,10 @@ __device__ __forceinline__ float2 row_stats_wide(const float4 (&v)[NVC], int C,
 }
 
 // ln_fwd_kernel for wide rows, one CTA a row.
-template <int NVC>
+template <int NVC, class T>
 __global__ void __launch_bounds__(kThreads)
-ln_fwd_wide_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
-                   const float* __restrict__ beta, float* __restrict__ out, int C,
-                   float eps) {
+ln_fwd_wide_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
+                   const T* __restrict__ beta, T* __restrict__ out, int C, float eps) {
   __shared__ float red[kWarps];
   const int64_t base = static_cast<int64_t>(blockIdx.x) * C;
   float4 v[NVC];
@@ -321,11 +338,11 @@ ln_fwd_wide_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
 // ln_bwd_rows_kernel for wide rows: the CTA walks its rows one at a time,
 // each thread keeping the column sums of the columns it owns, so the CTA's
 // partial sums need no reduction across threads.
-template <int NVC, bool kResid>
+template <int NVC, bool kResid, class T, class TD>
 __global__ void __launch_bounds__(kThreads)
-ln_bwd_rows_wide_kernel(const float* __restrict__ x, const float* __restrict__ dy,
-                        const float* __restrict__ gamma, const float* __restrict__ resid,
-                        float* __restrict__ dx, float* __restrict__ part, int R, int C,
+ln_bwd_rows_wide_kernel(const T* __restrict__ x, const TD* __restrict__ dy,
+                        const T* __restrict__ gamma, const T* __restrict__ resid,
+                        T* __restrict__ dx, float* __restrict__ part, int R, int C,
                         int rows_per_cta, float eps) {
   constexpr int kAcc = kResid ? 3 : 2;
   __shared__ float red[kWarps];
@@ -410,19 +427,20 @@ inline int vecs_per_thread(int C) {
 
 // out = LN(x) over (R, C) rows: warp-per-row kernels up to C = 512, a CTA
 // a row above.
-inline cudaError_t layer_norm(const float* x, const float* gamma, const float* beta,
-                              float* out, int R, int C, float eps, cudaStream_t stream) {
+template <class T>
+cudaError_t layer_norm(const T* x, const T* gamma, const T* beta, T* out, int R, int C,
+                       float eps, cudaStream_t stream) {
   const dim3 grid((R + kWarps - 1) / kWarps);
   switch (vecs_per_lane(C)) {
-    case 1: ln_fwd_kernel<1><<<grid, kThreads, 0, stream>>>(x, gamma, beta, out, R, C, eps); break;
-    case 2: ln_fwd_kernel<2><<<grid, kThreads, 0, stream>>>(x, gamma, beta, out, R, C, eps); break;
-    case 4: ln_fwd_kernel<4><<<grid, kThreads, 0, stream>>>(x, gamma, beta, out, R, C, eps); break;
+    case 1: ln_fwd_kernel<1, T><<<grid, kThreads, 0, stream>>>(x, gamma, beta, out, R, C, eps); break;
+    case 2: ln_fwd_kernel<2, T><<<grid, kThreads, 0, stream>>>(x, gamma, beta, out, R, C, eps); break;
+    case 4: ln_fwd_kernel<4, T><<<grid, kThreads, 0, stream>>>(x, gamma, beta, out, R, C, eps); break;
     default:
       if (R <= 0) return cudaErrorInvalidValue;
       switch (vecs_per_thread(C)) {
-        case 1: ln_fwd_wide_kernel<1><<<R, kThreads, 0, stream>>>(x, gamma, beta, out, C, eps); break;
-        case 2: ln_fwd_wide_kernel<2><<<R, kThreads, 0, stream>>>(x, gamma, beta, out, C, eps); break;
-        case 4: ln_fwd_wide_kernel<4><<<R, kThreads, 0, stream>>>(x, gamma, beta, out, C, eps); break;
+        case 1: ln_fwd_wide_kernel<1, T><<<R, kThreads, 0, stream>>>(x, gamma, beta, out, C, eps); break;
+        case 2: ln_fwd_wide_kernel<2, T><<<R, kThreads, 0, stream>>>(x, gamma, beta, out, C, eps); break;
+        case 4: ln_fwd_wide_kernel<4, T><<<R, kThreads, 0, stream>>>(x, gamma, beta, out, C, eps); break;
         default: return cudaErrorInvalidValue;
       }
   }
@@ -432,28 +450,28 @@ inline cudaError_t layer_norm(const float* x, const float* gamma, const float* b
 // The LayerNorm backward's first pass over R rows: dx and one partial
 // (kAcc, C) per CTA of rows_per_cta rows in part. resid may be null
 // (kAcc = 2).
-inline cudaError_t ln_backward_rows(const float* x, const float* dy, const float* gamma,
-                                    const float* resid, float* dx, float* part, int R,
-                                    int C, int rows_per_cta, float eps,
-                                    cudaStream_t stream) {
+template <class T, class TD>
+cudaError_t ln_backward_rows(const T* x, const TD* dy, const T* gamma, const T* resid, T* dx,
+                             float* part, int R, int C, int rows_per_cta, float eps,
+                             cudaStream_t stream) {
   if (rows_per_cta <= 0 || R <= 0) return cudaErrorInvalidValue;
   const int n_ctas = (R + rows_per_cta - 1) / rows_per_cta;
   const int acc = resid ? 3 : 2;
   const size_t smem = sizeof(float) * acc * C;
 #define PGT_LN_BWD(NV)                                                          \
   if (resid)                                                                    \
-    ln_bwd_rows_kernel<NV, true><<<n_ctas, kThreads, smem, stream>>>(           \
+    ln_bwd_rows_kernel<NV, true, T, TD><<<n_ctas, kThreads, smem, stream>>>(   \
         x, dy, gamma, resid, dx, part, R, C, rows_per_cta, eps);                \
   else                                                                          \
-    ln_bwd_rows_kernel<NV, false><<<n_ctas, kThreads, smem, stream>>>(          \
+    ln_bwd_rows_kernel<NV, false, T, TD><<<n_ctas, kThreads, smem, stream>>>(  \
         x, dy, gamma, resid, dx, part, R, C, rows_per_cta, eps);                \
   break;
 #define PGT_LN_BWD_WIDE(NVC)                                                    \
   if (resid)                                                                    \
-    ln_bwd_rows_wide_kernel<NVC, true><<<n_ctas, kThreads, 0, stream>>>(        \
+    ln_bwd_rows_wide_kernel<NVC, true, T, TD><<<n_ctas, kThreads, 0, stream>>>( \
         x, dy, gamma, resid, dx, part, R, C, rows_per_cta, eps);                \
   else                                                                          \
-    ln_bwd_rows_wide_kernel<NVC, false><<<n_ctas, kThreads, 0, stream>>>(       \
+    ln_bwd_rows_wide_kernel<NVC, false, T, TD><<<n_ctas, kThreads, 0, stream>>>(\
         x, dy, gamma, resid, dx, part, R, C, rows_per_cta, eps);                \
   break;
   switch (vecs_per_lane(C)) {
@@ -475,10 +493,10 @@ inline cudaError_t ln_backward_rows(const float* x, const float* dy, const float
 
 // The LayerNorm backward over all rows: dx, then part (n_ctas, kAcc, C)
 // summed in order into sums (kAcc, C).
-inline cudaError_t ln_backward(const float* x, const float* dy, const float* gamma,
-                               const float* resid, float* dx, float* part, float* sums,
-                               int R, int C, int rows_per_cta, float eps,
-                               cudaStream_t stream) {
+template <class T>
+cudaError_t ln_backward(const T* x, const T* dy, const T* gamma, const T* resid, T* dx,
+                        float* part, float* sums, int R, int C, int rows_per_cta, float eps,
+                        cudaStream_t stream) {
   const cudaError_t err =
       ln_backward_rows(x, dy, gamma, resid, dx, part, R, C, rows_per_cta, eps, stream);
   if (err != cudaSuccess) return err;

@@ -41,6 +41,11 @@ class VectorQuantizer(nn.Module):
     version for CPU inputs); ``use_ema=False`` never does.
     """
 
+    # The EMA statistics accumulate over the whole run: the Trainer's
+    # compute_dtype cast leaves them float32 (core.cast_floating), as the
+    # JAX module's state_field declaration does.
+    state_buffers = ("ema_embedding", "ema_cluster_size", "ema_embedding_avg")
+
     def __init__(self, n_embeddings: int, embedding_dim: int, use_ema: bool = True,
                  ema_decay: float = 0.99, axis_name=None, use_fused=None,
                  generator=None):
@@ -81,6 +86,11 @@ class VectorQuantizer(nn.Module):
 
     def forward(self, x):
         n, h, w, c = x.shape
+        if x.dtype == torch.bfloat16:
+            raise NotImplementedError(
+                "VectorQuantizer under a bf16 compute dtype (bf16 rows beside the f32 "
+                "codebook) is not ported yet: ROADMAP.md queue B item 4 (B.8's modes, "
+                "with A.5)")
         if c != self.embedding_dim:
             raise ValueError(f"input channels {c} != embedding_dim {self.embedding_dim}")
         flat_x = x.reshape(-1, c)

@@ -14,6 +14,14 @@ ValueError. (4, 32) and (4, 8) run on the CUDA cores and take any view with
 unit feature stride. ``causal_attention_packed`` is one autograd Function
 on both devices: its forward saves q, k, v, out and lse, as the JAX
 package's ``_vjp_fwd`` does, and its backward is the flash backward.
+
+bf16 operands (the Trainer's ``compute_dtype=torch.bfloat16``) take the
+kernels' bf16 mode, for d_k == d_v in ``BF16_HEAD_DIMS``: out, dq, dk and
+dv bf16, lse f32, rounded where the JAX kernel rounds for bf16 operands
+(the plain versions say where). On the card their operands start 16-byte
+aligned with strides that are multiples of 8 values. The other pairs,
+(4, 32) and (4, 8), raise a TypeError for bf16 on both devices: that mode
+is ROADMAP.md queue B item 1's.
 """
 
 from __future__ import annotations
@@ -39,6 +47,14 @@ HEAD_DIM_PAIRS = ((16, 16), (32, 32), (64, 64), (128, 128), (4, 32), (4, 8))
 # which runs the dq pass and then the dk/dv pass).
 launches = 0
 bwd_launches = 0
+# The same for the bf16 mode's entries (flash_fwd_bf16, flash_bwd_bf16).
+BF16_KERNEL = "flash_fwd_bf16"
+BF16_BWD_KERNEL = "flash_bwd_bf16"
+BF16_HEAD_DIMS = (16, 32, 64, 128)
+bf16_launches = 0
+bf16_bwd_launches = 0
+_LOG2E = 1.4426950408889634
+_LN2 = 0.6931471805599453
 
 
 def _pack(t):
@@ -51,9 +67,64 @@ def _unpack(t, n_heads):
     return t.reshape(b, l, n_heads, hd // n_heads).transpose(1, 2)
 
 
+def _bf16(t):
+    """t rounded to bf16 (nearest even) and back to f32."""
+    return t.to(torch.bfloat16).float()
+
+
+def _q2(q):
+    """q * scale * log2(e) in f32, rounded to bf16: the bf16 kernels' (and
+    the JAX kernel's) operand in place of q (attention_pallas.py:137-138)."""
+    return _bf16(q * ((1.0 / q.shape[-1] ** 0.5) * _LOG2E))
+
+
+def _flash_forward_bf16_plain(q, k, v, mask_center, n_heads):
+    """The bf16 kernel's plain version, in f32 with the JAX kernel's bf16
+    rounding points: q2 = bf16(q * scale * log2(e)), S = q2 k^T, the softmax
+    in base 2 on the row's max, P rounded to bf16 for P v while the row sums
+    take the f32 P, out rounded to bf16, lse f32."""
+    q, k, v = (_unpack(t, n_heads).float() for t in (q, k, v))
+    mask = causal_attention_mask(q.shape[-2], mask_center, device=q.device)
+    s = torch.einsum("nhqd,nhkd->nhqk", _q2(q), k).masked_fill(~mask, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp2(s - m)  # masked: exp2(-inf) == 0
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("nhqk,nhkd->nhqd", _bf16(p), v)
+    out = out / torch.where(l == 0.0, torch.ones_like(l), l)
+    lse = torch.where(l == 0.0, torch.full_like(l, float("-inf")),
+                      m * _LN2 + torch.log(torch.clamp(l, min=1e-38)))
+    return _pack(out).to(torch.bfloat16), lse[..., 0]
+
+
+def _flash_backward_bf16_plain(q, k, v, out, lse, dout, mask_center, n_heads):
+    """The bf16 backward kernel's plain version, in f32 with the JAX
+    kernel's bf16 rounding points (attention_pallas.py:250-290): p rebuilt
+    from q2 and lse, delta = rowsum(dO O) in f32, dV = bf16(p)^T dO,
+    dS = p (dO v^T - delta) in f32, dQ = bf16(dS) k * scale, dK = bf16(dS)^T
+    q2 * ln 2; dq, dk and dv rounded to bf16 once, at the end."""
+    q, k, v, out, dout = (_unpack(t, n_heads).float() for t in (q, k, v, out, dout))
+    scale = 1.0 / q.shape[-1] ** 0.5
+    q2 = _q2(q)
+    mask = causal_attention_mask(q.shape[-2], mask_center, device=q.device)
+    lse = lse[..., None]
+    live = mask & torch.isfinite(lse)  # fully-masked rows get p = 0
+    s = torch.einsum("nhqd,nhkd->nhqk", q2, k)
+    p = torch.where(live, torch.exp2(s - torch.where(live, lse * _LOG2E, 0.0)), 0.0)
+    delta = (dout * out).sum(dim=-1, keepdim=True)
+    dv = torch.einsum("nhqk,nhqd->nhkd", _bf16(p), dout)
+    ds = _bf16(p * (torch.einsum("nhqd,nhkd->nhqk", dout, v) - delta))
+    dq = torch.einsum("nhqk,nhkd->nhqd", ds, k) * scale
+    dk = torch.einsum("nhqk,nhqd->nhkd", ds, q2) * _LN2
+    return tuple(_pack(t).to(torch.bfloat16) for t in (dq, dk, dv))
+
+
 def flash_forward_plain(q, k, v, mask_center: bool, n_heads: int):
     """The kernel's plain version: (out (B, L, H*d_v), lse (B, H, L)) for
-    q, k (B, L, H*d_k) and v (B, L, H*d_v)."""
+    q, k (B, L, H*d_k) and v (B, L, H*d_v); bf16 operands take the bf16
+    kernel's."""
+    if q.dtype == torch.bfloat16:
+        return _flash_forward_bf16_plain(q, k, v, mask_center, n_heads)
     out, lse = causal_attention_with_lse(
         _unpack(q, n_heads), _unpack(k, n_heads), _unpack(v, n_heads),
         mask_center)
@@ -63,7 +134,10 @@ def flash_forward_plain(q, k, v, mask_center: bool, n_heads: int):
 def flash_backward_plain(q, k, v, out, lse, dout, mask_center: bool,
                          n_heads: int):
     """The backward kernel's plain version, on a materialised p: (dq, dk,
-    dv), dq and dk (B, L, H*d_k), dv (B, L, H*d_v)."""
+    dv), dq and dk (B, L, H*d_k), dv (B, L, H*d_v); bf16 operands take the
+    bf16 kernel's."""
+    if q.dtype == torch.bfloat16:
+        return _flash_backward_bf16_plain(q, k, v, out, lse, dout, mask_center, n_heads)
     q, k, v, out, dout = (_unpack(t, n_heads) for t in (q, k, v, out, dout))
     scale = 1.0 / (q.shape[-1] ** 0.5)
     mask = causal_attention_mask(q.shape[-2], mask_center, device=q.device)
@@ -79,9 +153,10 @@ def flash_backward_plain(q, k, v, out, lse, dout, mask_center: bool,
     return _pack(dq), _pack(dk), _pack(dv)
 
 
-def _check_operand(name, t, b, l):
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: the flash kernels take float32, got {t.dtype}")
+def _check_operand(name, t, b, l, dtype):
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: {t.dtype} beside q's {dtype}; the flash kernels take "
+                        "float32 or bfloat16 operands of one type")
     if t.dim() != 3 or t.shape[0] != b or t.shape[1] != l:
         raise ValueError(f"{name}: expected (B={b}, L={l}, H*d), got {tuple(t.shape)}")
     if t.stride(2) != 1 or t.stride(0) != l * t.stride(1):
@@ -93,12 +168,14 @@ def _check_operands(n_heads, **operands):
     """Checks packed operands on one device: q and k (B, L, H*d_k), the rest
     (v, out, dout) (B, L, H*d_v); returns (d_k, d_v)."""
     q, v = operands["q"], operands["v"]
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q: the flash kernels take float32 or bfloat16, got {q.dtype}")
     b, l, ck = q.shape
     cv = v.shape[-1]
     for name, t in operands.items():
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        _check_operand(name, t, b, l)
+        _check_operand(name, t, b, l, q.dtype)
         ref = "q" if name in ("q", "k") else "v"
         if t.shape[2] != operands[ref].shape[2]:
             raise ValueError(f"{name} width {t.shape[2]} != {ref} width "
@@ -108,12 +185,23 @@ def _check_operands(n_heads, **operands):
         raise ValueError(f"widths q/k {ck}, v {cv} over {n_heads} heads: "
                          f"(d_k, d_v) not one of {HEAD_DIM_PAIRS}")
     if dims[0] == dims[1]:
-        for name, t in operands.items():  # the tensor-core kernels copy 16 bytes at a time
-            if t.data_ptr() % 16 or t.stride(0) % 4 or t.stride(1) % 4:
+        vec = 16 // q.element_size()  # the tensor-core kernels copy 16 bytes at a time
+        for name, t in operands.items():
+            if t.data_ptr() % 16 or t.stride(0) % vec or t.stride(1) % vec:
                 raise ValueError(f"{name}: the d_k == d_v kernels need a 16-byte aligned "
-                                 f"start and strides that are multiples of 4, got "
+                                 f"start and strides that are multiples of {vec}, got "
                                  f"offset {t.data_ptr() % 16} bytes, strides {t.stride()}")
     return dims
+
+
+def _check_bf16_pair(dtype, dims):
+    """Raises a TypeError for bf16 operands at a (d_k, d_v) pair that the
+    bf16 mode does not take, on either device."""
+    if dtype == torch.bfloat16 and (dims[0] != dims[1] or dims[0] not in BF16_HEAD_DIMS):
+        raise TypeError(
+            f"(d_k, d_v) = {dims}: the flash kernels' bf16 mode takes d_k == d_v in "
+            f"{BF16_HEAD_DIMS}; bf16 at other widths is not ported yet: ROADMAP.md "
+            "queue B item 1")
 
 
 def _strides(*tensors):
@@ -121,26 +209,30 @@ def _strides(*tensors):
 
 
 def _flash_forward_cuda(q, k, v, mask_center: bool, n_heads: int):
-    global launches
+    global launches, bf16_launches
     d_k, d_v = _check_operands(n_heads, q=q, k=k, v=v)
     b, l, _ = q.shape
-    out = torch.empty((b, l, n_heads * d_v), device=q.device, dtype=torch.float32)
+    out = torch.empty((b, l, n_heads * d_v), device=q.device, dtype=q.dtype)
     lse = torch.empty((b, n_heads, l), device=q.device, dtype=torch.float32)
-    fn = _build.declare(_build.load(KERNEL).flash_fwd_f32,
+    entry = "flash_fwd_bf16" if q.dtype == torch.bfloat16 else "flash_fwd_f32"
+    fn = _build.declare(getattr(_build.load(KERNEL), entry),
                         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                         + [ctypes.c_int64] * 6 + [ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  lse.data_ptr(), b, l, n_heads, d_k, d_v, *_strides(q, k, v),
                  int(mask_center), torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "flash_fwd_f32")
-    launches += 1
+    _build.check(err, entry)
+    if q.dtype == torch.bfloat16:
+        bf16_launches += 1
+    else:
+        launches += 1
     return out, lse
 
 
 def _flash_backward_cuda(q, k, v, out, lse, dout, mask_center: bool,
                          n_heads: int):
-    global bwd_launches
+    global bwd_launches, bf16_bwd_launches
     dout = dout.contiguous()
     d_k, d_v = _check_operands(n_heads, q=q, k=k, v=v, out=out, dout=dout)
     b, l, ck = q.shape
@@ -148,10 +240,11 @@ def _flash_backward_cuda(q, k, v, out, lse, dout, mask_center: bool,
             or lse.dtype != torch.float32 or lse.device != q.device:
         raise ValueError(f"lse must be contiguous float32 ({b}, {n_heads}, {l}) "
                          f"on {q.device}")
-    dq, dk = (torch.empty((b, l, ck), device=q.device) for _ in range(2))
-    dv = torch.empty((b, l, n_heads * d_v), device=q.device)
+    dq, dk = (torch.empty((b, l, ck), device=q.device, dtype=q.dtype) for _ in range(2))
+    dv = torch.empty((b, l, n_heads * d_v), device=q.device, dtype=q.dtype)
     delta = torch.empty((b, n_heads, l), device=q.device)
-    fn = _build.declare(_build.load(BWD_KERNEL).flash_bwd_f32,
+    entry = "flash_bwd_bf16" if q.dtype == torch.bfloat16 else "flash_bwd_f32"
+    fn = _build.declare(getattr(_build.load(BWD_KERNEL), entry),
                         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                         + [ctypes.c_int64] * 10 + [ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(q.device):
@@ -160,14 +253,18 @@ def _flash_backward_cuda(q, k, v, out, lse, dout, mask_center: bool,
                  dv.data_ptr(), delta.data_ptr(), b, l, n_heads, d_k, d_v,
                  *_strides(q, k, v, out, dout), int(mask_center),
                  torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "flash_bwd_f32")
-    bwd_launches += 1
+    _build.check(err, entry)
+    if q.dtype == torch.bfloat16:
+        bf16_bwd_launches += 1
+    else:
+        bwd_launches += 1
     return dq, dk, dv
 
 
 def flash_forward(q, k, v, mask_center: bool, n_heads: int):
     """Forward over packed q, k (B, L, H*d_k) and v (B, L, H*d_v): returns
     (out (B, L, H*d_v), lse (B, H, L))."""
+    _check_bf16_pair(q.dtype, (q.shape[-1] // n_heads, v.shape[-1] // n_heads))
     return _build.dispatch(_flash_forward_cuda, flash_forward_plain, q, k, v,
                            mask_center, n_heads)
 
@@ -175,6 +272,7 @@ def flash_forward(q, k, v, mask_center: bool, n_heads: int):
 def flash_backward(q, k, v, out, lse, dout, mask_center: bool, n_heads: int):
     """Backward over packed tensors, from the forward's out and lse:
     returns (dq, dk, dv), shaped as q, k and v."""
+    _check_bf16_pair(q.dtype, (q.shape[-1] // n_heads, v.shape[-1] // n_heads))
     return _build.dispatch(_flash_backward_cuda, flash_backward_plain, q, k, v,
                            out, lse, dout, mask_center, n_heads)
 

@@ -179,6 +179,10 @@ def attention_block_packed(x, wq, bq, wkv, bkv, wo, bo, mask_center: bool,
     """``out_proj(flash_attention(q_proj(x), kv_proj(x)))``, differentiable,
     in one kernel call on the card: x (B, L, C); wq (C, E), wkv (C, E + O),
     wo (O, C') with packed head-major features; biases 1-D. Returns y
-    (B, L, C')."""
+    (B, L, C'). bf16 raises a NotImplementedError on either device."""
+    if x.dtype == torch.bfloat16:
+        raise NotImplementedError(
+            "the fused attention block (PGT_FUSED_ATTN=1) takes float32; its bf16 mode is "
+            "not ported yet: ROADMAP.md queue B item 3 (B.9's modes)")
     return _AttentionBlockPacked.apply(x.contiguous(), wq, bq, wkv, bkv, wo, bo,
                                        mask_center, n_heads)

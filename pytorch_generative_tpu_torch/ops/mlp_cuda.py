@@ -18,6 +18,13 @@ devices, with the JAX package's three backward routes:
 
 All three give the same gradients: on the card bit for bit, from the same
 forward.
+
+bf16 operands (x, the LayerNorm parameters and the weights all bf16: the
+Trainer's ``compute_dtype``) take the kernels' bf16 mode, which rounds to
+bf16 where ``mlp_pallas.py`` casts for bf16 operands (the plain versions
+say where); out, y and dx are bf16, the parameter gradients are summed in
+f32 and cast to the parameters' type by the autograd Function, as the JAX
+package's ``_vjp_bwd`` casts them. bf16 takes C and F multiples of 8.
 """
 
 from __future__ import annotations
@@ -60,6 +67,15 @@ launches = 0
 bwd_launches = 0
 recompute_launches = 0
 pipe_launches = 0
+# The same for the bf16 mode's entries.
+BF16_KERNEL = "mlp_fwd_bf16"
+BF16_BWD_KERNEL = "mlp_bwd_bf16"
+BF16_RECOMPUTE_KERNEL = "mlp_bwd_recompute_bf16"
+BF16_PIPE_KERNEL = "mlp_bwd_pipe_bf16"
+bf16_launches = 0
+bf16_bwd_launches = 0
+bf16_recompute_launches = 0
+bf16_pipe_launches = 0
 
 # The pipelined backward's second stream, one per device.
 _back_streams: dict = {}
@@ -71,42 +87,62 @@ def _use_pipelined_bwd():
     return os.environ.get("PGT_MLP_BWD", "mono") == "pipe" and _SAVE_PREACT
 
 
+def _round(t, dtype):
+    """t rounded to bf16 and back (nearest even) if dtype is bf16: a bf16
+    kernel's operand where the JAX kernel casts; else t."""
+    return t.to(dtype).float() if dtype == torch.bfloat16 else t
+
+
 def _preact_plain(x2, gamma, beta, w1, b1, eps):
-    xhat, _ = ln_cuda.normalize(x2, eps)
-    return (xhat * gamma + beta) @ w1 + b1
+    """y = LN(x) W1 + b1 in the compute type (f32 for bf16 rows, LN(x)
+    rounded to bf16 before the product)."""
+    wide = ln_cuda.wide
+    xhat, _ = ln_cuda.normalize(wide(x2), eps)
+    return _round(xhat * wide(gamma) + wide(beta), x2.dtype) @ wide(w1) + wide(b1)
 
 
 def ln_mlp_forward_plain(x2, gamma, beta, w1, b1, w2, b2, eps):
     """The forward kernel's plain version over (R, C) rows: (out, y), y the
-    (R, F) pre-activation LN(x) W1 + b1 that the backward starts from."""
+    (R, F) pre-activation LN(x) W1 + b1 that the backward starts from. For
+    bf16 rows: y is stored bf16 while gelu takes the f32 y, gelu(y) is
+    rounded before W2, out = f32 sum + x, rounded (mlp_pallas.py:83-99)."""
+    wide = ln_cuda.wide
     y = _preact_plain(x2, gamma, beta, w1, b1, eps)
-    return F.gelu(y) @ w2 + b2 + x2, y
+    out = _round(F.gelu(y), x2.dtype) @ wide(w2) + wide(b2) + wide(x2)
+    return out.to(x2.dtype), y.to(x2.dtype)
 
 
 def ln_mlp_backward_plain(x2, do2, y2, gamma, beta, w1, b1, w2, eps):
     """The backward kernel's plain version, from the saved y (b1 enters
     only through y): (dx, dgamma, dbeta, dw1, db1, dw2, db2), written out
-    as ``mlp_pallas.py::_bwd_kernel`` computes them."""
+    as ``mlp_pallas.py::_bwd_kernel`` computes them. For bf16 rows, in f32
+    from the bf16 y: gelu(y) and LN(x) rounded as the products' operands,
+    dy rounded for dW1 and dln while db1 sums the f32 dy, dx rounded; the
+    parameter gradients stay f32."""
+    dt, wide = x2.dtype, ln_cuda.wide
     del b1
+    x2, do2, y2, gamma, beta, w1, w2 = map(wide, (x2, do2, y2, gamma, beta, w1, w2))
     xhat, inv = ln_cuda.normalize(x2, eps)
     cdf = 0.5 * (1.0 + torch.erf(y2 * _SQRT_HALF))
     dgelu = cdf + y2 * (torch.exp(-0.5 * y2 * y2) * _INV_SQRT_2PI)
-    dw2 = F.gelu(y2).T @ do2
+    dw2 = _round(F.gelu(y2), dt).T @ do2
     dy = (do2 @ w2.T) * dgelu
-    dw1 = (xhat * gamma + beta).T @ dy
-    dln = dy @ w1.T
+    dyc = _round(dy, dt)
+    dw1 = _round(xhat * gamma + beta, dt).T @ dyc
+    dln = dyc @ w1.T
     dxhat = dln * gamma
     m1 = dxhat.mean(dim=1, keepdim=True)
     m2 = (dxhat * xhat).mean(dim=1, keepdim=True)
     dx = (dxhat - m1 - xhat * m2) * inv + do2  # + the residual path
-    return (dx, (dln * xhat).sum(0), dln.sum(0), dw1, dy.sum(0), dw2,
+    return (dx.to(dt), (dln * xhat).sum(0), dln.sum(0), dw1, dy.sum(0), dw2,
             do2.sum(0))
 
 
 def ln_mlp_backward_recompute_plain(x2, do2, gamma, beta, w1, b1, w2, eps):
     """The recompute route's plain version: y = LN(x) W1 + b1 as the
-    forward's plain version computes it, then ``ln_mlp_backward_plain``."""
-    y2 = _preact_plain(x2, gamma, beta, w1, b1, eps)
+    forward's plain version computes and stores it (rounded to bf16 for
+    bf16 rows), then ``ln_mlp_backward_plain``."""
+    y2 = _preact_plain(x2, gamma, beta, w1, b1, eps).to(x2.dtype)
     return ln_mlp_backward_plain(x2, do2, y2, gamma, beta, w1, b1, w2, eps)
 
 
@@ -140,15 +176,17 @@ def backward_plan(r, c, f):
     return part_rows, -(-r // part_rows), max(1, _WAVE_CTAS // tiles)
 
 
-def _bwd_scratch(r, c, f, dev, n_wparts):
-    """Scratch of one backward call: LN(x), gelu(y), dy, dln, n_wparts
-    buffers of per-slice dW partials, the per-CTA and per-chunk partial
-    sums; and the plan (``backward_plan``)."""
+def _bwd_scratch(r, c, f, dev, n_wparts, dtype):
+    """Scratch of one backward call: LN(x), gelu(y) and dy of the rows'
+    type, for bf16 rows the f32 dy beside them, dln, n_wparts buffers of
+    per-slice dW partials, the per-CTA and per-chunk partial sums; and the
+    plan (``backward_plan``)."""
     plan = backward_plan(r, c, f)
     return plan, (
-        torch.empty((r, c), device=dev),                                   # xn
-        torch.empty((r, f), device=dev),                                   # g
-        torch.empty((r, f), device=dev),                                   # dy
+        torch.empty((r, c), device=dev, dtype=dtype),                      # xn
+        torch.empty((r, f), device=dev, dtype=dtype),                      # g
+        torch.empty((r, f), device=dev, dtype=dtype),                      # dy
+        *((torch.empty((r, f), device=dev),) if dtype == torch.bfloat16 else ()),  # dyf
         torch.empty((r, c), device=dev),                                   # dln
         *(torch.empty((plan[1], c * f), device=dev) for _ in range(n_wparts)),
         torch.empty((-(-r // ln_cuda.ROWS_PER_CTA), 3, c), device=dev),    # rpart
@@ -156,35 +194,53 @@ def _bwd_scratch(r, c, f, dev, n_wparts):
 
 
 def _check(kernel, x2, w1, **operands):
-    """Raises unless the operands are contiguous float32 on x2's device, of
-    shapes that fit x2 and w1, each starting on a 16-byte boundary (the
-    LayerNorm reads by ``float4``, the GEMM by 16-byte ``cp.async``)."""
+    """Raises unless the operands are contiguous, all float32 or all
+    bfloat16, on x2's device, of shapes that fit x2 and w1, each starting
+    on a 16-byte boundary (the LayerNorm reads 16 or 8 bytes at a time,
+    the GEMM by 16-byte ``cp.async``)."""
+    dtype = ln_cuda.kernel_dtype(x2)
     r, c = ln_cuda.check_rows(x2)
+    vec = 8 if dtype == torch.bfloat16 else 4
     f = w1.shape[-1] if w1.dim() == 2 else -1
-    if f <= 0 or f % 4:
-        raise ValueError(f"w1 {tuple(w1.shape)}: F must be a positive multiple of 4")
+    if f <= 0 or f % vec:
+        raise ValueError(f"w1 {tuple(w1.shape)}: F must be a positive multiple of {vec}")
     shapes = {"x": (r, c), "do": (r, c), "y": (r, f), "gamma": (c,),
               "beta": (c,), "w1": (c, f), "b1": (f,), "w2": (f, c), "b2": (c,)}
     for name, t in dict(operands, x=x2, w1=w1).items():
-        _build.check_tensor(name, t, shapes[name], x2.device, kernel, aligned=True)
+        _build.check_tensor(name, t, shapes[name], x2.device, kernel, dtype=dtype,
+                            aligned=True)
     return r, c, f
 
 
+def _count(name):
+    """Adds one to the launch count called `name`."""
+    globals()[name] += 1
+
+
+def _entry(route, x2):
+    """(C entry's name, launch count's name) of a route (fwd, bwd,
+    bwd_recompute, bwd_pipe) for x2's type."""
+    bf16 = x2.dtype == torch.bfloat16
+    count = {"fwd": "launches", "bwd": "bwd_launches", "bwd_recompute": "recompute_launches",
+             "bwd_pipe": "pipe_launches"}[route]
+    return f"mlp_{route}_{'bf16' if bf16 else 'f32'}", ("bf16_" + count) if bf16 else count
+
+
 def _mlp_forward_cuda(x2, gamma, beta, w1, b1, w2, b2, eps):
-    global launches
     r, c, f = _check(KERNEL, x2, w1, gamma=gamma, beta=beta, b1=b1, w2=w2, b2=b2)
     dev = x2.device
     out = torch.empty_like(x2)
-    y = torch.empty((r, f), device=dev)
+    y = torch.empty((r, f), device=dev, dtype=x2.dtype)
     xn, g = torch.empty_like(x2), torch.empty_like(y)  # LN(x) and gelu(y), scratch
-    fn = _build.declare(_build.load(KERNEL).mlp_fwd_f32,
+    entry, count = _entry("fwd", x2)
+    fn = _build.declare(getattr(_build.load(KERNEL), entry),
                         [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
                         + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(dev):
         err = fn(*_ptrs(x2, gamma, beta, w1, b1, w2, b2, out, y, xn, g),
                  r, c, f, eps, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "mlp_fwd_f32")
-    launches += 1
+    _build.check(err, entry)
+    _count(count)
     return out, y
 
 
@@ -200,62 +256,63 @@ def _ptrs(*tensors):
 
 
 def _mlp_backward_cuda(x2, do2, y2, gamma, beta, w1, b1, w2, eps):
-    global bwd_launches
     r, c, f = _check(BWD_KERNEL, x2, w1, do=do2, y=y2, gamma=gamma, beta=beta,
                      b1=b1, w2=w2)
     outs = _bwd_outputs(x2, c, f)
-    (part_rows, _, _), scratch = _bwd_scratch(r, c, f, x2.device, 1)
-    fn = _build.declare(_build.load(BWD_KERNEL).mlp_bwd_f32,
-                        [ctypes.c_void_p] * 19 + [ctypes.c_int] * 6
+    (part_rows, _, _), scratch = _bwd_scratch(r, c, f, x2.device, 1, x2.dtype)
+    entry, count = _entry("bwd", x2)
+    fn = _build.declare(getattr(_build.load(BWD_KERNEL), entry),
+                        [ctypes.c_void_p] * (12 + len(scratch)) + [ctypes.c_int] * 6
                         + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(x2.device):
         err = fn(*_ptrs(x2, do2, y2, gamma, beta, w1, w2, *outs, *scratch),
                  r, c, f, part_rows, ln_cuda.ROWS_PER_CTA, ROWS_PER_CHUNK, eps,
                  torch.cuda.current_stream(x2.device).cuda_stream)
-    _build.check(err, "mlp_bwd_f32")
-    bwd_launches += 1
+    _build.check(err, entry)
+    _count(count)
     dx, dw1, db1, dw2, sums = outs
     return dx, sums[0], sums[1], dw1, db1, dw2, sums[2]
 
 
 def _mlp_backward_recompute_cuda(x2, do2, gamma, beta, w1, b1, w2, eps):
-    global recompute_launches
     r, c, f = _check(RECOMPUTE_KERNEL, x2, w1, do=do2, gamma=gamma, beta=beta,
                      b1=b1, w2=w2)
     outs = _bwd_outputs(x2, c, f)
-    (part_rows, _, _), (xn, g, *scratch) = _bwd_scratch(r, c, f, x2.device, 1)
-    y = torch.empty((r, f), device=x2.device)  # lives only inside this call
-    fn = _build.declare(_build.load(BWD_KERNEL).mlp_bwd_recompute_f32,
-                        [ctypes.c_void_p] * 20 + [ctypes.c_int] * 6
+    (part_rows, _, _), (xn, g, *scratch) = _bwd_scratch(r, c, f, x2.device, 1, x2.dtype)
+    # y lives only inside this call.
+    y = torch.empty((r, f), device=x2.device, dtype=x2.dtype)
+    entry, count = _entry("bwd_recompute", x2)
+    fn = _build.declare(getattr(_build.load(BWD_KERNEL), entry),
+                        [ctypes.c_void_p] * (15 + len(scratch)) + [ctypes.c_int] * 6
                         + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(x2.device):
         err = fn(*_ptrs(x2, do2, gamma, beta, w1, b1, w2, *outs, xn, g, y, *scratch),
                  r, c, f, part_rows, ln_cuda.ROWS_PER_CTA, ROWS_PER_CHUNK, eps,
                  torch.cuda.current_stream(x2.device).cuda_stream)
-    _build.check(err, "mlp_bwd_recompute_f32")
-    recompute_launches += 1
+    _build.check(err, entry)
+    _count(count)
     dx, dw1, db1, dw2, sums = outs
     return dx, sums[0], sums[1], dw1, db1, dw2, sums[2]
 
 
 def _mlp_backward_pipe_cuda(x2, do2, y2, gamma, beta, w1, b1, w2, eps):
-    global pipe_launches
     r, c, f = _check(PIPE_KERNEL, x2, w1, do=do2, y=y2, gamma=gamma, beta=beta,
                      b1=b1, w2=w2)
     outs = _bwd_outputs(x2, c, f)
-    (part_rows, _, granule), scratch = _bwd_scratch(r, c, f, x2.device, 2)
+    (part_rows, _, granule), scratch = _bwd_scratch(r, c, f, x2.device, 2, x2.dtype)
     back = _back_streams.get(x2.device)
     if back is None:
         back = _back_streams[x2.device] = torch.cuda.Stream(x2.device)
-    fn = _build.declare(_build.load(BWD_KERNEL).mlp_bwd_pipe_f32,
-                        [ctypes.c_void_p] * 20 + [ctypes.c_int] * 7
+    entry, count = _entry("bwd_pipe", x2)
+    fn = _build.declare(getattr(_build.load(BWD_KERNEL), entry),
+                        [ctypes.c_void_p] * (12 + len(scratch)) + [ctypes.c_int] * 7
                         + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
     with torch.cuda.device(x2.device):
         err = fn(*_ptrs(x2, do2, y2, gamma, beta, w1, w2, *outs, *scratch),
                  r, c, f, part_rows, ln_cuda.ROWS_PER_CTA, ROWS_PER_CHUNK, granule, eps,
                  torch.cuda.current_stream(x2.device).cuda_stream, back.cuda_stream)
-    _build.check(err, "mlp_bwd_pipe_f32")
-    pipe_launches += 1
+    _build.check(err, entry)
+    _count(count)
     dx, dw1, db1, dw2, sums = outs
     return dx, sums[0], sums[1], dw1, db1, dw2, sums[2]
 
@@ -296,7 +353,7 @@ class _LnMlpResidual(torch.autograd.Function):
         # Without _SAVE_PREACT, y is dropped here, once the forward's second
         # product has read it.
         ctx.save_for_backward(x2, y if _SAVE_PREACT else None, gamma, beta, w1, b1, w2)
-        ctx.eps = eps
+        ctx.eps, ctx.b2_dtype = eps, b2.dtype
         return out.reshape(shape)
 
     @staticmethod
@@ -309,7 +366,10 @@ class _LnMlpResidual(torch.autograd.Function):
             grads = ln_mlp_backward_pipe(x2, do2, y, gamma, beta, w1, b1, w2, ctx.eps)
         else:
             grads = ln_mlp_backward(x2, do2, y, gamma, beta, w1, b1, w2, ctx.eps)
-        return (grads[0].reshape(dout.shape), *grads[1:], None)
+        # The f32 sums cast to the parameters' types, as _vjp_bwd casts them.
+        dtypes = (gamma.dtype, beta.dtype, w1.dtype, b1.dtype, w2.dtype, ctx.b2_dtype)
+        return (grads[0].reshape(dout.shape),
+                *(g.to(dt) for g, dt in zip(grads[1:], dtypes)), None)
 
 
 def ln_mlp_residual(x, gamma, beta, w1, b1, w2, b2, eps=1e-5):

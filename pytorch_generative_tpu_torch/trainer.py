@@ -26,6 +26,15 @@
   * Every ``sample_epochs`` epochs, 16 samples are logged as an image grid;
     a sampling failure is printed, not raised.
   * Cumulative ``speed/examples_per_sec`` and ``speed/millis_per_example``.
+  * ``compute_dtype=torch.bfloat16`` (or ``"bfloat16"``) trains in mixed
+    precision by the JAX package's recipe, not ``torch.autocast``: the
+    optimizer keeps the float32 parameters, each step runs the model
+    through ``torch.func.functional_call`` on bf16 copies of its
+    parameters and constant buffers (``core.cast_floating``; state buffers
+    such as the VQ-EMA statistics stay float32) with a bf16 input, the
+    predictions and the input go back to float32 before the loss, and the
+    backward leaves float32 gradients on the parameters. Eval runs the same
+    cast; checkpoints hold the float32 parameters.
 
 The model runs on ``device``: ``None`` means CUDA, and the constructor
 raises if CUDA is not available. Each batch is moved there; the host waits
@@ -44,6 +53,7 @@ import warnings
 import numpy as np
 import torch
 
+from pytorch_generative_tpu_torch import core
 from pytorch_generative_tpu_torch.models.base import resolve_device
 from pytorch_generative_tpu_torch.utils import checkpoint as ckpt_utils
 from pytorch_generative_tpu_torch.utils.metrics import MetricsWriter
@@ -88,6 +98,28 @@ def set_default_overrides(**kwargs):
 def _not_ported(what, item):
     raise NotImplementedError(
         f"Trainer({what}) is not ported to PyTorch yet: ROADMAP.md {item}")
+
+
+def _compute_dtype(value):
+    """None or torch.bfloat16 for ``compute_dtype`` None, torch.bfloat16 or
+    "bfloat16"; any other type raises."""
+    if value is None:
+        return None
+    if value in (torch.bfloat16, "bfloat16"):
+        return torch.bfloat16
+    _not_ported(f"compute_dtype={value!r}", "A.5 (bf16 is the ported compute dtype)")
+
+
+def _to_f32(tree):
+    """Floating tensors of a prediction (a tensor, or a tuple, list or dict
+    of them) as float32."""
+    if isinstance(tree, torch.Tensor):
+        return tree.float() if tree.is_floating_point() else tree
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_to_f32(t) for t in tree)
+    if isinstance(tree, dict):
+        return {k: _to_f32(v) for k, v in tree.items()}
+    return tree
 
 
 class Trainer:
@@ -153,10 +185,13 @@ class Trainer:
             seed: Seed of the ``torch.Generator`` that draws the samples.
             use_tensorboard: Also log to TensorBoard when it imports.
             device: Where the model trains; ``None`` means CUDA.
+            compute_dtype: None (float32), or torch.bfloat16 / "bfloat16"
+                for mixed precision (module docstring); any other type
+                raises NotImplementedError.
             n_devices, mesh_shape, tp_rules, fsdp, fsdp_min_size,
-            async_checkpoint, profile_steps, compute_dtype: the JAX
-                package's options whose paths are not ported; anything but
-                their defaults raises NotImplementedError.
+            async_checkpoint, profile_steps: the JAX package's options
+                whose paths are not ported; anything but their defaults
+                raises NotImplementedError.
         """
         def _resolve(name, value):
             if value is not _UNSET:
@@ -168,9 +203,7 @@ class Trainer:
                         "A.11 (parallelism on torch.distributed)")
         if _resolve("fsdp", fsdp) or fsdp_min_size is not None:
             _not_ported("fsdp", "A.11 (parallelism on torch.distributed)")
-        if _resolve("compute_dtype", compute_dtype) is not None:
-            _not_ported("compute_dtype", "A.5 (bf16 needs the bf16 flash "
-                        "kernels of B.1/B.2)")
+        self.compute_dtype = _compute_dtype(_resolve("compute_dtype", compute_dtype))
         if _resolve("async_checkpoint", async_checkpoint):
             _not_ported("async_checkpoint", "A.5")
         if profile_steps is not None:
@@ -214,9 +247,16 @@ class Trainer:
     # ------------------------------------------------------------------
     def compute_metrics(self, x, y, training):
         """One batch's metrics dict; the overridable seam, as in the JAX
-        package (``training`` says which loop calls it)."""
+        package (``training`` says which loop calls it). Under a compute
+        dtype the model runs on cast copies of its tensors and a cast input;
+        the loss sees float32 predictions and input."""
         del training
-        return dict(_get_metrics_dict(self.loss_fn(x, y, self.model(x))))
+        if self.compute_dtype is None:
+            return dict(_get_metrics_dict(self.loss_fn(x, y, self.model(x))))
+        tensors = core.cast_floating(self.model, self.compute_dtype)
+        x = x.to(self.compute_dtype)
+        preds = torch.func.functional_call(self.model, tensors, (x,))
+        return dict(_get_metrics_dict(self.loss_fn(x.float(), y, _to_f32(preds))))
 
     def _to_device(self, x, y):
         x = torch.from_numpy(np.asarray(x, np.float32))

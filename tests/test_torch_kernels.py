@@ -1353,3 +1353,221 @@ def test_imagegpt_with_the_fused_block_trains_through_the_kernels(dev, tmp_path,
     routes = {"saved": mlp_cuda.bwd_launches, "recompute": mlp_cuda.recompute_launches,
               "pipe": mlp_cuda.pipe_launches}
     assert routes == {k: (2 if k == route else 0) for k in routes}
+
+
+# ---- The bf16 modes (Trainer(compute_dtype=torch.bfloat16)) ----
+#
+# Each bf16 kernel against its plain version, which runs in f32 on the card
+# and rounds to bf16 where the kernel (and the JAX kernel) does. The two sum
+# in other orders, so a bf16 output may land one bf16 step apart: outputs
+# are held within 2 steps (2^-7) of the reference's largest magnitude (at
+# least 1), which covers one step at any element; f32 statistics and
+# gradient sums within
+# the bounds each test states (the kernels' largest errors on an H100 were
+# under half of them).
+
+BF16_TOL = 2.0 ** -7
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16)
+
+
+def _assert_bf16(got, want, rtol, name):
+    """max |got - want| <= rtol x max(1, max |want|), both as f32: a
+    gradient that is 0 in exact arithmetic (dq at L = 1, where dS = dP -
+    delta cancels) is held at the scale of 1, not of its rounding."""
+    got, want = got.float(), want.float()
+    scale = max(float(want.abs().max()), 1.0)
+    err = float((got - want).abs().max())
+    assert err <= rtol * scale, f"{name}: max abs err {err:.3e} > {rtol} x {scale:.3e}"
+
+
+@pytest.mark.parametrize("mask_center", [False, True])
+@pytest.mark.parametrize("d,n_heads", [(32, 2), (64, 8), (128, 4)])
+def test_flash_bf16_kernels_match_plain_at_full_width(dev, d, n_heads, mask_center):
+    """ImageGPT's widths at B 64, L 784 (C = 64 with 2 heads of 32, C = 512
+    with 8 of 64 and 4 of 128), k and v feature slices of one kv tensor:
+    out, dq, dk, dv within 2 bf16 steps x scale, lse within 1e-6 x scale of
+    the plain versions; a second call gives the same bits."""
+    b, l = 64, 784
+    c = d * n_heads
+    q = _bf16(_rand((b, l, c), d, dev))
+    kv = _bf16(_rand((b, l, 2 * c), d + 1, dev))
+    dout = _bf16(_rand((b, l, c), d + 2, dev))
+    k, v = kv[..., :c], kv[..., c:]
+    before = (attention_cuda.bf16_launches, attention_cuda.bf16_bwd_launches,
+              attention_cuda.launches, attention_cuda.bwd_launches)
+    out, lse = attention_cuda.flash_forward(q, k, v, mask_center, n_heads)
+    grads = attention_cuda.flash_backward(q, k, v, out, lse, dout, mask_center, n_heads)
+    out2, lse2 = attention_cuda.flash_forward(q, k, v, mask_center, n_heads)
+    grads2 = attention_cuda.flash_backward(q, k, v, out, lse, dout, mask_center, n_heads)
+    torch.cuda.synchronize()
+    assert (attention_cuda.bf16_launches, attention_cuda.bf16_bwd_launches,
+            attention_cuda.launches, attention_cuda.bwd_launches) == (
+        before[0] + 2, before[1] + 2, before[2], before[3])
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert all(g.dtype == torch.bfloat16 for g in grads)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    assert all(torch.equal(a, b_) for a, b_ in zip(grads, grads2))
+    ref_out, ref_lse = attention_cuda.flash_forward_plain(q, k, v, mask_center, n_heads)
+    _assert_bf16(out.float(), ref_out.float(), BF16_TOL, "out")
+    finite = torch.isfinite(ref_lse)
+    assert torch.equal(finite, torch.isfinite(lse))
+    _assert_bf16(lse[finite], ref_lse[finite], 1e-6, "lse")
+    ref = attention_cuda.flash_backward_plain(q, k, v, out, lse, dout, mask_center, n_heads)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
+        _assert_bf16(g.float(), r.float(), BF16_TOL, name)
+    if mask_center:
+        assert bool((out[:, 0] == 0).all()) and bool((grads[0][:, 0] == 0).all())
+
+
+@pytest.mark.parametrize("mask_center", [False, True])
+@pytest.mark.parametrize("l", FLASH_LENGTHS)
+@pytest.mark.parametrize("d", attention_cuda.BF16_HEAD_DIMS)
+def test_flash_bf16_kernels_match_plain_at_tile_edges(dev, d, l, mask_center):
+    """Every bf16 instance (d = 16 to 128) at lengths on the tiles' edges,
+    B 3, 2 heads: as at full width."""
+    c = 2 * d
+    q = _bf16(_rand((3, l, c), l + d, dev))
+    kv = _bf16(_rand((3, l, 2 * c), l + d + 1, dev))
+    dout = _bf16(_rand((3, l, c), l + d + 2, dev))
+    k, v = kv[..., :c], kv[..., c:]
+    out, lse = attention_cuda.flash_forward(q, k, v, mask_center, 2)
+    grads = attention_cuda.flash_backward(q, k, v, out, lse, dout, mask_center, 2)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = attention_cuda.flash_forward_plain(q, k, v, mask_center, 2)
+    _assert_bf16(out.float(), ref_out.float(), BF16_TOL, "out")
+    finite = torch.isfinite(ref_lse)
+    assert torch.equal(finite, torch.isfinite(lse))
+    if finite.any():
+        _assert_bf16(lse[finite], ref_lse[finite], 1e-6, "lse")
+    ref = attention_cuda.flash_backward_plain(q, k, v, out, lse, dout, mask_center, 2)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
+        _assert_bf16(g, r, BF16_TOL, name)
+
+
+@pytest.mark.parametrize("r,c", [(50176, 512), (1031, 128), (1031, 640), (4097, 1024)])
+def test_ln_bf16_kernels_match_plain(dev, r, c):
+    """The bf16 LayerNorm forward and backward at R 50,176, C 512 (the
+    blocks' rows at batch 64), a ragged count and the CTA-per-row widths:
+    out and dx within 2 bf16 steps x scale, the f32 dgamma and dbeta within
+    1e-5 x scale; a second call gives the same bits."""
+    x, gamma, beta = (_bf16(t) for t in _ln_inputs(r, c, dev))
+    dy = _bf16(_rand((r, c), 7, dev))
+    before = (ln_cuda.bf16_launches, ln_cuda.bf16_bwd_launches)
+    out = ln_cuda.ln_forward(x, gamma, beta, 1e-5)
+    grads = ln_cuda.ln_backward(x, dy, gamma, 1e-5)
+    again = (ln_cuda.ln_forward(x, gamma, beta, 1e-5), *ln_cuda.ln_backward(x, dy, gamma, 1e-5))
+    torch.cuda.synchronize()
+    assert (ln_cuda.bf16_launches, ln_cuda.bf16_bwd_launches) == (before[0] + 2, before[1] + 2)
+    assert out.dtype == grads[0].dtype == torch.bfloat16 and grads[1].dtype == torch.float32
+    assert all(torch.equal(a, b) for a, b in zip((out, *grads), again))
+    _assert_bf16(out.float(), ln_cuda.layernorm_forward_plain(x, gamma, beta, 1e-5).float(),
+                BF16_TOL, "y")
+    want = ln_cuda.layernorm_backward_plain(x, dy, gamma, 1e-5)
+    for name, g, w, tol in zip(("dx", "dgamma", "dbeta"), grads, want,
+                               (BF16_TOL, 1e-5, 1e-5)):
+        _assert_bf16(g.float(), w.float(), tol, name)
+
+
+@pytest.mark.parametrize("r,c", [(50176, 512), (1031, 128), (4097, 1024)])
+def test_mlp_bf16_kernels_match_plain_and_routes_give_equal_bits(dev, r, c):
+    """The bf16 MLP forward and its three backward routes at R 50,176, C 512
+    (F 2048), a ragged count and C 1024: out, y and dx within 2 bf16 steps x
+    scale of the plain versions, the f32 parameter sums within 5e-4 x scale
+    (dy is rounded to bf16 for dW1 and dln, and the two sides' dy may round
+    apart); the recompute and pipelined routes give the saved-y route's
+    bits, and two calls give the same bits."""
+    x, gamma, beta, w1, b1, w2, b2 = (_bf16(t) for t in _mlp_inputs(r, c, dev))
+    dout = _bf16(_rand((r, c), 8, dev))
+    counts = ("bf16_launches", "bf16_bwd_launches", "bf16_recompute_launches",
+              "bf16_pipe_launches", "launches", "bwd_launches")
+    before = [getattr(mlp_cuda, n) for n in counts]
+    fwd = [mlp_cuda.ln_mlp_forward(x, gamma, beta, w1, b1, w2, b2, 1e-5) for _ in range(2)]
+    out, y = fwd[0]
+    routes = {
+        "saved": lambda: mlp_cuda.ln_mlp_backward(x, dout, y, gamma, beta, w1, b1, w2, 1e-5),
+        "recompute": lambda: mlp_cuda.ln_mlp_backward_recompute(x, dout, gamma, beta, w1, b1,
+                                                                w2, 1e-5),
+        "pipe": lambda: mlp_cuda.ln_mlp_backward_pipe(x, dout, y, gamma, beta, w1, b1, w2, 1e-5),
+    }
+    grads = {name: (fn(), fn()) for name, fn in routes.items()}
+    torch.cuda.synchronize()
+    assert [getattr(mlp_cuda, n) - b for n, b in zip(counts, before)] == [2, 2, 2, 2, 0, 0]
+    assert out.dtype == y.dtype == torch.bfloat16
+    assert all(torch.equal(a, b) for a, b in zip(*fwd))
+    for name, (first, second) in grads.items():
+        assert all(torch.equal(a, b) for a, b in zip(first, second)), f"{name} twice"
+        assert all(torch.equal(a, b) for a, b in zip(first, grads["saved"][0])), name
+    want_out, want_y = mlp_cuda.ln_mlp_forward_plain(x, gamma, beta, w1, b1, w2, b2, 1e-5)
+    _assert_bf16(out.float(), want_out.float(), BF16_TOL, "out")
+    _assert_bf16(y.float(), want_y.float(), BF16_TOL, "y")
+    want = mlp_cuda.ln_mlp_backward_plain(x, dout, y, gamma, beta, w1, b1, w2, 1e-5)
+    names = ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2")
+    for name, g, w in zip(names, grads["saved"][0], want):
+        _assert_bf16(g.float(), w.float(), BF16_TOL if name == "dx" else 5e-4, name)
+
+
+def test_bf16_wrappers_raise_before_launch(dev):
+    """bf16 operands that a kernel does not take raise before any launch:
+    strides or starts not on 8 values (16 bytes), C or F not a multiple of
+    8, mixed types, and the (4, 32) flash pair (PixelSNAIL's, ROADMAP queue
+    B item 1)."""
+    before = (attention_cuda.bf16_launches, ln_cuda.bf16_launches, mlp_cuda.bf16_launches)
+    q = _bf16(_rand((2, 64, 132), 0, dev))
+    k, v = q[..., :128], q[..., 4:132]  # row stride 132, v 8 bytes past a boundary
+    with pytest.raises(ValueError, match="multiples of 8"):
+        attention_cuda.flash_forward(k, k, k, False, 2)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        attention_cuda.flash_forward(q[..., :128].contiguous(), k.contiguous(), v, False, 2)
+    with pytest.raises(TypeError):
+        attention_cuda.flash_forward(k.contiguous(), k.contiguous().float(), k.contiguous(),
+                                     False, 2)
+    with pytest.raises(TypeError, match="ROADMAP.md queue B item 1"):
+        attention_cuda.flash_forward(_bf16(_rand((1, 64, 4), 1, dev)),
+                                     _bf16(_rand((1, 64, 4), 2, dev)),
+                                     _bf16(_rand((1, 64, 32), 3, dev)), True, 1)
+    x, gamma, beta, w1, b1, w2, b2 = (_bf16(t) for t in _mlp_inputs(64, 128, dev))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ln_cuda.ln_forward(_bf16(_rand((64, 132), 4, dev)), _bf16(_rand((132,), 5, dev)),
+                           _bf16(_rand((132,), 6, dev)), 1e-5)
+    with pytest.raises(TypeError):
+        ln_cuda.ln_forward(x, gamma.float(), beta, 1e-5)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        mlp_cuda.ln_mlp_forward(x, gamma, beta, w1[:, :508].contiguous(), b1[:508],
+                                w2[:508].contiguous(), b2, 1e-5)
+    with pytest.raises(TypeError):
+        mlp_cuda.ln_mlp_forward(x, gamma, beta, w1.float(), b1, w2, b2, 1e-5)
+    torch.cuda.synchronize()
+    assert (attention_cuda.bf16_launches, ln_cuda.bf16_launches,
+            mlp_cuda.bf16_launches) == before
+
+
+def test_large_config_bf16_train_step_runs_only_bf16_kernels(dev, tmp_path):
+    """Trainer(compute_dtype=torch.bfloat16) on ImageGPT(**LARGE_CONFIG),
+    one step at batch 2: every flash, LayerNorm and MLP launch is a bf16
+    one (8 flash and MLP forwards and backwards, 9 LayerNorm), none is
+    f32, and the parameters and their gradients stay float32."""
+    model = ImageGPT(**image_gpt.LARGE_CONFIG,
+                     generator=torch.Generator().manual_seed(0), device=dev)
+    x = (torch.rand((2, 28, 28, 1), generator=torch.Generator().manual_seed(1)) < 0.3).float()
+    t = trainer.Trainer(model, image_gpt.reproduce_loss, optim.adam(1e-3), [], [],
+                        log_dir=str(tmp_path), use_tensorboard=False, device=dev,
+                        compute_dtype=torch.bfloat16)
+    mods = (attention_cuda, ln_cuda, mlp_cuda)
+    for mod in mods:
+        for name in dir(mod):
+            if name.endswith("launches"):
+                setattr(mod, name, 0)
+    metrics, _ = t.train_one_step(x.numpy(), None)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(metrics["loss"]))
+    counts = {f"{mod.__name__.rsplit('.', 1)[1]}.{name}": getattr(mod, name)
+              for mod in mods for name in dir(mod) if name.endswith("launches")}
+    want = {"attention_cuda.bf16_launches": 8, "attention_cuda.bf16_bwd_launches": 8,
+            "ln_cuda.bf16_launches": 9, "ln_cuda.bf16_bwd_launches": 9,
+            "mlp_cuda.bf16_launches": 8, "mlp_cuda.bf16_bwd_launches": 8}
+    assert counts == {k: want.get(k, 0) for k in counts}
+    assert all(p.dtype == torch.float32 and p.grad.dtype == torch.float32
+               for p in model.parameters())
