@@ -2192,12 +2192,11 @@ def bf16_phases(dev, gen, smi, reset_counts, read_counts):
             step_ms[label] = time_ms(lambda: t.train_one_step(xb, None), BF16_TIMED_STEPS, 1)
             print(f"phase bf16 step {label} batch {BATCH} [{smi}]: {step_ms[label]:.2f} ms a "
                   f"step, {BATCH * 1000 / step_ms[label]:.1f} samples/s", flush=True)
-            if label != configs[2][0]:  # the 4-head step's split is the 8-head one's
-                profile_steps(lambda: t.train_one_step(xb, None), 2, step_ms[label],
-                              f"bf16 train step batch {BATCH}", (BATCH, "samples"),
-                              f"profile bf16 step {label}", smi,
-                              ("gemmb::", "flash_bwd", "flash_fwd", "ln_", "elementwise"),
-                              host=True)
+            profile_steps(lambda: t.train_one_step(xb, None), 2, step_ms[label],
+                          f"bf16 train step batch {BATCH}", (BATCH, "samples"),
+                          f"profile bf16 step {label}", smi,
+                          ("gemmb::", "flash_bwd", "flash_fwd", "ln_", "elementwise"),
+                          host=True)
         finally:
             shutil.rmtree(log_dir, ignore_errors=True)
         del t, net
@@ -2275,12 +2274,12 @@ def bf16_phases(dev, gen, smi, reset_counts, read_counts):
     instances = [f"{d}x{d}" for d in sorted(flash)]
     src = "pytorch_generative_tpu_torch/csrc/"
     kernels = [
-        entry(attention_cuda.BF16_KERNEL, src + "flash_fwd.cu",
+        entry(attention_cuda.BF16_KERNEL, src + "flash_wgmma_bf16.cuh",
               "pytorch_generative_tpu/ops/attention_pallas.py:100",
               max(v_["fwd_err"] for v_ in flash.values()),
               {"kernel": f64["t"]["fwd"], "plain": f64["t"]["fwd_plain"],
                "library": f64["t"]["fwd_lib"]}, f64["fwd_bound"], instances),
-        entry(attention_cuda.BF16_BWD_KERNEL, src + "flash_bwd.cu",
+        entry(attention_cuda.BF16_BWD_KERNEL, src + "flash_wgmma_bf16.cuh",
               "pytorch_generative_tpu/ops/attention_pallas.py:205",
               max(v_["bwd_err"] for v_ in flash.values()),
               {"kernel": f64["t"]["bwd"], "plain": f64["t"]["bwd_plain"],
@@ -2342,8 +2341,10 @@ def main():
         paths = dict(zip(names, pool.map(_build.build, names)))
     for name in names:
         _build.load(name)
-        print(f"phase build: {name}; ptxas: "
-              f"{ptxas_summary(paths[name].with_suffix('.log').read_text())}", flush=True)
+        log = paths[name].with_suffix('.log').read_text()
+        serialized = [ln.strip() for ln in log.splitlines() if "C7514" in ln]
+        print(f"phase build: {name}; ptxas: {ptxas_summary(log)}; wgmma serialised (C7514): "
+              f"{' | '.join(serialized) or 'none'}", flush=True)
     print(f"phase build: all kernels {time.perf_counter() - t0:.1f}s", flush=True)
 
     gen = torch.Generator().manual_seed(SEED)

@@ -51,11 +51,10 @@
 // Tiles wholly below the diagonal take no mask; a warp skips the column
 // groups of the diagonal tile that it does not see.
 //
-// flash_bwd_bf16 runs the same two passes on bf16 operands and outputs (lse
-// and delta f32) for d_k == d_v, one bf16 mma.sync m16n8k16 per product,
-// at the TPU kernel's rounding points for bf16 (the bf16 section below).
-// Its bound at ImageGPT's C = 512: 101 GFLOP at 989 TFLOP/s, ~0.10 ms,
-// against 8 x 51 MB of operands and outputs at 3.35 TB/s, ~0.12 ms: bytes.
+// flash_bwd_bf16 takes bf16 operands and outputs (lse and delta f32) for
+// d_k == d_v: two passes of warpgroup wgmma products fed by TMA
+// (fwg::launch_bwd, flash_wgmma_bf16.cuh), at the TPU kernel's rounding
+// points for bf16.
 //
 // (d_k, d_v) = (4, 32) and (4, 8) (PixelSNAIL) keep the SIMT passes below
 // (namespace simt), bit for bit: d_k = 4 is under one mma's depth of 8. They
@@ -67,6 +66,7 @@
 #include <stdint.h>
 
 #include "flash_mma.cuh"
+#include "flash_wgmma_bf16.cuh"
 
 namespace {
 
@@ -682,399 +682,6 @@ cudaError_t launch_mma(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
-// ---- The bf16 instances (flash_bwd_bf16) ----
-//
-// q, k, v, out, dout, dq, dk and dv bf16; lse, delta and every sum f32. The
-// structure is the f32 tensor-core passes' (a dq pass, then a dk/dv pass,
-// no atomics), with one bf16 mma.sync m16n8k16 per product and the TPU
-// kernel's rounding points for bf16 operands (attention_pallas.py:250-290):
-// q2 = bf16(q * scale * log2(e)) (each thread rounds the chunks of a staged
-// q tile that it copied, once they have landed), S = q2 K^T and dP = dO V^T
-// with f32 sums, p = exp2(S - lse * log2(e)) and delta = rowsum(dO * O) in
-// f32, dS = p (dP - delta) in f32; P and dS are rounded to bf16 as the A
-// operands of dV = P^T dO, dQ = dS K and dK = dS^T q2; dQ is summed in f32
-// over all key tiles and rounded once, times scale; dK (times ln 2, as q2
-// carries scale * log2(e)) and dV likewise. Each tile's share is summed in
-// fresh accumulators and added in f32 (tile_sum).
-
-// dq pass: one CTA per (64-row q-tile, head, batch); warp w owns rows
-// 16w..16w+15 of the tile. Writes dq and the tile's delta.
-template <int D>
-__global__ void __launch_bounds__(fmma::kThreads, fmma::bwd_ctas<D>())
-flash_bwd_dq_bf16_kernel(const bf16::T* __restrict__ q, const bf16::T* __restrict__ k,
-                         const bf16::T* __restrict__ v, const bf16::T* __restrict__ out,
-                         const bf16::T* __restrict__ dout, const float* __restrict__ lse,
-                         bf16::T* __restrict__ dq, float* __restrict__ delta, int L, int H,
-                         int64_t q_bs, int64_t q_rs, int64_t k_bs, int64_t k_rs, int64_t v_bs,
-                         int64_t v_rs, int64_t o_bs, int64_t o_rs, int64_t do_bs,
-                         int64_t do_rs, float scale, float scale_log2, int offset) {
-  using namespace fmma;
-  constexpr int S = bstride<D>();
-  constexpr int NK = kBwdCols;             // keys a tile
-  constexpr int STAGES = bwd_stages<D>();
-  constexpr int KD = D / 16;               // 16-feature k-steps of S and dP
-  constexpr int DB = D / 8;                // 8-feature blocks of dQ
-  constexpr int NB = NK / 8;               // 8-key blocks of a tile
-  constexpr int GD = group<DB, kBwdGroup>();  // dQ blocks a sweep takes
-  extern __shared__ float smem[];
-  bf16::T* qs = reinterpret_cast<bf16::T*>(smem);     // kBlock x S: the tile's q2 rows
-  bf16::T* dos = qs + kBlock * S;                       // kBlock x S: their dO rows
-  float* lse_s = reinterpret_cast<float*>(dos + kBlock * S);  // kBlock: base 2, +inf if p = 0
-  float* delta_s = lse_s + kBlock;                      // kBlock
-  bf16::T* ring = reinterpret_cast<bf16::T*>(delta_s + kBlock);  // STAGES x [K | V]
-
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int r0 = qt * kBlock + warp * kWarpRows;  // the warp's first row
-  const int rows[2] = {r0 + g, r0 + g + 8};       // this lane's rows
-
-  const int n_tiles = (min(L, (qt + 1) * kBlock) + NK - 1) / NK;
-  auto fetch = [&](int kt) {
-    bf16::T* ks = ring + (kt % STAGES) * 2 * NK * S;
-    stage_bf16<NK, D>(ks, k, k_bs, k_rs, b, h, kt * NK, L);
-    stage_bf16<NK, D>(ks + NK * S, v, v_bs, v_rs, b, h, kt * NK, L);
-  };
-  stage_bf16<kBlock, D>(qs, q, q_bs, q_rs, b, h, qt * kBlock, L);
-  stage_bf16<kBlock, D>(dos, dout, do_bs, do_rs, b, h, qt * kBlock, L);
-  fetch(0);
-  tf32::cp_async_commit();
-
-  // delta = dO . O in f32 for the tile's rows, two threads a row, from
-  // global memory; lse in base 2, +inf (p = 0) past L and on fully-masked
-  // rows.
-  {
-    const int rr = threadIdx.x / 2, half = threadIdx.x % 2;
-    const int row = qt * kBlock + rr;
-    const int64_t stat = (static_cast<int64_t>(b) * H + h) * L + row;
-    float dlt = 0.f;
-    if (row < L) {
-      const uint4* dp = reinterpret_cast<const uint4*>(dout + b * do_bs + row * do_rs + h * D +
-                                                       half * (D / 2));
-      const uint4* op = reinterpret_cast<const uint4*>(out + b * o_bs + row * o_rs + h * D +
-                                                       half * (D / 2));
-#pragma unroll
-      for (int i = 0; i < D / 16; ++i) {
-        float x[8], y[8];
-        bf16::unpack8(x, dp[i]);
-        bf16::unpack8(y, op[i]);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) dlt += x[j] * y[j];
-      }
-    }
-    dlt += __shfl_xor_sync(0xffffffffu, dlt, 1);
-    if (half == 0) {
-      delta_s[rr] = dlt;
-      if (row < L) delta[stat] = dlt;
-    } else {
-      const float l2 = row < L ? lse[stat] : -CUDART_INF_F;
-      lse_s[rr] = isinf(l2) ? CUDART_INF_F : l2 * kLog2e;
-    }
-  }
-
-  __syncthreads();  // lse_s and delta_s are written
-  float lse2[2], dlt[2];  // this lane's rows'
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    lse2[i] = lse_s[warp * kWarpRows + g + 8 * i];
-    dlt[i] = delta_s[warp * kWarpRows + g + 8 * i];
-  }
-
-  float dqa[DB][4];
-  zero(dqa);
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    if constexpr (STAGES == 2) {
-      if (kt + 1 < n_tiles) fetch(kt + 1);
-      tf32::cp_async_commit();
-      tf32::cp_async_wait<1>();  // q, dO and tile kt have landed
-    } else {
-      tf32::cp_async_wait<0>();
-    }
-    if (kt == 0) scale_own_bf16<kBlock, D>(qs, scale_log2);  // q becomes q2
-    __syncthreads();
-    const bf16::T* ks = ring + (kt % STAGES) * 2 * NK * S;
-    const bf16::T* vs = ks + NK * S;
-    const int key0 = kt * NK;
-    const int live = blocks_through<NB>(r0 + kWarpRows - 1 - offset - key0);
-
-    // S = q2 K^T and dP = dO V^T.
-    float s[NB][4], dp[NB][4];
-    zero(s);
-    zero(dp);
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t qa[4], da[4];
-      load_a_bf16<S>(qa, qs + warp * kWarpRows * S + kk * 16, lane);
-      load_a_bf16<S>(da, dos + warp * kWarpRows * S + kk * 16, lane);
-#pragma unroll
-      for (int n = 0; n < NB; n += 2) {
-        if (n < live) {
-          uint32_t b0[2], b1[2];
-          load_bt_bf16<S>(b0, b1, ks + n * 8 * S + kk * 16, lane);
-          bf16::mma(s[n], qa, b0);
-          bf16::mma(s[n + 1], qa, b1);
-          load_bt_bf16<S>(b0, b1, vs + n * 8 * S + kk * 16, lane);
-          bf16::mma(dp[n], da, b0);
-          bf16::mma(dp[n + 1], da, b1);
-        }
-      }
-    }
-
-    // dS = P (dP - delta) in f32, in place of S.
-    const bool diag = key0 + NK - 1 + offset > r0;
-#pragma unroll
-    for (int n = 0; n < NB; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float p = exp2f(s[n][e] - lse2[e / 2]);
-        if (diag && key0 + n * 8 + 2 * t + e % 2 + offset > rows[e / 2]) p = 0.f;
-        s[n][e] = p * (dp[n][e] - dlt[e / 2]);
-      }
-    }
-
-    // dQ += bf16(dS) K, the tile's sum in fresh accumulators.
-#pragma unroll
-    for (int n0 = 0; n0 < DB; n0 += GD) {
-      float part[GD][4];
-      zero(part);
-#pragma unroll
-      for (int j = 0; j < NB / 2; ++j) {
-        if (2 * j < live) {
-          uint32_t a[4];
-          a_from_acc_bf16(a, s[2 * j], s[2 * j + 1]);
-#pragma unroll
-          for (int n = 0; n < GD; n += 2) {
-            uint32_t b0[2], b1[2];
-            load_b_bf16<S>(b0, b1, ks + j * 16 * S + (n0 + n) * 8, lane);
-            bf16::mma(part[n], a, b0);
-            bf16::mma(part[n + 1], a, b1);
-          }
-        }
-      }
-      tile_sum(dqa + n0, part);
-    }
-    __syncthreads();  // every reader of this stage is done before it refills
-    if constexpr (STAGES == 1) {
-      if (kt + 1 < n_tiles) {
-        fetch(kt + 1);
-        tf32::cp_async_commit();
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (rows[i] < L)
-      store_row_bf16(dq + (static_cast<int64_t>(b) * L + rows[i]) * H * D + h * D, dqa, i, t,
-                     scale);
-  }
-}
-
-// dk/dv pass: one CTA per (64-key k-tile, head, batch); warp w owns keys
-// 16w..16w+15 of the tile. Reads the dq pass's delta.
-template <int D>
-__global__ void __launch_bounds__(fmma::kThreads, fmma::bwd_ctas<D>())
-flash_bwd_dkdv_bf16_kernel(const bf16::T* __restrict__ q, const bf16::T* __restrict__ k,
-                           const bf16::T* __restrict__ v, const bf16::T* __restrict__ dout,
-                           const float* __restrict__ lse, const float* __restrict__ delta,
-                           bf16::T* __restrict__ dk, bf16::T* __restrict__ dv, int L, int H,
-                           int64_t q_bs, int64_t q_rs, int64_t k_bs, int64_t k_rs,
-                           int64_t v_bs, int64_t v_rs, int64_t do_bs, int64_t do_rs,
-                           float scale_log2, int offset) {
-  using namespace fmma;
-  constexpr int S = bstride<D>();
-  constexpr int NQ = kBwdCols;             // query rows a tile
-  constexpr int STAGES = bwd_stages<D>();
-  constexpr int KD = D / 16;               // 16-feature k-steps of S^T and dP^T
-  constexpr int DB = D / 8;                // 8-feature blocks of dK and dV
-  constexpr int NB = NQ / 8;               // 8-row blocks of a tile
-  constexpr int GD = group<DB, kBwdGroup>();
-  // A ring stage: [q2 | dO] (NQ x S bf16 each), then lse2 and delta (NQ f32).
-  constexpr int kStageBytes = 2 * NQ * S * 2 + 2 * NQ * 4;
-  extern __shared__ float smem[];
-  bf16::T* ks = reinterpret_cast<bf16::T*>(smem);  // kBlock x S: the tile's k rows
-  bf16::T* vs = ks + kBlock * S;                    // kBlock x S: their v rows
-  unsigned char* ring = reinterpret_cast<unsigned char*>(vs + kBlock * S);
-
-  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int c0 = kt * kBlock + warp * kWarpRows;  // the warp's first key
-  const int keys[2] = {c0 + g, c0 + g + 8};       // this lane's keys
-
-  // q-tiles before this k-tile hold no row that sees its keys.
-  const int first = kt * kBlock / NQ, n_q = (L + NQ - 1) / NQ;
-  auto stage_at = [&](int qi) {
-    return reinterpret_cast<bf16::T*>(ring + ((qi - first) % STAGES) * kStageBytes);
-  };
-  auto fetch = [&](int qi) {
-    bf16::T* st = stage_at(qi);
-    stage_bf16<NQ, D>(st, q, q_bs, q_rs, b, h, qi * NQ, L);
-    stage_bf16<NQ, D>(st + NQ * S, dout, do_bs, do_rs, b, h, qi * NQ, L);
-    float* stats = reinterpret_cast<float*>(st + 2 * NQ * S);
-    if (threadIdx.x < NQ) {  // lse in base 2, +inf (p = 0) past L and on masked rows
-      const int row = qi * NQ + threadIdx.x;
-      const int64_t stat = (static_cast<int64_t>(b) * H + h) * L + row;
-      const float l2 = row < L ? lse[stat] : -CUDART_INF_F;
-      stats[threadIdx.x] = isinf(l2) ? CUDART_INF_F : l2 * kLog2e;
-      stats[NQ + threadIdx.x] = row < L ? delta[stat] : 0.f;
-    }
-  };
-  stage_bf16<kBlock, D>(ks, k, k_bs, k_rs, b, h, kt * kBlock, L);
-  stage_bf16<kBlock, D>(vs, v, v_bs, v_rs, b, h, kt * kBlock, L);
-  fetch(first);
-  tf32::cp_async_commit();
-
-  float dka[DB][4], dva[DB][4];
-  zero(dka);
-  zero(dva);
-  for (int qi = first; qi < n_q; ++qi) {
-    if constexpr (STAGES == 2) {
-      if (qi + 1 < n_q) fetch(qi + 1);
-      tf32::cp_async_commit();
-      tf32::cp_async_wait<1>();  // k, v and tile qi have landed
-    } else {
-      tf32::cp_async_wait<0>();
-    }
-    bf16::T* qs = stage_at(qi);
-    scale_own_bf16<NQ, D>(qs, scale_log2);  // q becomes q2
-    __syncthreads();
-    const bf16::T* dos = qs + NQ * S;
-    const float* lse_s = reinterpret_cast<const float*>(qs + 2 * NQ * S);
-    const float* delta_s = lse_s + NQ;
-    const int row0 = qi * NQ;
-    // 8-row blocks wholly above the warp's first key + offset see none of it.
-    const int skip = min(NB, max(0, c0 + offset - row0) / 8);
-
-    // S^T = K q2^T and dP^T = V dO^T, keys as rows.
-    float st[NB][4], dpt[NB][4];
-    zero(st);
-    zero(dpt);
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t ka[4], va[4];
-      load_a_bf16<S>(ka, ks + warp * kWarpRows * S + kk * 16, lane);
-      load_a_bf16<S>(va, vs + warp * kWarpRows * S + kk * 16, lane);
-#pragma unroll
-      for (int n = 0; n < NB; n += 2) {
-        if (n + 2 > skip) {
-          uint32_t b0[2], b1[2];
-          load_bt_bf16<S>(b0, b1, qs + n * 8 * S + kk * 16, lane);
-          bf16::mma(st[n], ka, b0);
-          bf16::mma(st[n + 1], ka, b1);
-          load_bt_bf16<S>(b0, b1, dos + n * 8 * S + kk * 16, lane);
-          bf16::mma(dpt[n], va, b0);
-          bf16::mma(dpt[n + 1], va, b1);
-        }
-      }
-    }
-
-    // P^T in place of S^T, dS^T = P^T (dP^T - delta) in place of dP^T.
-    const bool diag = c0 + kWarpRows - 1 + offset > row0;
-#pragma unroll
-    for (int n = 0; n < NB; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = n * 8 + 2 * t + e % 2;
-        float p = exp2f(st[n][e] - lse_s[r]);
-        if (diag && keys[e / 2] + offset > row0 + r) p = 0.f;
-        st[n][e] = p;
-        dpt[n][e] = p * (dpt[n][e] - delta_s[r]);
-      }
-    }
-
-    // dV += bf16(P^T) dO and dK += bf16(dS^T) q2, the tile's sums in fresh
-    // accumulators.
-#pragma unroll
-    for (int n0 = 0; n0 < DB; n0 += GD) {
-      float dv_part[GD][4], dk_part[GD][4];
-      zero(dv_part);
-      zero(dk_part);
-#pragma unroll
-      for (int j = 0; j < NB / 2; ++j) {
-        if (2 * j + 1 >= skip) {
-          uint32_t a[4], b0[2], b1[2];
-          a_from_acc_bf16(a, st[2 * j], st[2 * j + 1]);
-#pragma unroll
-          for (int n = 0; n < GD; n += 2) {
-            load_b_bf16<S>(b0, b1, dos + j * 16 * S + (n0 + n) * 8, lane);
-            bf16::mma(dv_part[n], a, b0);
-            bf16::mma(dv_part[n + 1], a, b1);
-          }
-          a_from_acc_bf16(a, dpt[2 * j], dpt[2 * j + 1]);
-#pragma unroll
-          for (int n = 0; n < GD; n += 2) {
-            load_b_bf16<S>(b0, b1, qs + j * 16 * S + (n0 + n) * 8, lane);
-            bf16::mma(dk_part[n], a, b0);
-            bf16::mma(dk_part[n + 1], a, b1);
-          }
-        }
-      }
-      tile_sum(dva + n0, dv_part);
-      tile_sum(dka + n0, dk_part);
-    }
-    __syncthreads();  // every reader of this stage is done before it refills
-    if constexpr (STAGES == 1) {
-      if (qi + 1 < n_q) {
-        fetch(qi + 1);
-        tf32::cp_async_commit();
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (keys[i] < L) {
-      const int64_t row = static_cast<int64_t>(b) * L + keys[i];
-      store_row_bf16(dk + row * H * D + h * D, dka, i, t, kLn2);
-      store_row_bf16(dv + row * H * D + h * D, dva, i, t, 1.f);
-    }
-  }
-}
-
-template <int D>
-cudaError_t launch_bf16(const bf16::T* q, const bf16::T* k, const bf16::T* v,
-                        const bf16::T* out, const bf16::T* dout, const float* lse,
-                        bf16::T* dq, bf16::T* dk, bf16::T* dv, float* delta, int B, int L,
-                        int H, int64_t q_bs, int64_t q_rs, int64_t k_bs, int64_t k_rs,
-                        int64_t v_bs, int64_t v_rs, int64_t o_bs, int64_t o_rs,
-                        int64_t do_bs, int64_t do_rs, int mask_center,
-                        cudaStream_t stream) {
-  using namespace fmma;
-  if (!aligned_bf16(q, q_bs, q_rs) || !aligned_bf16(k, k_bs, k_rs) ||
-      !aligned_bf16(v, v_bs, v_rs) || !aligned_bf16(out, o_bs, o_rs) ||
-      !aligned_bf16(dout, do_bs, do_rs))
-    return cudaErrorMisalignedAddress;
-  constexpr int S = bstride<D>(), NC = kBwdCols;
-  const size_t smem_dq = 2 * (2 * kBlock * S) + 4 * (2 * kBlock) +
-                         2 * (bwd_stages<D>() * 2 * NC * S);
-  const size_t smem_kv = 2 * (2 * kBlock * S) + bwd_stages<D>() * (2 * (2 * NC * S) + 4 * (2 * NC));
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem_dq));
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dkdv_bf16_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem_kv));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((L + kBlock - 1) / kBlock, H, B);
-  // As the TPU kernel forms them: scale in double, rounded to f32 where it
-  // multiplies dq; scale * log2(e) likewise for q2.
-  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
-  const float scale_log2 = scale_log2_of(D);
-  const int offset = mask_center ? 1 : 0;
-  // Same stream: the dk/dv pass reads the delta that the dq pass stores.
-  flash_bwd_dq_bf16_kernel<D><<<grid, kThreads, smem_dq, stream>>>(
-      q, k, v, out, dout, lse, dq, delta, L, H, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, o_bs,
-      o_rs, do_bs, do_rs, scale, scale_log2, offset);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  flash_bwd_dkdv_bf16_kernel<D><<<grid, kThreads, smem_kv, stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, L, H, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, do_bs,
-      do_rs, scale_log2, offset);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // q, k: f32 (B, L, H*d_k); v, out, dout: f32 (B, L, H*d_v); each with unit
@@ -1128,15 +735,29 @@ extern "C" int flash_bwd_bf16(const void* q, const void* k, const void* v, const
   using W = bf16::T*;
 #define FLASH_BWD_BF16_CASE(D)                                                            \
   if (d_k == D && d_v == D)                                                               \
-    return launch_bf16<D>(static_cast<P>(q), static_cast<P>(k), static_cast<P>(v),        \
-                          static_cast<P>(out), static_cast<P>(dout), lse,                 \
-                          static_cast<W>(dq), static_cast<W>(dk), static_cast<W>(dv),     \
-                          delta, B, L, H, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, o_bs, o_rs, \
-                          do_bs, do_rs, mask_center, s);
+    return fwg::launch_bwd<D>(static_cast<P>(q), static_cast<P>(k), static_cast<P>(v),     \
+                              static_cast<P>(out), static_cast<P>(dout), lse,              \
+                              static_cast<W>(dq), static_cast<W>(dk), static_cast<W>(dv),  \
+                              delta, B, L, H, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, o_bs,    \
+                              o_rs, do_bs, do_rs, mask_center, s);
   FLASH_BWD_BF16_CASE(16)
   FLASH_BWD_BF16_CASE(32)
   FLASH_BWD_BF16_CASE(64)
   FLASH_BWD_BF16_CASE(128)
 #undef FLASH_BWD_BF16_CASE
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Shared-memory bytes of flash_bwd_bf16's CTAs at d_k == d_v == d: the dq
+// pass's (pass 0) or the dk/dv pass's (pass 1); 0 for another d.
+extern "C" int flash_bwd_bf16_smem(int d, int pass) {
+#define FLASH_BWD_BF16_SMEM(D) \
+  if (d == D) return pass == 0 ? fwg::Dq<D, fwg::groups<D>()>::kSmem \
+                     : fwg::Dkdv<D, fwg::groups<D>()>::kSmem;
+  FLASH_BWD_BF16_SMEM(16)
+  FLASH_BWD_BF16_SMEM(32)
+  FLASH_BWD_BF16_SMEM(64)
+  FLASH_BWD_BF16_SMEM(128)
+#undef FLASH_BWD_BF16_SMEM
+  return 0;
 }

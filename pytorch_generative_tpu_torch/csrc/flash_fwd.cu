@@ -19,11 +19,9 @@
 // fused attention block (attn_block_fwd.cu) runs as well.
 //
 // flash_fwd_bf16 takes bf16 q, k, v and writes bf16 out and f32 lse, for
-// d_k == d_v = 16, 32, 64, 128 (fmma::flash_fwd_bf16_kernel of
-// flash_fwd_mma.cuh): one bf16 mma.sync per product, at the TPU kernel's
-// rounding points for bf16 operands. Its bound at ImageGPT's C = 512: 40
-// GFLOP at 989 TFLOP/s, ~0.041 ms, against 4 x 51 MB of q, k, v and out at
-// 3.35 TB/s, ~0.061 ms: bytes.
+// d_k == d_v = 16, 32, 64, 128: warpgroup wgmma products fed by TMA
+// (fwg::launch_fwd, flash_wgmma_bf16.cuh), at the TPU kernel's rounding
+// points for bf16 operands.
 //
 // (d_k, d_v) = (4, 32) and (4, 8) (PixelSNAIL) keep the SIMT tile pass of
 // flash_fwd.cuh: d_k = 4 is under one mma's depth of 8, and they beat their
@@ -31,6 +29,7 @@
 
 #include "flash_fwd.cuh"
 #include "flash_fwd_mma.cuh"
+#include "flash_wgmma_bf16.cuh"
 
 namespace {
 
@@ -110,12 +109,24 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, void*
   auto* ob = static_cast<bf16::T*>(out);
 #define FLASH_FWD_BF16_CASE(D)                                                      \
   if (d_k == D && d_v == D)                                                         \
-    return fmma::launch_fwd_bf16<D>(qb, kb, vb, ob, lse, B, L, H, q_bs, q_rs, k_bs, \
-                                    k_rs, v_bs, v_rs, mask_center, s);
+    return fwg::launch_fwd<D>(qb, kb, vb, ob, lse, B, L, H, q_bs, q_rs, k_bs, k_rs, \
+                              v_bs, v_rs, mask_center, s);
   FLASH_FWD_BF16_CASE(16)
   FLASH_FWD_BF16_CASE(32)
   FLASH_FWD_BF16_CASE(64)
   FLASH_FWD_BF16_CASE(128)
 #undef FLASH_FWD_BF16_CASE
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Shared-memory bytes of flash_fwd_bf16's CTA at d_k == d_v == d (0 for
+// another d): tests/test_torch_flash_plan.py restates it.
+extern "C" int flash_fwd_bf16_smem(int d) {
+  switch (d) {
+    case 16: return fwg::Fwd<16, fwg::groups<16>()>::kSmem;
+    case 32: return fwg::Fwd<32, fwg::groups<32>()>::kSmem;
+    case 64: return fwg::Fwd<64, fwg::groups<64>()>::kSmem;
+    case 128: return fwg::Fwd<128, fwg::groups<128>()>::kSmem;
+  }
+  return 0;
 }

@@ -205,191 +205,4 @@ cudaError_t launch_fwd(const float* q, const float* k, const float* v, float* ou
   return cudaGetLastError();
 }
 
-// The bf16 instance (flash_fwd.cu's flash_fwd_bf16): q, k, v and out bf16,
-// lse f32, at the TPU kernel's rounding points (attention_pallas.py:137-198
-// with bf16 operands): q2 = bf16(q * scale * log2(e)) in f32, S = q2 K^T
-// with f32 sums, the online softmax in f32, P rounded to bf16 for P V (the
-// row sums l take the f32 P), out = O / l rounded to bf16. The structure
-// is the f32 kernel's: one CTA per (64-row query tile, head, batch), a
-// warp's 16 rows of q2 held as A fragments for the whole key loop, K and V
-// tiles of 64 keys through a two-stage cp.async ring, each tile's P V
-// summed in fresh accumulators and added to O in f32 (tile_sum's reason
-// holds for bf16 products too). One bf16 mma per product.
-template <int D>
-__global__ void __launch_bounds__(fmma::kThreads, fmma::kFwdCtas)
-flash_fwd_bf16_kernel(const bf16::T* __restrict__ q, const bf16::T* __restrict__ k,
-                      const bf16::T* __restrict__ v, bf16::T* __restrict__ out,
-                      float* __restrict__ lse, int L, int H, int64_t q_bs, int64_t q_rs,
-                      int64_t k_bs, int64_t k_rs, int64_t v_bs, int64_t v_rs,
-                      float scale_log2, int offset) {
-  constexpr int S = bstride<D>();
-  constexpr int NK = kBf16Cols;       // keys a tile
-  constexpr int KD = D / 16;          // 16-feature k-steps of q2 K^T
-  constexpr int DB = D / 8;           // 8-feature blocks of O
-  constexpr int NB = NK / 8;          // 8-key blocks of a tile
-  constexpr int GD = DB < 8 ? DB : 8;  // O blocks a P V sweep takes
-  extern __shared__ float smem[];     // two stages of [K | V], NK rows each
-  bf16::T* ring = reinterpret_cast<bf16::T*>(smem);
-
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int r0 = qt * kBlock + warp * kWarpRows;  // the warp's first row
-  const int rows[2] = {r0 + g, r0 + g + 8};       // this lane's rows
-
-  const int n_tiles = (min(L, (qt + 1) * kBlock) + NK - 1) / NK;
-  auto fetch = [&](int kt) {
-    bf16::T* ks = ring + (kt % 2) * 2 * NK * S;
-    stage_bf16<NK, D>(ks, k, k_bs, k_rs, b, h, kt * NK, L);
-    stage_bf16<NK, D>(ks + NK * S, v, v_bs, v_rs, b, h, kt * NK, L);
-  };
-  fetch(0);
-  tf32::cp_async_commit();
-
-  // The warp's rows of q2 as A fragments: register e holds row rows[e % 2],
-  // features 16 kk + 2t + 8 (e / 2) and the one after it.
-  uint32_t qa[KD][4];
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = rows[e % 2];
-      uint32_t x = 0u;
-      if (row < L)
-        x = *reinterpret_cast<const uint32_t*>(q + b * q_bs + row * q_rs + h * D + kk * 16 +
-                                               2 * t + 8 * (e / 2));
-      qa[kk][e] = bf16::pack(bf16::lo(x) * scale_log2, bf16::hi(x) * scale_log2);
-    }
-  }
-
-  float o[DB][4];
-  zero(o);
-  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
-  float l[2] = {0.f, 0.f};  // this lane's share of each row's sum
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    if (kt + 1 < n_tiles) fetch(kt + 1);
-    tf32::cp_async_commit();
-    tf32::cp_async_wait<1>();  // tile kt has landed
-    __syncthreads();
-    const bf16::T* ks = ring + (kt % 2) * 2 * NK * S;
-    const bf16::T* vs = ks + NK * S;
-    const int key0 = kt * NK;
-    const int live = blocks_through<NB>(r0 + kWarpRows - 1 - offset - key0);
-
-    // S = q2 K^T, two key blocks an ldmatrix; blocks at or past `live` are
-    // wholly masked and stay 0 until the mask below.
-    float s[NB][4];
-    zero(s);
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-#pragma unroll
-      for (int n = 0; n < NB; n += 2) {
-        if (n < live) {
-          uint32_t b0[2], b1[2];
-          load_bt_bf16<S>(b0, b1, ks + n * 8 * S + kk * 16, lane);
-          bf16::mma(s[n], qa[kk], b0);
-          bf16::mma(s[n + 1], qa[kk], b1);
-        }
-      }
-    }
-    if (key0 + NK - 1 + offset > r0) {  // the tile reaches the warp's diagonal
-#pragma unroll
-      for (int n = 0; n < NB; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (key0 + n * 8 + 2 * t + e % 2 + offset > rows[e / 2]) s[n][e] = -CUDART_INF_F;
-        }
-      }
-    }
-
-    // Online softmax in base 2; a row masked so far keeps m = -inf, p = 0.
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int n = 0; n < NB; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], s[n][e]);
-    }
-    float base[2], alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      base[i] = isinf(mx[i]) ? 0.f : mx[i];
-      alpha[i] = exp2f(m[i] - base[i]);  // 0 while m = -inf
-      m[i] = mx[i];
-      l[i] *= alpha[i];
-    }
-#pragma unroll
-    for (int n = 0; n < NB; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = exp2f(s[n][e] - base[e / 2]);  // masked: exp2(-inf) == 0
-        l[e / 2] += s[n][e];
-      }
-    }
-    // O = alpha O + bf16(P) V, GD feature blocks at a time, the tile's sum
-    // in fresh accumulators.
-#pragma unroll
-    for (int n0 = 0; n0 < DB; n0 += GD) {
-      float pv[GD][4];
-      zero(pv);
-#pragma unroll
-      for (int j = 0; j < NB / 2; ++j) {
-        if (2 * j < live) {
-          uint32_t pa[4];
-          a_from_acc_bf16(pa, s[2 * j], s[2 * j + 1]);
-#pragma unroll
-          for (int n = 0; n < GD; n += 2) {
-            uint32_t b0[2], b1[2];
-            load_b_bf16<S>(b0, b1, vs + j * 16 * S + (n0 + n) * 8, lane);
-            bf16::mma(pv[n], pa, b0);
-            bf16::mma(pv[n + 1], pa, b1);
-          }
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < GD; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[n0 + n][e] = o[n0 + n][e] * alpha[e / 2] + pv[n][e];
-      }
-    }
-    __syncthreads();  // every reader of this stage is done before it refills
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    if (rows[i] < L) {
-      const int64_t row = static_cast<int64_t>(b) * L + rows[i];
-      store_row_bf16(out + row * H * D + h * D, o, i, t, 1.f / (l[i] == 0.f ? 1.f : l[i]));
-      if (t == 0) {
-        lse[(static_cast<int64_t>(b) * H + h) * L + rows[i]] =
-            l[i] == 0.f ? -CUDART_INF_F : m[i] * kLn2 + logf(fmaxf(l[i], 1e-38f));
-      }
-    }
-  }
-}
-
-template <int D>
-cudaError_t launch_fwd_bf16(const bf16::T* q, const bf16::T* k, const bf16::T* v,
-                            bf16::T* out, float* lse, int B, int L, int H, int64_t q_bs,
-                            int64_t q_rs, int64_t k_bs, int64_t k_rs, int64_t v_bs,
-                            int64_t v_rs, int mask_center, cudaStream_t stream) {
-  if (!aligned_bf16(q, q_bs, q_rs) || !aligned_bf16(k, k_bs, k_rs) ||
-      !aligned_bf16(v, v_bs, v_rs))
-    return cudaErrorMisalignedAddress;
-  const size_t smem = sizeof(bf16::T) * 2 * 2 * kBf16Cols * bstride<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((L + kBlock - 1) / kBlock, H, B);
-  flash_fwd_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(
-      q, k, v, out, lse, L, H, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, scale_log2_of(D),
-      mask_center ? 1 : 0);
-  return cudaGetLastError();
-}
-
 }  // namespace fmma

@@ -217,75 +217,11 @@ __device__ __forceinline__ void store_row(float* dst, const float (&acc)[N][4], 
   }
 }
 
-// ---- The bf16 instances (flash_fwd_bf16, flash_bwd_bf16) ----
+// ---- bf16 fragments (the bf16 GEMM's, gemm_bf16.cuh) ----
 //
-// q, k, v, out, dout, dq, dk and dv are bf16; lse, delta and every sum are
-// f32. One bf16 mma.sync m16n8k16 per product (989 TFLOP/s dense), no
-// split. Tiles reach shared memory by 16-byte cp.async (8 values), rows
-// padded by 16 bytes (D + 8 values), which keeps every ldmatrix phase (8
-// rows of 16 bytes) on 32 distinct banks at D = 16, 32, 64 and 128. A
-// fragment of an operand whose product index runs along its rows (V in
-// P V, K in dS K, dO in P^T dO, q2 in dS^T q2) comes by ldmatrix.trans. An
-// accumulator pair (columns 0-7 and 8-15 of 16 rows) is exactly the A
-// fragment of a 16 x 16 block, so P and dS go from the S and dP
-// accumulators into the next product in registers, rounded to bf16 there,
-// where the TPU kernel casts them (attention_pallas.py:166, :275, :282).
-
-// Keys (forward) a tile of the bf16 kernels; the backward's streamed tiles
-// are kBwdCols wide, as in f32.
-constexpr int kBf16Cols = 64;
-
-// scale * log2(e) for head width D as the TPU kernel forms it: the product
-// in double (Python's), rounded once to f32.
-inline float scale_log2_of(int D) {
-  return static_cast<float>((1.0 / sqrt(static_cast<double>(D))) * 1.4426950408889634);
-}
-
-// Row stride, in bf16 values, of a shared bf16 tile of D features.
-template <int D>
-__host__ __device__ constexpr int bstride() {
-  return D + 8;
-}
-
-// Whether 16-byte copies can stage a packed bf16 operand: its start 16-byte
-// aligned, its (batch, row) strides multiples of 8 values.
-inline bool aligned_bf16(const void* p, int64_t bs, int64_t rs) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && bs % 8 == 0 && rs % 8 == 0;
-}
-
-// Starts copies of rows [row0, row0 + R) of one head (D features at offset
-// h * D) of a packed bf16 operand into a shared tile of stride bstride<D>();
-// rows past L become 0.
-template <int R, int D>
-__device__ __forceinline__ void stage_bf16(bf16::T* dst, const bf16::T* src, int64_t bs,
-                                           int64_t rs, int b, int h, int row0, int L) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks a row
-  for (int i = threadIdx.x; i < R * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    const int row = row0 + r;
-    const bool ok = row < L;
-    bf16::cp_async16(dst + r * bstride<D>() + c,
-                     ok ? src + b * bs + row * rs + h * D + c : src, ok);
-  }
-}
-
-// In place, the chunks of a tile that this thread staged (stage_bf16's own
-// loop, so no barrier is needed once its copies have landed): x times mul
-// in f32, rounded to bf16. q becomes q2 = bf16(q * scale * log2(e)), the
-// operand of the TPU kernel's products (attention_pallas.py:260).
-template <int R, int D>
-__device__ __forceinline__ void scale_own_bf16(bf16::T* dst, float mul) {
-  constexpr int kChunks = D / 8;
-  for (int i = threadIdx.x; i < R * kChunks; i += kThreads) {
-    uint4* p = reinterpret_cast<uint4*>(dst + (i / kChunks) * bstride<D>() + (i % kChunks) * 8);
-    uint4 v = *p;
-    v.x = bf16::pack(bf16::lo(v.x) * mul, bf16::hi(v.x) * mul);
-    v.y = bf16::pack(bf16::lo(v.y) * mul, bf16::hi(v.y) * mul);
-    v.z = bf16::pack(bf16::lo(v.z) * mul, bf16::hi(v.z) * mul);
-    v.w = bf16::pack(bf16::lo(v.w) * mul, bf16::hi(v.w) * mul);
-    *p = v;
-  }
-}
+// Loads by ldmatrix of bf16 tiles staged with rows padded by 16 bytes
+// (stride S values), which keeps every ldmatrix phase (8 rows of 16 bytes)
+// on 32 distinct banks.
 
 // The A fragment of the 16 x 16 block at x (rows of stride S).
 template <int S>
@@ -317,28 +253,6 @@ __device__ __forceinline__ void load_b_bf16(uint32_t (&b0)[2], uint32_t (&b1)[2]
   b0[1] = r[1];
   b1[0] = r[2];
   b1[1] = r[3];
-}
-
-// Two accumulator blocks (columns 0-7 in c0, 8-15 in c1, of 16 rows),
-// rounded to bf16, as the A fragment of that 16 x 16 block.
-__device__ __forceinline__ void a_from_acc_bf16(uint32_t (&a)[4], const float (&c0)[4],
-                                                const float (&c1)[4]) {
-  a[0] = bf16::pack(c0[0], c0[1]);
-  a[1] = bf16::pack(c0[2], c0[3]);
-  a[2] = bf16::pack(c1[0], c1[1]);
-  a[3] = bf16::pack(c1[2], c1[3]);
-}
-
-// Stores row `row` (accumulator half i: rows g or g + 8) of N accumulator
-// blocks, times mul and rounded to bf16, to dst (the row's first feature).
-template <int N>
-__device__ __forceinline__ void store_row_bf16(bf16::T* dst, const float (&acc)[N][4], int i,
-                                               int t, float mul) {
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-    *reinterpret_cast<uint32_t*>(dst + n * 8 + 2 * t) =
-        bf16::pack(acc[n][2 * i] * mul, acc[n][2 * i + 1] * mul);
-  }
 }
 
 }  // namespace fmma

@@ -1,6 +1,6 @@
-// The few instructions that the bf16 tensor-core kernels (the bf16 flash
-// kernels of flash_mma.cuh, flash_fwd_mma.cuh and flash_bwd.cu, and the
-// bf16 GEMM of gemm_bf16.cuh) are built from: packed round-to-nearest
+// The few instructions that the bf16 GEMM of gemm_bf16.cuh is built from,
+// and the bf16 conversions of the wgmma flash kernels
+// (flash_wgmma_bf16.cuh): packed round-to-nearest
 // conversion of f32 to bf16, the m16n8k16 bf16 product with f32
 // accumulators, ldmatrix (plain and transposed) and 16-byte asynchronous
 // copies into shared memory. Nothing else of those kernels is written in

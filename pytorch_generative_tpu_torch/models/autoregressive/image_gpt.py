@@ -9,6 +9,8 @@ an extra skip around every block. The transformer middle runs on flat
 
 from __future__ import annotations
 
+import os
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -20,7 +22,7 @@ from pytorch_generative_tpu_torch.nn import (
     ChannelLayerNorm,
     Conv2d,
 )
-from pytorch_generative_tpu_torch.ops import mlp_cuda
+from pytorch_generative_tpu_torch.ops import ln_cuda, mlp_cuda
 
 # The configuration of the JAX package's ``image_gpt.reproduce()``.
 REPRODUCE_CONFIG = dict(
@@ -43,9 +45,19 @@ def reproduce_loss(x, _, preds):
 
 
 def _fused_kernels(n_channels: int) -> bool:
-    """The JAX package's gate for the fused LayerNorm and MLP kernels: full
-    128-lane rows. At C = 64 (reproduce()) the blocks stay unfused."""
-    return n_channels % 128 == 0
+    """The JAX package's gate for the fused LayerNorm and MLP kernels, read
+    when a block is built: full 128-lane rows (at C = 64, reproduce(), the
+    blocks stay unfused), unless ``PGT_FUSED_MLP`` forces it ("1" on, any
+    other value off). "1" at a width that the kernels do not take raises a
+    ValueError naming it."""
+    env = os.environ.get("PGT_FUSED_MLP")
+    if env is None:
+        return n_channels % 128 == 0
+    if env == "1" and (n_channels % 4 or not 0 < n_channels <= ln_cuda.MAX_CHANNELS):
+        raise ValueError(
+            f"PGT_FUSED_MLP=1 at C = {n_channels}: the fused LayerNorm and MLP kernels take "
+            f"a multiple of 4 up to {ln_cuda.MAX_CHANNELS}")
+    return env == "1"
 
 
 class TransformerBlock(nn.Module):

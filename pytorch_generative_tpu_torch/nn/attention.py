@@ -50,6 +50,11 @@ class CausalAttention(nn.Module):
                  out_channels: int | None = None, mask_center: bool = False,
                  extra_input_channels: int = 0, generator=None):
         super().__init__()
+        if os.environ.get("PGT_NO_FLASH") == "1":
+            raise ValueError(
+                "PGT_NO_FLASH=1: the port's attention runs on its flash kernels only; the "
+                "plain attention route (the JAX package's use_flash=False) is not ported "
+                "(ROADMAP.md A.3 and A.13)")
         self.n_heads = n_heads
         self.embed_channels = embed_channels or in_channels
         self.out_channels = out_channels or in_channels

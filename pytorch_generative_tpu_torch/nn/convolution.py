@@ -10,6 +10,8 @@ kw) weight and runs ``F.conv_transpose2d`` the same way.
 
 from __future__ import annotations
 
+import os
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -132,11 +134,15 @@ def channel_layer_norm(x, scale, offset, eps: float = 1e-5):
 
 
 def _use_fused_ln(x, fused: bool) -> bool:
-    """The JAX package's rule for the LayerNorm kernel (``ops/ln_cuda.py``):
-    asked for, at least 1024 rows and C >= 8. Its TPU-backend term has no
-    counterpart here: the kernel's wrapper dispatches on the device."""
+    """The JAX package's rule for the LayerNorm kernel (``ops/ln_cuda.py``),
+    read at every call: asked for (``fused``, unless ``PGT_FUSED_LN``
+    forces it: "1" on, any other value off), at least 1024 rows and C >= 8.
+    Its TPU-backend term has no counterpart here: the kernel's wrapper
+    dispatches on the device."""
+    env = os.environ.get("PGT_FUSED_LN")
+    want = fused if env is None else env == "1"
     c = x.shape[-1]
-    return fused and c >= 8 and x.numel() // c >= 1024
+    return want and c >= 8 and x.numel() // c >= 1024
 
 
 class ChannelLayerNorm(nn.Module):

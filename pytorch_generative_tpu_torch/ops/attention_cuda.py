@@ -27,6 +27,7 @@ is ROADMAP.md queue B item 1's.
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
@@ -261,9 +262,20 @@ def _flash_backward_cuda(q, k, v, out, lse, dout, mask_center: bool,
     return dq, dk, dv
 
 
+def _check_precision(dtype):
+    """Raises a ValueError for ``PGT_FLASH_PRECISION=default`` with float32
+    operands, read at every call as the JAX package reads it: there it casts
+    each product's f32 operands to bf16, a mode the port does not have."""
+    if dtype == torch.float32 and os.environ.get("PGT_FLASH_PRECISION", "highest") == "default":
+        raise ValueError(
+            "PGT_FLASH_PRECISION=default: the flash kernels' f32 mode with bf16 products "
+            "is not ported (ROADMAP.md queue B item 1); unset it for the f32 kernels")
+
+
 def flash_forward(q, k, v, mask_center: bool, n_heads: int):
     """Forward over packed q, k (B, L, H*d_k) and v (B, L, H*d_v): returns
     (out (B, L, H*d_v), lse (B, H, L))."""
+    _check_precision(q.dtype)
     _check_bf16_pair(q.dtype, (q.shape[-1] // n_heads, v.shape[-1] // n_heads))
     return _build.dispatch(_flash_forward_cuda, flash_forward_plain, q, k, v,
                            mask_center, n_heads)
@@ -272,6 +284,7 @@ def flash_forward(q, k, v, mask_center: bool, n_heads: int):
 def flash_backward(q, k, v, out, lse, dout, mask_center: bool, n_heads: int):
     """Backward over packed tensors, from the forward's out and lse:
     returns (dq, dk, dv), shaped as q, k and v."""
+    _check_precision(q.dtype)
     _check_bf16_pair(q.dtype, (q.shape[-1] // n_heads, v.shape[-1] // n_heads))
     return _build.dispatch(_flash_backward_cuda, flash_backward_plain, q, k, v,
                            out, lse, dout, mask_center, n_heads)

@@ -184,5 +184,10 @@ def attention_block_packed(x, wq, bq, wkv, bkv, wo, bo, mask_center: bool,
         raise NotImplementedError(
             "the fused attention block (PGT_FUSED_ATTN=1) takes float32; its bf16 mode is "
             "not ported yet: ROADMAP.md queue B item 3 (B.9's modes)")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, wq, bq, wkv, bkv, wo, bo)):
+        # The JAX block reads PGT_FLASH_PRECISION in its backward alone; a
+        # block that will be differentiated checks it before the forward.
+        attention_cuda._check_precision(x.dtype)
     return _AttentionBlockPacked.apply(x.contiguous(), wq, bq, wkv, bkv, wo, bo,
                                        mask_center, n_heads)

@@ -31,6 +31,7 @@ Uniforms are (H*W, N, C), so the port can be fed the JAX package's draws.
 
 from __future__ import annotations
 
+import os
 import warnings
 
 import torch
@@ -92,13 +93,28 @@ def _sample_loop_tile(model, n, cache_dtype):
     return tile if working_set(tile) <= budget and n % tile == 0 else None
 
 
+def _check_no_fused_decode():
+    """``PGT_NO_FUSED_DECODE=1`` sends the JAX package's samplers to its XLA
+    scan, a route of the TPU's alone: on the card its counterpart would be a
+    plain PyTorch sampler standing in for the kernels, so it raises."""
+    if os.environ.get("PGT_NO_FUSED_DECODE") == "1":
+        raise ValueError(
+            "PGT_NO_FUSED_DECODE=1: the port samples on its decode kernels only; no "
+            "kernel-free sampler route is ported (ROADMAP.md A.13)")
+
+
 def sample_route(model, n, cache_dtype=torch.float32) -> str:
     """``LOOP_ROUTE`` where the JAX package runs its whole-loop kernel (an
-    eligible model, a float32 cache, a tile >= 8), else ``STEP_ROUTE``."""
+    eligible model, a float32 cache, a tile >= 8, and ``PGT_SAMPLE_LOOP``
+    not "0"), else ``STEP_ROUTE``. The switches are read at every call, as
+    the JAX package reads them; ``PGT_NO_FUSED_DECODE=1`` raises a
+    ValueError."""
     if cache_dtype not in decode_cuda.CACHE_DTYPES:
         raise ValueError(f"cache_dtype must be one of {decode_cuda.CACHE_DTYPES}, "
                          f"got {cache_dtype}")
-    if cache_dtype == torch.float32 and _whole_loop_eligible(model):
+    _check_no_fused_decode()
+    if (os.environ.get("PGT_SAMPLE_LOOP", "1") != "0" and cache_dtype == torch.float32
+            and _whole_loop_eligible(model)):
         tile = _sample_loop_tile(model, n, cache_dtype)
         if tile is not None and tile >= 8:
             return LOOP_ROUTE
@@ -335,8 +351,18 @@ def pixel_snail_sample_route(model, n) -> str:
     device memory and takes any n in one launch, so on the card the
     kernel's plain version never serves an eligible model. ``n`` is kept
     in the signature for that reason: the route does not depend on it.
+
+    ``PGT_SAMPLE_LOOP=0`` and ``PGT_NO_FUSED_DECODE=1`` (read at every
+    call) both raise a ValueError: in the JAX package both send PixelSNAIL
+    to its XLA scan, whose counterpart on the card would be the kernel's
+    plain version standing in for it.
     """
     del n
+    _check_no_fused_decode()
+    if os.environ.get("PGT_SAMPLE_LOOP", "1") == "0":
+        raise ValueError(
+            "PGT_SAMPLE_LOOP=0: PixelSNAIL samples on its whole-loop kernel only; no "
+            "kernel-free sampler route is ported (ROADMAP.md A.13)")
     return LOOP_ROUTE if _snail_loop_eligible(model) else INCREMENTAL_ROUTE
 
 

@@ -1422,8 +1422,15 @@ def test_flash_bf16_kernels_match_plain_at_full_width(dev, d, n_heads, mask_cent
         assert bool((out[:, 0] == 0).all()) and bool((grads[0][:, 0] == 0).all())
 
 
+# The bf16 kernels' tile edges besides FLASH_LENGTHS: their 32-row dk/dv
+# query tiles, 64-row consumer groups and 64-key tiles, and 128- and
+# 192-row CTA tiles (csrc/flash_wgmma_bf16.cuh).
+BF16_FLASH_LENGTHS = sorted(set(FLASH_LENGTHS) | {16, 31, 32, 63, 127, 128, 129, 191, 192, 193,
+                                                  255, 256, 257})
+
+
 @pytest.mark.parametrize("mask_center", [False, True])
-@pytest.mark.parametrize("l", FLASH_LENGTHS)
+@pytest.mark.parametrize("l", BF16_FLASH_LENGTHS)
 @pytest.mark.parametrize("d", attention_cuda.BF16_HEAD_DIMS)
 def test_flash_bf16_kernels_match_plain_at_tile_edges(dev, d, l, mask_center):
     """Every bf16 instance (d = 16 to 128) at lengths on the tiles' edges,
@@ -1445,6 +1452,21 @@ def test_flash_bf16_kernels_match_plain_at_tile_edges(dev, d, l, mask_center):
     ref = attention_cuda.flash_backward_plain(q, k, v, out, lse, dout, mask_center, 2)
     for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
         _assert_bf16(g, r, BF16_TOL, name)
+
+
+@pytest.mark.parametrize("d", attention_cuda.BF16_HEAD_DIMS)
+def test_flash_bf16_plan_mirrors_the_kernels(dev, d):
+    """test_torch_flash_plan.smem_bytes, which the CPU plan tests hold to
+    the card's limit, is what the kernels ask for."""
+    import ctypes
+
+    from test_torch_flash_plan import smem_bytes
+
+    fwd = attention_cuda._build.load(attention_cuda.KERNEL).flash_fwd_bf16_smem
+    bwd = attention_cuda._build.load(attention_cuda.BWD_KERNEL).flash_bwd_bf16_smem
+    fwd.argtypes, bwd.argtypes = [ctypes.c_int], [ctypes.c_int, ctypes.c_int]
+    want = smem_bytes(d)
+    assert (fwd(d), bwd(d, 0), bwd(d, 1)) == (want["fwd"], want["dq"], want["dkdv"])
 
 
 @pytest.mark.parametrize("r,c", [(50176, 512), (1031, 128), (1031, 640), (4097, 1024)])

@@ -4,6 +4,7 @@ checkouts can be compared in one run:
 
     python3 tools/torch_flash_times.py CHECKOUT LABEL [--dump FILE] [--steps]
     python3 tools/torch_flash_times.py CHECKOUT LABEL --vq [--steps] [--stages]
+    python3 tools/torch_flash_times.py CHECKOUT LABEL --bf16 [--dump FILE] [--stages]
     python3 tools/torch_flash_times.py --compare FILE_A FILE_B
 
 CHECKOUT is the root of a checkout (its ``pytorch_generative_tpu_torch`` is
@@ -39,6 +40,31 @@ of the MLP are not kept from one design to the next, only their gates.
 events) at the reproduce() config (C = 64, 2 heads), at C = 512 with 8 and
 with 4 heads, and at C = 512 / 8 heads with the fused attention block
 (PGT_FUSED_ATTN=1) under each MLP backward route, TF32 off.
+``--bf16`` times the flash kernels' bf16 mode instead (rows "1 bf16" and
+"2 bf16" of PERF.md) at (B 64, L 784) with (H 2, d 32), (H 8, d 64) and
+(H 4, d 128): forward and backward ms (20 calls after 3 warm-ups) beside
+bf16 causal SDPA (20 calls) and autograd.grad through it (100 calls: its
+time varies from call to call at d 32), the device time a forward and a
+backward call spend in each kernel they launch (torch.profiler: at d 32
+the calls' times are the wrappers' host work), then the registers and
+spills of the checkout's bf16 flash kernels and every ptxas line that
+names C7514 (wgmma serialised), or "no C7514", and the wrappers' host
+time a call (200 calls at B 1, L 16, where the card's work is a few
+microseconds, then one synchronize). ``--dump`` (in either mode)
+also saves the bf16 kernels' outputs with their plain versions at (B 4, L
+200, H 2) for d 16, 32, 64 and 128 with and without mask_center; ``--compare``
+holds those, which change by design, against their plain versions at
+``chip_smoke.py``'s bf16 gates (2^-7 of max(1, the largest magnitude), lse
+1e-6 of it) and ends with whether every f32 entry (flash rows 1, 2 and 9,
+the MLP and the LayerNorm) kept its bits. ``--bf16 --stages`` also builds
+a copy of the checkout's ``csrc/flash_fwd.cu`` whose
+``flash_wgmma_bf16.cuh`` has clock64() stamps of the forward's first
+consumer thread and of its producer thread patched in at text anchors
+(raises if an anchor changed) and prints, for the CTAs of the first and of the
+last query tile at d 64 and 128, the median SM cycles from the consumer's
+start to each event: Q landed, q2 ready, each key tile's stage full, its
+scores landed, its softmax done, its P V done, the producer's issue of
+each tile.
 ``--vq`` times the fused vector-quantization kernel (row 8 of PERF.md,
 ``ops/vq_cuda.py``) instead, at the VQ-VAE reproduce() shape (M 8192 rows,
 K 512 codes, D 64) on three inputs: rows and codebook drawn from N(0, 1)
@@ -64,6 +90,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 # (batch, heads, d_k, d_v, mask_center) of the timed shapes, all at L = 784.
@@ -75,6 +102,11 @@ SHAPES = ((64, 2, 32, 32, False), (64, 8, 64, 64, False), (64, 4, 128, 128, Fals
 # BLOCK_LSE_TOL).
 BLOCK_WIDTHS = ((64, 2), (512, 8), (512, 4))
 RTOL, BLOCK_LSE_TOL = 1e-4, 5e-5
+# The bf16 flash kernels' timed (heads, d) at (B 64, L 784), their dumped
+# widths, and chip_smoke.py's bf16 gates (BF16_TOL, BF16_LSE_RTOL).
+BF16_SHAPES = ((2, 32), (8, 64), (4, 128))
+BF16_DIMS = (16, 32, 64, 128)
+BF16_TOL, BF16_LSE_RTOL = 2.0 ** -7, 1e-6
 # The fused MLP's widths (F = 4C) and the rows it is timed and dumped at.
 MLP_WIDTHS = (512, 1024)
 MLP_ROWS, MLP_DUMP_ROWS = 50176, 4097
@@ -118,7 +150,198 @@ def _operands(b, l, h, d_k, d_v, seed, dev):
     return q, kv[..., :h * d_k], kv[..., h * d_k:], do
 
 
-def main(checkout, label, dump=None, steps=False, vq=False, stages=False):
+def bf16_main(ac, label, dev, time_ms):
+    """The bf16 flash kernels' times beside bf16 SDPA, the card's time a
+    forward and a backward call by kernel, their registers and spills, and
+    any C7514 line."""
+    import torch
+    import torch.nn.functional as F
+
+    out = []
+    for h, d in BF16_SHAPES:
+        q, k, v, do = (t.to(torch.bfloat16) for t in _operands(64, 784, h, d, d, 0, dev))
+        o, lse = ac.flash_forward(q, k, v, False, h)
+        f = time_ms(lambda: ac.flash_forward(q, k, v, False, h))
+        bw = time_ms(lambda: ac.flash_backward(q, k, v, o, lse, do, False, h))
+        q4, k4, v4 = (ac._unpack(t, h).contiguous().requires_grad_() for t in (q, k, v))
+        do4 = ac._unpack(do, h).contiguous()
+
+        def sdpa():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+
+        ref = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+        lib_f = time_ms(sdpa)
+        lib_b = time_ms(lambda: torch.autograd.grad(ref, (q4, k4, v4), do4, retain_graph=True),
+                        100)
+        split_f = launch_split(lambda: ac.flash_forward(q, k, v, False, h))
+        split = launch_split(lambda: ac.flash_backward(q, k, v, o, lse, do, False, h))
+        out.append(f"(H {h}, d {d}): fwd {f:.4f} ms bwd {bw:.4f} ms, bf16 SDPA fwd {lib_f:.4f} "
+                   f"ms autograd.grad {lib_b:.4f} ms; fwd by kernel: {split_f}; "
+                   f"bwd by kernel: {split}")
+    print(f"bf16 flash times {label} ({ac.__file__}) [{_card()}]: " + "; ".join(out), flush=True)
+    # The wrappers' host work a call: (B 1, L 16), where the card's work is
+    # a few microseconds, 200 calls in a row, then one synchronize.
+    q, k, v, do = (t.to(torch.bfloat16) for t in _operands(1, 16, 2, 64, 64, 0, dev))
+    o, lse = ac.flash_forward(q, k, v, False, 2)
+    host = []
+    for name, fn in (("fwd", lambda: ac.flash_forward(q, k, v, False, 2)),
+                     ("bwd", lambda: ac.flash_backward(q, k, v, o, lse, do, False, 2))):
+        fn()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(200):
+            fn()
+        torch.cuda.synchronize()
+        host.append(f"{name} {(time.perf_counter() - start) / 200 * 1e6:.1f} us")
+    print(f"bf16 flash host time a call {label} (B 1, L 16, H 2, d 64): " + ", ".join(host),
+          flush=True)
+    for kernel in (ac.KERNEL, ac.BWD_KERNEL):
+        lines = [ln for ln in _ptxas(ac, kernel) if "bf16" in ln or "wgmma" in ln]
+        log = ac._build.library_path(kernel).with_suffix(".log").read_text()
+        c7514 = [ln.strip() for ln in log.splitlines() if "C7514" in ln]
+        print(f"{kernel} bf16 ptxas {label}: " + " | ".join(lines) + " | "
+              + (" | ".join(c7514) if c7514 else "no C7514"), flush=True)
+
+
+# Stamps patched into a copy of csrc/flash_wgmma_bf16.cuh: the forward's
+# first consumer thread (slots 0-39: its first 9 key tiles) and its
+# producer thread (40-47: its first 8 tiles) write clock64() after each
+# anchor, in the first 4096 CTAs.
+FWG_STAMP_HEADER = ("namespace fwg {\n", """namespace fwg {
+__device__ long long g_stamps[4096][48];
+#define FWG_STAMP(slot) { \\
+    const unsigned cta = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z); \\
+    if (cta < 4096 && (slot) < 48) g_stamps[cta][slot] = clock64(); }
+""")
+FWG_STAMP_GETTER = """
+extern "C" int flash_fwd_bf16_stamps(long long* out) {
+  return static_cast<int>(cudaMemcpyFromSymbol(out, fwg::g_stamps, sizeof(fwg::g_stamps)));
+}
+extern "C" int flash_fwd_bf16_stamps_clear() {
+  void* stamps = nullptr;
+  cudaError_t err = cudaGetSymbolAddress(&stamps, fwg::g_stamps);
+  return static_cast<int>(err ? err : cudaMemset(stamps, 0, sizeof(fwg::g_stamps)));
+}
+"""
+FWG_STAMPS = (  # (text put before the anchor, anchor, text put after it)
+    ("", "      load_tile<BM, D>(qs, &tq, q_full, h, row0, b);\n"
+     "      for (int j = 0; j < n_tiles; ++j) {\n        const int s = j % kStages;\n"
+     "        if (j >= kStages) wg::wait(&empty[s], ((j / kStages) & 1) ^ 1);\n",
+     "        if (j < 8) FWG_STAMP(40 + j)\n"),
+    ("  const bool stamp = threadIdx.x == 128;\n  if (stamp) FWG_STAMP(0)\n",
+     "  // q2 = bf16(q * scale * log2 e), the group's rows, in place.\n"
+     "  wg::wait(q_full, 0);\n", "  if (stamp) FWG_STAMP(1)\n"),
+    ("", "  scale_rows<BM, 64, D>(qs, 64 * grp, scale_log2, threadIdx.x % 128, 128);\n"
+     "  wg::fence_async_shared();\n  wg::sync_threads(1 + grp, 128);\n",
+     "  if (stamp) FWG_STAMP(2)\n"),
+    ("", "    if (fresh) {  // S = q2 K_j^T\n      const int s = j % kStages;\n",
+     "      if (stamp && j < 9) FWG_STAMP(3 + 4 * j)\n"),
+    ("", "      if (lane == 0) wg::arrive(&empty[(j - 1) % kStages]);  // this warp has read "
+     "the stage\n", "      if (stamp && j < 9) FWG_STAMP(2 + 4 * j)\n"),
+    ("", "      // -inf, p = 0.\n      wg::hold(sc);\n",
+     "      if (stamp && j < 9) FWG_STAMP(4 + 4 * j)\n"),
+    ("", "      to_a<BN>(pa, sc);\n", "      if (stamp && j < 9) FWG_STAMP(5 + 4 * j)\n"),
+    ("", "      // full would count toward a later use.\n"
+     "      wg::wait(&full[j % kStages], (j / kStages) & 1);\n      __syncwarp();\n"
+     "      if (lane == 0) wg::arrive(&empty[j % kStages]);\n    }\n  }\n\n",
+     "  if (stamp) FWG_STAMP(39)\n"),
+)
+
+
+def stamped_bf16_forward(csrc):
+    """The text of csrc/flash_wgmma_bf16.cuh with FWG_STAMPS patched in."""
+    src = (csrc / "flash_wgmma_bf16.cuh").read_text()
+    anchors = [FWG_STAMP_HEADER[0]] + [anchor for _, anchor, _ in FWG_STAMPS]
+    for anchor in anchors:
+        if src.count(anchor) != 1:
+            raise ValueError(f"csrc/flash_wgmma_bf16.cuh: stamp anchor {anchor!r} is not "
+                             "found once")
+    src = src.replace(*FWG_STAMP_HEADER)
+    for before, anchor, after in FWG_STAMPS:
+        src = src.replace(anchor, before + anchor + after)
+    return src
+
+
+def bf16_stages(ac, dev):
+    """The bf16 forward's stamped timeline (``--bf16 --stages``): median SM
+    cycles from the first consumer thread's start to each event, for the
+    CTAs of the first (one key tile) and of the last query tile."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    build = ac._build
+    out = Path(tempfile.mkdtemp(prefix="flash_stages_"))
+    (out / "flash_wgmma_bf16.cuh").write_text(stamped_bf16_forward(build.CSRC))
+    (out / "flash_fwd.cu").write_text((build.CSRC / "flash_fwd.cu").read_text()
+                                      + FWG_STAMP_GETTER)
+    so = str(out / "flash_fwd.so")
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o", so,
+                    str(out / "flash_fwd.cu")], check=True, capture_output=True)
+    lib = ctypes.CDLL(so)
+    lib.flash_fwd_bf16_stamps.argtypes = [ctypes.c_void_p]
+    saved = build._loaded.get(ac.KERNEL)
+    build._loaded[ac.KERNEL] = lib
+    names = {0: "start", 1: "Q landed", 2: "q2 ready", 39: "end"}
+    for j in range(9):
+        names.update({3 + 4 * j: f"t{j} full", 4 + 4 * j: f"t{j} scores", 5 + 4 * j: f"t{j} softmax"})
+        if j:
+            names[2 + 4 * j] = f"t{j - 1} PV"
+    names.update({40 + j: f"issue t{j}" for j in range(8)})
+    lines = []
+    try:
+        for h, d in ((8, 64), (4, 128)):
+            q, k, v, _ = (t.to(torch.bfloat16) for t in _operands(64, 784, h, d, d, 0, dev))
+            assert lib.flash_fwd_bf16_stamps_clear() == 0  # no stamps of the last width
+            for _ in range(3):
+                ac.flash_forward(q, k, v, False, h)
+            torch.cuda.synchronize()
+            st = np.zeros((4096, 48), dtype=np.int64)
+            assert lib.flash_fwd_bf16_stamps(st.ctypes.data) == 0
+            # Query tiles of 64 rows a consumer group: 3 groups a CTA at
+            # d <= 64, 2 at d = 128 (fwg::groups).
+            n_qt = -(-784 // (64 * (3 if d <= 64 else 2)))
+            cta = np.arange(4096)
+            for label, sel in (("first query tile", cta % n_qt == n_qt - 1),
+                               ("last query tile", cta % n_qt == 0)):
+                part = st[sel]
+                part = part[part[:, 0] != 0]
+                med = np.median(part - part[:, :1], axis=0)
+                events = sorted((m, names[i]) for i, m in enumerate(med)
+                                if i in names and (part[:, i] != 0).mean() > 0.9)
+                lines.append(f"d {d}, {label} ({len(part)} CTAs): "
+                             + ", ".join(f"{n} {m:.0f}" for m, n in events))
+    finally:
+        build._loaded[ac.KERNEL] = saved
+        shutil.rmtree(out, ignore_errors=True)
+    return lines
+
+
+def _bf16_outputs(ac, dev):
+    """The bf16 flash kernels' outputs and their plain versions at (B 4, L
+    200, H 2) for BF16_DIMS, with and without mask_center."""
+    import torch
+
+    results = {}
+    for d in BF16_DIMS:
+        q, k, v, do = (t.to(torch.bfloat16)
+                       for t in _operands(4, 200, 2, d, d, 7000 + d, dev))
+        for mask_center in (False, True):
+            o, lse = ac.flash_forward(q, k, v, mask_center, 2)
+            grads = ac.flash_backward(q, k, v, o, lse, do, mask_center, 2)
+            po, plse = ac.flash_forward_plain(q, k, v, mask_center, 2)
+            pgrads = ac.flash_backward_plain(q, k, v, o, lse, do, mask_center, 2)
+            entry = {}
+            for name, got, want in zip(("out", "lse", "dq", "dk", "dv"), (o, lse, *grads),
+                                       (po, plse, *pgrads)):
+                entry[name], entry[f"plain {name}"] = got.float().cpu(), want.float().cpu()
+            results[f"bf16 {d}x{d} mask_center={mask_center}"] = entry
+    return results
+
+
+def main(checkout, label, dump=None, steps=False, vq=False, stages=False, bf16=False):
     sys.path.insert(0, checkout)
     import torch
 
@@ -144,6 +367,15 @@ def main(checkout, label, dump=None, steps=False, vq=False, stages=False):
     if vq:
         vq_main(label, dev, time_ms, steps, stages)
         return
+    if bf16:
+        bf16_main(ac, label, dev, time_ms)
+        if stages:
+            for line in bf16_stages(ac, dev):
+                print(f"bf16 forward stages {label} (SM cycles from the start): {line}",
+                      flush=True)
+        if dump:
+            torch.save(_bf16_outputs(ac, dev), dump)
+        return
     out = []
     for b, h, d_k, d_v, mask_center in SHAPES:
         q, k, v, do = _operands(b, 784, h, d_k, d_v, 0, dev)
@@ -168,6 +400,7 @@ def main(checkout, label, dump=None, steps=False, vq=False, stages=False):
                     zip(("out", "lse", "dq", "dk", "dv"), (t.cpu() for t in (o, lse, *grads))))
         results.update(_block_outputs(dev))
         results.update(_mlp_outputs(dev))
+        results.update(_bf16_outputs(ac, dev))
         torch.save(results, dump)
     if steps:
         print(f"train steps {label}: " + "; ".join(
@@ -576,19 +809,46 @@ def _within_gates(entry):
     return ", ".join(parts) + (" (within the gates)" if ok else " (OUTSIDE THE GATES)")
 
 
+def _within_bf16_gates(entry):
+    """'name e of m, ...: ok' of a dump's bf16 flash outputs against their
+    plain versions at the bf16 gates (e the largest error, m max(1, the
+    plain's largest magnitude); lse over its finite entries, -inf on the
+    same rows)."""
+    import torch
+
+    parts, ok = [], True
+    for name in (n for n in entry if not n.startswith("plain ")):
+        got, want = entry[name], entry[f"plain {name}"]
+        finite = torch.isfinite(want)
+        ok &= torch.equal(torch.isfinite(got), finite)
+        err = float((got - want)[finite].abs().max()) if finite.any() else 0.0
+        scale = max(1.0, float(want[finite].abs().max()) if finite.any() else 0.0)
+        ok &= err <= (BF16_LSE_RTOL if name == "lse" else BF16_TOL) * scale
+        parts.append(f"{name} {err:.3e} of {scale:.3e}")
+    return ", ".join(parts) + (" (within the gates)" if ok else " (OUTSIDE THE GATES)")
+
+
 def compare(file_a, file_b):
     import torch
 
     a, b = torch.load(file_a), torch.load(file_b)
+    f32_equal = True
     for key in sorted(set(a) & set(b)):
         names = [name for name in a[key] if not name.startswith("plain ")]
         same = [name for name in names if torch.equal(a[key][name], b[key][name])]
         note = "" if len(same) == len(names) else " (DIFFER)"
-        if key.startswith(("block", "mlp")) and note:
-            note = (" (changed by design); against the plain version: A "
-                    f"{_within_gates(a[key])}; B {_within_gates(b[key])}")
+        if key.startswith("bf16"):
+            note = (f"{note}; against the plain version: A {_within_bf16_gates(a[key])}; B "
+                    f"{_within_bf16_gates(b[key])}")
+        elif note:
+            f32_equal = False
+            if key.startswith(("block", "mlp")):
+                note = (" (changed by design?); against the plain version: A "
+                        f"{_within_gates(a[key])}; B {_within_gates(b[key])}")
         print(f"bits {key}: equal {', '.join(same) or 'none'} of {len(names)} outputs{note}",
               flush=True)
+    print(f"bits of every f32 entry (flash rows 1, 2 and 9, MLP, LayerNorm): "
+          f"{'all equal' if f32_equal else 'SOME DIFFER'}", flush=True)
 
 
 if __name__ == "__main__":
@@ -602,5 +862,6 @@ if __name__ == "__main__":
         parser.add_argument("--steps", action="store_true")
         parser.add_argument("--vq", action="store_true")
         parser.add_argument("--stages", action="store_true")
+        parser.add_argument("--bf16", action="store_true")
         args = parser.parse_args()
-        main(args.checkout, args.label, args.dump, args.steps, args.vq, args.stages)
+        main(args.checkout, args.label, args.dump, args.steps, args.vq, args.stages, args.bf16)
