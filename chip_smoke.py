@@ -2195,7 +2195,7 @@ def bf16_phases(dev, gen, smi, reset_counts, read_counts):
             profile_steps(lambda: t.train_one_step(xb, None), 2, step_ms[label],
                           f"bf16 train step batch {BATCH}", (BATCH, "samples"),
                           f"profile bf16 step {label}", smi,
-                          ("gemmb::", "flash_bwd", "flash_fwd", "ln_", "elementwise"),
+                          ("wgemm::", "flash_bwd", "flash_fwd", "ln_", "elementwise"),
                           host=True)
         finally:
             shutil.rmtree(log_dir, ignore_errors=True)
@@ -2289,12 +2289,13 @@ def bf16_phases(dev, gen, smi, reset_counts, read_counts):
           for kern, source, replaces in (
               (ln_cuda.BF16_KERNEL, "ln_fwd.cu", "pytorch_generative_tpu/ops/ln_pallas.py:41"),
               (ln_cuda.BF16_BWD_KERNEL, "ln_bwd.cu", "pytorch_generative_tpu/ops/ln_pallas.py:48"),
-              (mlp_cuda.BF16_KERNEL, "mlp_fwd.cu", "pytorch_generative_tpu/ops/mlp_pallas.py:81"),
-              (mlp_cuda.BF16_BWD_KERNEL, "mlp_bwd.cu",
+              (mlp_cuda.BF16_KERNEL, "gemm_wgmma_bf16.cuh",
+               "pytorch_generative_tpu/ops/mlp_pallas.py:81"),
+              (mlp_cuda.BF16_BWD_KERNEL, "gemm_wgmma_bf16.cuh",
                "pytorch_generative_tpu/ops/mlp_pallas.py:102"),
-              (mlp_cuda.BF16_RECOMPUTE_KERNEL, "mlp_bwd.cu",
+              (mlp_cuda.BF16_RECOMPUTE_KERNEL, "gemm_wgmma_bf16.cuh",
                "pytorch_generative_tpu/ops/mlp_pallas.py:112"),
-              (mlp_cuda.BF16_PIPE_KERNEL, "mlp_bwd.cu",
+              (mlp_cuda.BF16_PIPE_KERNEL, "gemm_wgmma_bf16.cuh",
                "pytorch_generative_tpu/ops/mlp_pallas.py:187")))]
     return {"counts": counts_all, "kernels": kernels, "step_ms": step_ms}
 

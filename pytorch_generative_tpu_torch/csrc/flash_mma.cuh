@@ -29,7 +29,6 @@
 #include <cmath>
 #include <stdint.h>
 
-#include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
 
 namespace fmma {
@@ -215,44 +214,6 @@ __device__ __forceinline__ void store_row(float* dst, const float (&acc)[N][4], 
     *reinterpret_cast<float2*>(dst + n * 8 + 2 * t) =
         make_float2(acc[n][2 * i] * mul, acc[n][2 * i + 1] * mul);
   }
-}
-
-// ---- bf16 fragments (the bf16 GEMM's, gemm_bf16.cuh) ----
-//
-// Loads by ldmatrix of bf16 tiles staged with rows padded by 16 bytes
-// (stride S values), which keeps every ldmatrix phase (8 rows of 16 bytes)
-// on 32 distinct banks.
-
-// The A fragment of the 16 x 16 block at x (rows of stride S).
-template <int S>
-__device__ __forceinline__ void load_a_bf16(uint32_t (&a)[4], const bf16::T* x, int lane) {
-  bf16::ldmatrix_x4(a, x + (lane % 16) * S + (lane / 16) * 8);
-}
-
-// The B fragments of B = X^T (B[k][n] = X[n][k]) for k < 16 and the 8 rows
-// of X at x (b0) and the 8 below them (b1).
-template <int S>
-__device__ __forceinline__ void load_bt_bf16(uint32_t (&b0)[2], uint32_t (&b1)[2],
-                                             const bf16::T* x, int lane) {
-  uint32_t r[4];
-  bf16::ldmatrix_x4(r, x + (lane % 8 + 8 * (lane / 16)) * S + ((lane / 8) % 2) * 8);
-  b0[0] = r[0];
-  b0[1] = r[1];
-  b1[0] = r[2];
-  b1[1] = r[3];
-}
-
-// The B fragments of B = X (B[k][n] = X[k][n]) for the 16 rows of X at x
-// and its columns 0-7 (b0) and 8-15 (b1).
-template <int S>
-__device__ __forceinline__ void load_b_bf16(uint32_t (&b0)[2], uint32_t (&b1)[2],
-                                            const bf16::T* x, int lane) {
-  uint32_t r[4];
-  bf16::ldmatrix_x4_trans(r, x + (lane % 8 + 8 * ((lane / 8) % 2)) * S + (lane / 16) * 8);
-  b0[0] = r[0];
-  b0[1] = r[1];
-  b1[0] = r[2];
-  b1[1] = r[3];
 }
 
 }  // namespace fmma

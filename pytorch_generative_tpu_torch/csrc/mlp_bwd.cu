@@ -66,11 +66,13 @@
 //
 // The bf16 entries (mlp_bwd_bf16, mlp_bwd_recompute_bf16, mlp_bwd_pipe_bf16)
 // run the same stages on bf16 rows, weights and scratch (mlp.cuh says
-// where they round), every product on gemm_bf16.cuh (one bf16 mma a
-// product, 989 TFLOP/s: ~0.43 ms at best at R = 50,176, C = 512), the f32
-// dy kept beside the bf16 one for db1, and every gradient sum in f32. The
-// three give the same bits: the recompute route rounds its y to bf16 as the
-// forward stores it.
+// where they round), every product on gemm_wgmma_bf16.cuh (wgmma fed by
+// TMA, 989 TFLOP/s: ~0.43 ms at best at R = 50,176, C = 512), and every
+// gradient sum in f32. Step 7 has no pass of its own there: the dy
+// product's epilogue sums the f32 dy over each 64-row block, and those
+// partials are added in order. The three give the same bits: the
+// recompute route rounds its y to bf16 as the forward stores it, and the
+// pipelined route's granules start on a 128-row tile of the dy product.
 
 #include "mlp.cuh"
 
@@ -159,8 +161,8 @@ extern "C" int mlp_bwd_f32(const float* x, const float* dout, const float* y,
                            int R, int C, int F, int part_rows, int rows_per_cta,
                            int rows_per_chunk, float eps, void* stream) {
   const mlp::Backward<float> bw{x,   dout,  y,     gamma, beta,  w1,    w2,    dx,
-                                dw1, db1,   dw2,   sums,  xn,    g,     dy,    nullptr,
-                                dln, wpart, wpart, rpart, cpart, R,     C,     F,
+                                dw1, db1,   dw2,   sums,  xn,    g,     dy,    dln,
+                                wpart, wpart, rpart, cpart, R,   C,     F,
                                 part_rows, rows_per_cta, rows_per_chunk, eps};
   return static_cast<int>(backward(bw, static_cast<cudaStream_t>(stream)));
 }
@@ -175,8 +177,8 @@ extern "C" int mlp_bwd_recompute_f32(
     float* dln, float* wpart, float* rpart, float* cpart, int R, int C, int F,
     int part_rows, int rows_per_cta, int rows_per_chunk, float eps, void* stream) {
   const mlp::Backward<float> bw{x,   dout,  y,     gamma, beta,  w1,    w2,    dx,
-                                dw1, db1,   dw2,   sums,  xn,    g,     dy,    nullptr,
-                                dln, wpart, wpart, rpart, cpart, R,     C,     F,
+                                dw1, db1,   dw2,   sums,  xn,    g,     dy,    dln,
+                                wpart, wpart, rpart, cpart, R,   C,     F,
                                 part_rows, rows_per_cta, rows_per_chunk, eps};
   return static_cast<int>(backward_recompute(bw, b1, static_cast<cudaStream_t>(stream)));
 }
@@ -194,31 +196,31 @@ extern "C" int mlp_bwd_pipe_f32(const float* x, const float* dout, const float* 
                                 int rows_per_cta, int rows_per_chunk, int granule, float eps,
                                 void* stream, void* back_stream) {
   const mlp::Backward<float> bw{x,   dout,   y,      gamma, beta,  w1,    w2,    dx,
-                                dw1, db1,    dw2,    sums,  xn,    g,     dy,    nullptr,
-                                dln, wpart2, wpart1, rpart, cpart, R,     C,     F,
+                                dw1, db1,    dw2,    sums,  xn,    g,     dy,    dln,
+                                wpart2, wpart1, rpart, cpart, R,  C,     F,
                                 part_rows, rows_per_cta, rows_per_chunk, eps};
   return static_cast<int>(backward_pipe(bw, granule, static_cast<cudaStream_t>(stream),
                                         static_cast<cudaStream_t>(back_stream)));
 }
 
 // The bf16 entries: as the f32 ones with x, dout, y, gamma, beta, w1, b1,
-// w2, dx and the scratch xn, g, dy bf16, and one more f32 scratch dyf
-// (R, F) after dy; dw1, db1, dw2, sums, dln and the partials stay f32. C
-// and F multiples of 8.
+// w2, dx and the scratch xn, g, dy bf16; dw1, db1, dw2, sums, dln and the
+// partials stay f32. C and F multiples of 8; rows_per_chunk 64 (the dy
+// product's row blocks, whose column sums cpart holds) and part_rows a
+// multiple of 128 (the GEMM's tile).
 using BP = const bf16::T*;
 using BW = bf16::T*;
 
 extern "C" int mlp_bwd_bf16(const void* x, const void* dout, const void* y,
                             const void* gamma, const void* beta, const void* w1,
                             const void* w2, void* dx, float* dw1, float* db1, float* dw2,
-                            float* sums, void* xn, void* g, void* dy, float* dyf, float* dln,
-                            float* wpart, float* rpart, float* cpart, int R, int C, int F,
+                            float* sums, void* xn, void* g, void* dy, float* dln, float* wpart, float* rpart, float* cpart, int R, int C, int F,
                             int part_rows, int rows_per_cta, int rows_per_chunk, float eps,
                             void* stream) {
   const mlp::Backward<bf16::T> bw{
       BP(x),   BP(dout), BP(y),   BP(gamma), BP(beta),  BP(w1), BP(w2), BW(dx),
-      dw1,     db1,      dw2,     sums,      BP(xn),    BW(g),  BW(dy), dyf,
-      dln,     wpart,    wpart,   rpart,     cpart,     R,      C,      F,
+      dw1,     db1,      dw2,     sums,      BP(xn),    BW(g),  BW(dy), dln,
+      wpart,   wpart,    rpart,   cpart,     R,         C,      F,
       part_rows, rows_per_cta, rows_per_chunk, eps};
   return static_cast<int>(backward(bw, static_cast<cudaStream_t>(stream)));
 }
@@ -226,13 +228,13 @@ extern "C" int mlp_bwd_bf16(const void* x, const void* dout, const void* y,
 extern "C" int mlp_bwd_recompute_bf16(
     const void* x, const void* dout, const void* gamma, const void* beta, const void* w1,
     const void* b1, const void* w2, void* dx, float* dw1, float* db1, float* dw2,
-    float* sums, void* xn, void* g, void* y, void* dy, float* dyf, float* dln, float* wpart,
+    float* sums, void* xn, void* g, void* y, void* dy, float* dln, float* wpart,
     float* rpart, float* cpart, int R, int C, int F, int part_rows, int rows_per_cta,
     int rows_per_chunk, float eps, void* stream) {
   const mlp::Backward<bf16::T> bw{
       BP(x),   BP(dout), BP(y),   BP(gamma), BP(beta),  BP(w1), BP(w2), BW(dx),
-      dw1,     db1,      dw2,     sums,      BP(xn),    BW(g),  BW(dy), dyf,
-      dln,     wpart,    wpart,   rpart,     cpart,     R,      C,      F,
+      dw1,     db1,      dw2,     sums,      BP(xn),    BW(g),  BW(dy), dln,
+      wpart,   wpart,    rpart,   cpart,     R,         C,      F,
       part_rows, rows_per_cta, rows_per_chunk, eps};
   return static_cast<int>(backward_recompute(bw, BP(b1), static_cast<cudaStream_t>(stream)));
 }
@@ -240,15 +242,15 @@ extern "C" int mlp_bwd_recompute_bf16(
 extern "C" int mlp_bwd_pipe_bf16(const void* x, const void* dout, const void* y,
                                  const void* gamma, const void* beta, const void* w1,
                                  const void* w2, void* dx, float* dw1, float* db1, float* dw2,
-                                 float* sums, void* xn, void* g, void* dy, float* dyf,
-                                 float* dln, float* wpart2, float* wpart1, float* rpart,
+                                 float* sums, void* xn, void* g, void* dy, float* dln,
+                                 float* wpart2, float* wpart1, float* rpart,
                                  float* cpart, int R, int C, int F, int part_rows,
                                  int rows_per_cta, int rows_per_chunk, int granule, float eps,
                                  void* stream, void* back_stream) {
   const mlp::Backward<bf16::T> bw{
       BP(x),   BP(dout), BP(y),   BP(gamma), BP(beta),  BP(w1), BP(w2), BW(dx),
-      dw1,     db1,      dw2,     sums,      BP(xn),    BW(g),  BW(dy), dyf,
-      dln,     wpart2,   wpart1,  rpart,     cpart,     R,      C,      F,
+      dw1,     db1,      dw2,     sums,      BP(xn),    BW(g),  BW(dy), dln,
+      wpart2,  wpart1,   rpart,   cpart,     R,         C,      F,
       part_rows, rows_per_cta, rows_per_chunk, eps};
   return static_cast<int>(backward_pipe(bw, granule, static_cast<cudaStream_t>(stream),
                                         static_cast<cudaStream_t>(back_stream)));

@@ -24,7 +24,7 @@
 // the CUDA cores would stop at 67 TFLOP/s, ~3.1 ms).
 //
 // mlp_fwd_bf16 runs the same three launches on bf16 rows, weights and
-// scratch: the products on gemm_bf16.cuh (one bf16 mma a product, 989
+// scratch: the products on gemm_wgmma_bf16.cuh (wgmma fed by TMA, 989
 // TFLOP/s: ~0.21 ms at best), bf16 stores where the TPU kernel casts
 // (mlp.cuh says where).
 

@@ -1,9 +1,10 @@
 // The Hopper instructions that the bf16 flash kernels of
-// flash_wgmma_bf16.cuh are built from: warpgroup products (wgmma.mma_async,
-// bf16 operands, f32 accumulators), their shared-memory matrix descriptors,
-// mbarriers, TMA tile loads (cp.async.bulk.tensor) and the host side of the
-// tensor maps those loads read. Nothing else of those kernels is written in
-// PTX. All of it needs sm_90a.
+// flash_wgmma_bf16.cuh and the bf16 GEMM of gemm_wgmma_bf16.cuh are built
+// from: warpgroup products (wgmma.mma_async, bf16 operands, f32
+// accumulators), their shared-memory matrix descriptors, mbarriers, TMA
+// tile loads (cp.async.bulk.tensor) and the host side of the tensor maps
+// those loads read. Nothing else of those kernels is written in PTX. All
+// of it needs sm_90a.
 //
 // A tile that TMA writes with a 32-, 64- or 128-byte swizzle (rows of 16,
 // 32 or 64 bf16 values) is, as it lands, the canonical wgmma layout of the
@@ -89,6 +90,16 @@ __device__ __forceinline__ void load_3d(void* dst, const CUtensorMap* map, uint6
       "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// As load_3d for a 2-D tensor map: the box at (c0, c1), innermost first.
+__device__ __forceinline__ void load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                        int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem(bar)), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -234,6 +245,21 @@ struct Mma<64> {
   }
 };
 
+template <>
+struct Mma<128> {
+  // d (64 x 128) (+)= a (64 x 16) b (16 x 128), both from shared memory:
+  // K-major, or MN-major where TA (TB) is 1.
+  template <int TA, int TB>
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
 
 // ---- host ----
 
@@ -272,6 +298,23 @@ inline bool encode_bf16(CUtensorMap* map, const void* base, int B, int L, int C,
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The tensor map of a bf16 matrix of `outer` rows of `inner` values with
+// unit inner stride and a row stride of ld values: a box of (64, rows)
+// with the 128-byte swizzle (rows of 64 values). Values past either extent
+// read as zeros. False if it cannot be encoded.
+inline bool encode_bf16_2d(CUtensorMap* map, const void* base, int64_t inner, int64_t outer,
+                           int64_t ld, int rows) {
+  PFN_cuTensorMapEncodeTiled fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
+            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace wg

@@ -25,6 +25,9 @@ bf16 where ``mlp_pallas.py`` casts for bf16 operands (the plain versions
 say where); out, y and dx are bf16, the parameter gradients are summed in
 f32 and cast to the parameters' type by the autograd Function, as the JAX
 package's ``_vjp_bwd`` casts them. bf16 takes C and F multiples of 8.
+Every bf16 product runs on the wgmma GEMM of ``csrc/gemm_wgmma_bf16.cuh``
+(128 x 128 tiles, a persistent grid of one CTA an SM), and the bf16
+backward cuts its rows by its own plan (``bf16_backward_plan``).
 """
 
 from __future__ import annotations
@@ -46,13 +49,24 @@ _SQRT_HALF = 0.7071067811865476
 _INV_SQRT_2PI = 0.3989422804014327
 # Rows per chunk of the backward's db1 = sum dy column sums.
 ROWS_PER_CHUNK = 512
-# The products' CTA tile (csrc/mlp.cuh's kBM x kBN) and the CTAs of one
+# The f32 products' CTA tile (csrc/mlp.cuh's kBM x kBN) and the CTAs of one
 # wave of it on an H100: 132 SMs, two 4-warp CTAs an SM.
 GEMM_TILE = (64, 128)
 _WAVE_CTAS = 2 * 132
 # The backward's dW1 and dW2 grids: the R rows are cut into enough slices
 # for each grid to reach this many CTAs (four waves).
 _TARGET_CTAS = 4 * _WAVE_CTAS
+# The bf16 GEMM (csrc/gemm_wgmma_bf16.cuh): its CTA tile, one persistent
+# CTA an SM walking the work items (132 on an H100), the dW products cut
+# into enough slices for four items an SM; the dy product writes db1's
+# partials a 64-row block at a time (rows per chunk). A bf16 slice is a
+# multiple of the tile's 128 rows, and so of the GEMM's k-step (64) and of
+# ln_cuda.ROWS_PER_CTA.
+BF16_GEMM_TILE = (128, 128)
+_BF16_WAVE = 132
+_BF16_TARGET_TILES = 4 * _BF16_WAVE
+BF16_ROWS_PER_CHUNK = 64
+_BF16_SLICE_STEP = 128
 
 # Whether the forward keeps the (R, F) pre-activation for the backward
 # (mlp_pallas.py's module constant of the same name).
@@ -146,10 +160,10 @@ def ln_mlp_backward_recompute_plain(x2, do2, gamma, beta, w1, b1, w2, eps):
     return ln_mlp_backward_plain(x2, do2, y2, gamma, beta, w1, b1, w2, eps)
 
 
-def _dw_tiles(c, f):
+def _dw_tiles(c, f, tile=GEMM_TILE):
     """CTA tiles of one slice's dW2 (F x C) or dW1 (C x F) product, the
     larger count of the two."""
-    bm, bn = GEMM_TILE
+    bm, bn = tile
     return max(-(-f // bm) * -(-c // bn), -(-c // bm) * -(-f // bn))
 
 
@@ -176,28 +190,50 @@ def backward_plan(r, c, f):
     return part_rows, -(-r // part_rows), max(1, _WAVE_CTAS // tiles)
 
 
+def bf16_backward_plan(r, c, f):
+    """``backward_plan`` for bf16 rows, by the bf16 GEMM's constants: a
+    slice is a multiple of 128 rows (the dy product's tile, so that the
+    pipelined route's granules start on a tile and on a block of db1's
+    partials; also a multiple of the k-step and of ln_cuda.ROWS_PER_CTA),
+    enough slices for the dW products to reach _BF16_TARGET_TILES work
+    items (at least 1024 rows a slice), and granules of as many slices as
+    one CTA an SM covers (at least one). At R 50,176: C 512 gives 8 slices
+    of 6,272 rows (64 tiles each) in granules of 2; C 1024 2 slices of
+    25,088 rows (256 tiles each), granules of 1."""
+    tiles = _dw_tiles(c, f, BF16_GEMM_TILE)
+    slices = max(1, min(r // 1024, _BF16_TARGET_TILES // tiles))
+    step = _BF16_SLICE_STEP
+    part_rows = -(-r // (slices * step)) * step
+    return part_rows, -(-r // part_rows), max(1, _BF16_WAVE // tiles)
+
+
+def _rows_per_chunk(dtype):
+    """Rows a partial of db1 sums: the f32 column-sum kernel's chunk, or
+    the bf16 dy product's 64-row block."""
+    return BF16_ROWS_PER_CHUNK if dtype == torch.bfloat16 else ROWS_PER_CHUNK
+
+
 def _bwd_scratch(r, c, f, dev, n_wparts, dtype):
     """Scratch of one backward call: LN(x), gelu(y) and dy of the rows'
-    type, for bf16 rows the f32 dy beside them, dln, n_wparts buffers of
-    per-slice dW partials, the per-CTA and per-chunk partial sums; and the
-    plan (``backward_plan``)."""
-    plan = backward_plan(r, c, f)
+    type, dln, n_wparts buffers of per-slice dW partials, the per-CTA and
+    per-chunk partial sums; and the plan (``backward_plan``, or
+    ``bf16_backward_plan`` for bf16 rows)."""
+    plan = (bf16_backward_plan if dtype == torch.bfloat16 else backward_plan)(r, c, f)
     return plan, (
         torch.empty((r, c), device=dev, dtype=dtype),                      # xn
         torch.empty((r, f), device=dev, dtype=dtype),                      # g
         torch.empty((r, f), device=dev, dtype=dtype),                      # dy
-        *((torch.empty((r, f), device=dev),) if dtype == torch.bfloat16 else ()),  # dyf
         torch.empty((r, c), device=dev),                                   # dln
         *(torch.empty((plan[1], c * f), device=dev) for _ in range(n_wparts)),
         torch.empty((-(-r // ln_cuda.ROWS_PER_CTA), 3, c), device=dev),    # rpart
-        torch.empty((-(-r // ROWS_PER_CHUNK), f), device=dev))             # cpart
+        torch.empty((-(-r // _rows_per_chunk(dtype)), f), device=dev))     # cpart
 
 
 def _check(kernel, x2, w1, **operands):
     """Raises unless the operands are contiguous, all float32 or all
     bfloat16, on x2's device, of shapes that fit x2 and w1, each starting
     on a 16-byte boundary (the LayerNorm reads 16 or 8 bytes at a time,
-    the GEMM by 16-byte ``cp.async``)."""
+    the f32 GEMM by 16-byte ``cp.async``, the bf16 one by TMA)."""
     dtype = ln_cuda.kernel_dtype(x2)
     r, c = ln_cuda.check_rows(x2)
     vec = 8 if dtype == torch.bfloat16 else 4
@@ -266,7 +302,7 @@ def _mlp_backward_cuda(x2, do2, y2, gamma, beta, w1, b1, w2, eps):
                         + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(x2.device):
         err = fn(*_ptrs(x2, do2, y2, gamma, beta, w1, w2, *outs, *scratch),
-                 r, c, f, part_rows, ln_cuda.ROWS_PER_CTA, ROWS_PER_CHUNK, eps,
+                 r, c, f, part_rows, ln_cuda.ROWS_PER_CTA, _rows_per_chunk(x2.dtype), eps,
                  torch.cuda.current_stream(x2.device).cuda_stream)
     _build.check(err, entry)
     _count(count)
@@ -287,7 +323,7 @@ def _mlp_backward_recompute_cuda(x2, do2, gamma, beta, w1, b1, w2, eps):
                         + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(x2.device):
         err = fn(*_ptrs(x2, do2, gamma, beta, w1, b1, w2, *outs, xn, g, y, *scratch),
-                 r, c, f, part_rows, ln_cuda.ROWS_PER_CTA, ROWS_PER_CHUNK, eps,
+                 r, c, f, part_rows, ln_cuda.ROWS_PER_CTA, _rows_per_chunk(x2.dtype), eps,
                  torch.cuda.current_stream(x2.device).cuda_stream)
     _build.check(err, entry)
     _count(count)
@@ -309,7 +345,8 @@ def _mlp_backward_pipe_cuda(x2, do2, y2, gamma, beta, w1, b1, w2, eps):
                         + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
     with torch.cuda.device(x2.device):
         err = fn(*_ptrs(x2, do2, y2, gamma, beta, w1, w2, *outs, *scratch),
-                 r, c, f, part_rows, ln_cuda.ROWS_PER_CTA, ROWS_PER_CHUNK, granule, eps,
+                 r, c, f, part_rows, ln_cuda.ROWS_PER_CTA, _rows_per_chunk(x2.dtype), granule,
+                 eps,
                  torch.cuda.current_stream(x2.device).cuda_stream, back.cuda_stream)
     _build.check(err, entry)
     _count(count)

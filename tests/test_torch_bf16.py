@@ -231,15 +231,17 @@ def test_bf16_functions_cast_parameter_gradients():
 
 # (4) The bf16 GEMM's sums, emulated -----------------------------------------
 #
-# csrc/gemm_bf16.cuh (every product of the fused MLP's bf16 mode) runs one
-# mma.sync m16n8k16 per product: a bf16 product is exact in f32, and the
-# tensor cores add a k-slice of 16 of them to the accumulator, cutting the
-# sum toward zero to f32, as they do for TF32. The kernel sums each k-step
-# of 32 (two mma deep) in fresh accumulators and adds them into the running
-# sums by f32 adds (round to nearest). The emulation models an mma as the
-# exact sum of its 16 products and its accumulator, cut toward zero.
+# csrc/gemm_wgmma_bf16.cuh (every product of the fused MLP's bf16 mode)
+# runs wgmma m64n128k16: a bf16 product is exact in f32, and the tensor
+# cores add a k-slice of 16 of them to the accumulator, cutting the sum
+# toward zero to f32, as they do for TF32. The kernel sums the products of
+# FOLD values (two k-steps of 64, eight k-slices deep) in a fresh part
+# accumulator and adds the parts into the running sums by f32 adds (round
+# to nearest). The emulation models a k-slice as the exact sum of its 16
+# products and the accumulator, cut toward zero.
 
-GEMM_RTOL = 1e-6  # fresh accumulators against float64: measured 2.9e-7 at K = 6272
+GEMM_RTOL = 1e-6  # fresh parts against float64: measured 2.7e-7 at K = 6272
+FOLD = 128        # kFold x kBK of csrc/gemm_wgmma_bf16.cuh
 
 
 def _toward_zero(x64):
@@ -250,14 +252,14 @@ def _toward_zero(x64):
 
 
 def _gemm_bf16(a, b, fresh=True):
-    """a @ b of bf16-valued float32 tensors as the kernel sums it: per
-    k-step of 32, two mma k-slices of 16 into fresh accumulators added in
-    float32 (or, with fresh=False, all into one accumulator, which is what
-    the kernel avoids)."""
+    """a @ b of bf16-valued float32 tensors as the kernel sums it: per FOLD
+    values, k-slices of 16 into a fresh part accumulator added in float32
+    (or, with fresh=False, all into one accumulator, which is what the
+    kernel avoids)."""
     acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32)
-    for k0 in range(0, a.shape[1], 32):
+    for k0 in range(0, a.shape[1], FOLD):
         part = torch.zeros_like(acc) if fresh else acc
-        for kk in range(k0, min(k0 + 32, a.shape[1]), 16):
+        for kk in range(k0, min(k0 + FOLD, a.shape[1]), 16):
             part = _toward_zero(part.double() + a[:, kk:kk + 16].double()
                                 @ b[kk:kk + 16].double())
         acc = acc + part if fresh else part
@@ -267,9 +269,9 @@ def _gemm_bf16(a, b, fresh=True):
 @pytest.mark.parametrize("k", [512, 2048, 6272])
 def test_bf16_gemm_fresh_accumulators_hold_float32_accuracy(k):
     """At the MLP's depths (C = 512, F = 2048, and a dW slice of 6,272 rows)
-    the fresh-accumulator sums of bf16 products lie within 1e-6 x scale of
-    float64; one accumulator for the whole K drifts toward zero, at K =
-    6272 over 4x further (measured 2.9e-7 against 8.2e-6)."""
+    the kernel's fresh parts of 128 values sum bf16 products within 1e-6 x
+    scale of float64; one accumulator for the whole K drifts toward zero,
+    at K = 6272 over 4x further (measured 2.7e-7 against 8.2e-6)."""
     rng = np.random.default_rng(k)
     a = torch.from_numpy(rng.standard_normal((16, k)).astype(np.float32)).bfloat16().float()
     b = torch.from_numpy((rng.standard_normal((k, 16)) + 0.5).astype(np.float32))

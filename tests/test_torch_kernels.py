@@ -1531,6 +1531,82 @@ def test_mlp_bf16_kernels_match_plain_and_routes_give_equal_bits(dev, r, c):
         _assert_bf16(g.float(), w.float(), BF16_TOL if name == "dx" else 5e-4, name)
 
 
+# The bf16 GEMM alone (csrc/gemm_wgmma_bf16.cuh, through the test entry of
+# csrc/wgemm_check.cu): every layout, at ragged M, N and
+# K with a short last part, against float64 within the bound of
+# tests/test_torch_bf16.py's emulation of its sums (GEMM_RTOL, 1e-6 of the
+# largest |product|; measured 1-3e-7 on an H100).
+GEMM_RTOL = 1e-6
+
+
+def _wgemm(a_mk, b_kn, at, bt, parts, k_split):
+    """(error code, out (parts, M, N) f32) of the test entry on a (M, K) and
+    b (K, N), stored M-contiguous if at and K-contiguous if bt."""
+    import ctypes
+
+    lib = mlp_cuda._build.load("wgemm_check")
+    fn = mlp_cuda._build.declare(lib.wgemm_check, [ctypes.c_void_p, ctypes.c_int64,
+                                                   ctypes.c_void_p, ctypes.c_int64,
+                                                   ctypes.c_void_p] + [ctypes.c_int] * 7
+                                 + [ctypes.c_void_p])
+    (m, k), n = a_mk.shape, b_kn.shape[1]
+    a = (a_mk.t() if at else a_mk).contiguous()
+    b = (b_kn.t() if bt else b_kn).contiguous()
+    out = torch.full((parts, m, n), float("nan"), device=a.device)
+    err = fn(a.data_ptr(), a.shape[1], b.data_ptr(), b.shape[1], out.data_ptr(), m, n, k,
+             parts, k_split, at, bt, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    return err, out
+
+
+@pytest.mark.parametrize("at,bt", [(0, 0), (0, 1), (1, 0), (1, 1)])
+@pytest.mark.parametrize("m,n,k,parts,k_split", [(200, 136, 200, 2, 128), (1032, 264, 520, 3, 192),
+                                                 (8, 8, 8, 1, 64), (136, 2048, 512, 1, 512)])
+def test_bf16_gemm_layouts_hold_float64_and_give_equal_bits(dev, at, bt, m, n, k, parts,
+                                                            k_split):
+    """Each part's product within GEMM_RTOL x its largest magnitude of the
+    float64 product of the same bf16 values (rows, columns and k past the
+    tiles read as zeros; the last part shorter), every output written, two
+    calls equal bit for bit."""
+    gen = torch.Generator().manual_seed(m + n + k + at + 2 * bt)
+    a = torch.randn((m, k), generator=gen).to(dev, torch.bfloat16)
+    b = torch.randn((k, n), generator=gen).to(dev, torch.bfloat16)
+    err, out = _wgemm(a, b, at, bt, parts, k_split)
+    err2, out2 = _wgemm(a, b, at, bt, parts, k_split)
+    assert err == err2 == 0
+    assert torch.equal(out, out2)
+    for p in range(parts):
+        ks = slice(p * k_split, min(k, (p + 1) * k_split))
+        ref = a[:, ks].double() @ b[ks].double()
+        got = out[p].double()
+        assert not got.isnan().any()
+        assert float((got - ref).abs().max()) <= GEMM_RTOL * float(ref.abs().max())
+
+
+def test_bf16_gemm_refuses_what_it_does_not_take(dev):
+    """k_split off the k-step, N off 8, or an M-contiguous A with M off 8:
+    cudaErrorInvalidValue (1) before any launch, out untouched."""
+    a = torch.randn((64, 64), device=dev).to(torch.bfloat16)
+    err, out = _wgemm(a, a, 0, 0, 1, 96)  # k_split 96
+    assert err == 1 and bool(out.isnan().all())
+    err, _ = _wgemm(a, a[:, :60], 0, 0, 1, 64)  # N = 60
+    assert err == 1
+    err, _ = _wgemm(a[:60], a, 1, 0, 1, 64)  # M-contiguous A, M = 60
+    assert err == 1
+
+
+def test_bf16_gemm_plan_mirrors_the_kernel(dev):
+    """test_torch_gemm_plan.SMEM, which the CPU plan tests hold to the
+    card's limit, is what the kernel asks for."""
+    import ctypes
+
+    from test_torch_gemm_plan import SMEM
+
+    fn = mlp_cuda._build.load("wgemm_check").wgemm_smem
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    assert fn() == SMEM
+
+
 def test_bf16_wrappers_raise_before_launch(dev):
     """bf16 operands that a kernel does not take raise before any launch:
     strides or starts not on 8 values (16 bytes), C or F not a multiple of

@@ -76,27 +76,35 @@ def recorded(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: _Stream())
     monkeypatch.setitem(mlp_cuda._back_streams, torch.device("meta"), _Stream())
-    for counter in ("bwd_launches", "recompute_launches", "pipe_launches"):
+    for counter in ("bwd_launches", "recompute_launches", "pipe_launches",
+                    "bf16_bwd_launches", "bf16_recompute_launches", "bf16_pipe_launches"):
         monkeypatch.setattr(mlp_cuda, counter, getattr(mlp_cuda, counter))  # restored after
     return calls
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("r,c", [(50176, 512), (8185, 512), (50176, 1024)])
-def test_every_route_passes_the_kernels_the_same_cut(recorded, r, c):
+def test_every_route_passes_the_kernels_the_same_cut(recorded, r, c, dtype):
     """The saved-y, recompute and pipelined wrappers hand their C entries
     the same R, C, F, rows a slice, rows a CTA and rows a chunk; the
-    pipelined one also its granule."""
+    pipelined one also its granule. bf16 rows take the bf16 plan and the
+    dy product's 64-row blocks as chunks."""
     f = 4 * c
-    x, do = (torch.empty((r, c), device="meta") for _ in range(2))
-    y = torch.empty((r, f), device="meta")
-    gamma, beta = torch.empty((c,), device="meta"), torch.empty((c,), device="meta")
-    w1, b1 = torch.empty((c, f), device="meta"), torch.empty((f,), device="meta")
-    w2 = torch.empty((f, c), device="meta")
+    meta = dict(device="meta", dtype=dtype)
+    x, do = (torch.empty((r, c), **meta) for _ in range(2))
+    y = torch.empty((r, f), **meta)
+    gamma, beta = torch.empty((c,), **meta), torch.empty((c,), **meta)
+    w1, b1 = torch.empty((c, f), **meta), torch.empty((f,), **meta)
+    w2 = torch.empty((f, c), **meta)
     mlp_cuda._mlp_backward_cuda(x, do, y, gamma, beta, w1, b1, w2, 1e-5)
     mlp_cuda._mlp_backward_recompute_cuda(x, do, gamma, beta, w1, b1, w2, 1e-5)
     mlp_cuda._mlp_backward_pipe_cuda(x, do, y, gamma, beta, w1, b1, w2, 1e-5)
-    part_rows, _, granule = mlp_cuda.backward_plan(r, c, f)
-    cut = [r, c, f, part_rows, ln_cuda.ROWS_PER_CTA, mlp_cuda.ROWS_PER_CHUNK]
-    assert recorded["mlp_bwd_f32"] == cut
-    assert recorded["mlp_bwd_recompute_f32"] == cut
-    assert recorded["mlp_bwd_pipe_f32"] == cut + [granule]
+    bf16 = dtype == torch.bfloat16
+    plan = mlp_cuda.bf16_backward_plan if bf16 else mlp_cuda.backward_plan
+    part_rows, _, granule = plan(r, c, f)
+    chunk = mlp_cuda.BF16_ROWS_PER_CHUNK if bf16 else mlp_cuda.ROWS_PER_CHUNK
+    cut = [r, c, f, part_rows, ln_cuda.ROWS_PER_CTA, chunk]
+    kind = "bf16" if bf16 else "f32"
+    assert recorded[f"mlp_bwd_{kind}"] == cut
+    assert recorded[f"mlp_bwd_recompute_{kind}"] == cut
+    assert recorded[f"mlp_bwd_pipe_{kind}"] == cut + [granule]

@@ -5,6 +5,7 @@ checkouts can be compared in one run:
     python3 tools/torch_flash_times.py CHECKOUT LABEL [--dump FILE] [--steps]
     python3 tools/torch_flash_times.py CHECKOUT LABEL --vq [--steps] [--stages]
     python3 tools/torch_flash_times.py CHECKOUT LABEL --bf16 [--dump FILE] [--stages]
+    python3 tools/torch_flash_times.py CHECKOUT LABEL --bf16-mlp [--dump FILE]
     python3 tools/torch_flash_times.py --compare FILE_A FILE_B
 
 CHECKOUT is the root of a checkout (its ``pytorch_generative_tpu_torch`` is
@@ -65,6 +66,22 @@ last query tile at d 64 and 128, the median SM cycles from the consumer's
 start to each event: Q landed, q2 ready, each key tile's stage full, its
 scores landed, its softmax done, its P V done, the producer's issue of
 each tile.
+``--bf16-mlp`` times the fused MLP's bf16 mode instead (rows "6a bf16" to
+"6d bf16" of PERF.md: the forward and the saved-y, recompute and pipelined
+backwards, 20 calls after 3 warm-ups) at R 50,176 for C 512 and 1024 (F =
+4C), beside the bf16 composition F.layer_norm -> addmm -> F.gelu -> addmm
+-> + x and autograd.grad through it; the card's time of each kernel a
+forward and a saved-y backward call launch (torch.profiler over 20 calls)
+with each product's TFLOP/s (every product of those calls is 2 R C F
+operations); the wrappers' host time a call (200 calls at R 64, C 512);
+then every GEMM instance's registers and spills in the checkout's
+mlp_fwd and mlp_bwd builds and every ptxas line that names C7514, or "no
+C7514". ``--dump`` there saves what the default mode's ``--dump`` saves
+and the bf16 MLP's outputs with their plain versions at R 4,097 for C 512
+and 1024, which ``--compare`` holds at ``chip_smoke.py``'s bf16 gates
+(2^-7 of max(1, the largest magnitude) for out, y and dx,
+BF16_MLP_SUM_RTOL = 5e-4 for the f32 parameter sums), and ends with
+whether every f32 entry kept its bits.
 ``--vq`` times the fused vector-quantization kernel (row 8 of PERF.md,
 ``ops/vq_cuda.py``) instead, at the VQ-VAE reproduce() shape (M 8192 rows,
 K 512 codes, D 64) on three inputs: rows and codebook drawn from N(0, 1)
@@ -107,6 +124,7 @@ RTOL, BLOCK_LSE_TOL = 1e-4, 5e-5
 BF16_SHAPES = ((2, 32), (8, 64), (4, 128))
 BF16_DIMS = (16, 32, 64, 128)
 BF16_TOL, BF16_LSE_RTOL = 2.0 ** -7, 1e-6
+BF16_MLP_SUM_RTOL = 5e-4
 # The fused MLP's widths (F = 4C) and the rows it is timed and dumped at.
 MLP_WIDTHS = (512, 1024)
 MLP_ROWS, MLP_DUMP_ROWS = 50176, 4097
@@ -341,7 +359,132 @@ def _bf16_outputs(ac, dev):
     return results
 
 
-def main(checkout, label, dump=None, steps=False, vq=False, stages=False, bf16=False):
+def _bf16_mlp_calls(ops, y):
+    """_mlp_calls on bf16 operands, under PERF.md's bf16 row names."""
+    return {row.split()[0] + " bf16": fns for row, fns in _mlp_calls(ops, y).items()}
+
+
+def _product_split(fn, flops, n=20):
+    """'kernel ms (count x) [TFLOP/s]' of each kernel fn launches, the card's
+    time a launch from torch.profiler over n calls; a GEMM launch (a name
+    holding gemm_kernel) is also given its rate at `flops` operations."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        if getattr(e, "is_user_annotation", False):
+            continue
+        name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
+        ms = e.self_device_time_total / 1e3 / e.count
+        rate = f" {flops / ms / 1e9:.1f} TFLOP/s" if "gemm_kernel" in name else ""
+        out.append(f"{name[:90]} {ms:.4f} ms ({e.count / n:g}x){rate}")
+    return "; ".join(out)
+
+
+def bf16_mlp_main(label, dev, time_ms):
+    """Rows 6a-6d bf16 beside the bf16 composition and autograd.grad
+    through it, the card's time by kernel with the products' TFLOP/s, the
+    wrappers' host time a call, and the GEMM instances' registers, spills
+    and C7514 lines."""
+    import torch
+    import torch.nn.functional as F
+
+    from pytorch_generative_tpu_torch.ops import _build, mlp_cuda
+
+    bf = torch.bfloat16
+    for c in MLP_WIDTHS:
+        ops = [t.to(bf) for t in _mlp_operands(MLP_ROWS, c, 0, dev)]
+        _, y = mlp_cuda.ln_mlp_forward(*ops[:7], 1e-5)
+        calls = _bf16_mlp_calls(ops, y)
+        res = [f"{row} {time_ms(kern):.4f}" for row, (kern, _) in calls.items()]
+        leaves = [t.detach().requires_grad_() for t in ops[:7]]
+        x, gamma, beta, w1, b1, w2, b2 = leaves
+
+        def composition():
+            return torch.addmm(b2, F.gelu(torch.addmm(b1, F.layer_norm(
+                x, (c,), gamma, beta, 1e-5), w1)), w2) + x
+
+        with torch.no_grad():
+            res.append(f"bf16 composition {time_ms(composition):.4f}")
+        graph = composition()
+        res.append("autograd.grad through it " + format(time_ms(
+            lambda: torch.autograd.grad(graph, leaves, ops[7], retain_graph=True)), ".4f"))
+        print(f"bf16 mlp times {label} (R {MLP_ROWS}, C {c}) [{_card()}] ms: " + ", ".join(res),
+              flush=True)
+        flops = 2 * MLP_ROWS * c * 4 * c
+        for row in ("6a bf16", "6b bf16"):
+            print(f"bf16 mlp by kernel {label} (R {MLP_ROWS}, C {c}) {row}: "
+                  + _product_split(calls[row][0], flops), flush=True)
+        del ops, y, leaves, graph, calls
+    ops = [t.to(bf) for t in _mlp_operands(64, 512, 0, dev)]
+    _, y = mlp_cuda.ln_mlp_forward(*ops[:7], 1e-5)
+    host = []
+    for row, (fn, _) in _bf16_mlp_calls(ops, y).items():
+        fn()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(200):
+            fn()
+        torch.cuda.synchronize()
+        host.append(f"{row} {(time.perf_counter() - start) / 200 * 1e6:.1f} us")
+    print(f"bf16 mlp host time a call {label} (R 64, C 512): " + ", ".join(host), flush=True)
+    for kernel in ("mlp_fwd", "mlp_bwd"):
+        lines = [ln for ln in _ptxas(mlp_cuda, kernel) if "gemm" in ln]
+        log = _build.library_path(kernel).with_suffix(".log").read_text()
+        c7514 = [ln.strip() for ln in log.splitlines() if "C7514" in ln]
+        print(f"{kernel} GEMM ptxas {label}: " + " | ".join(lines) + " | "
+              + (" | ".join(c7514) if c7514 else "no C7514"), flush=True)
+
+
+def _bf16_mlp_outputs(dev):
+    """{entry: {name: tensor}} of rows 6a-6d bf16 at R = MLP_DUMP_ROWS and,
+    under "plain " names, of their plain versions on the same inputs."""
+    import torch
+
+    out = {}
+    for c in MLP_WIDTHS:
+        ops = [t.to(torch.bfloat16) for t in _mlp_operands(MLP_DUMP_ROWS, c, c + 1, dev)]
+        from pytorch_generative_tpu_torch.ops import mlp_cuda
+
+        _, y = mlp_cuda.ln_mlp_forward(*ops[:7], 1e-5)
+        for row, (kern, plain) in _bf16_mlp_calls(ops, y).items():
+            names = ("out", "y") if row.startswith("6a") else MLP_GRADS
+            out[f"bf16 mlp C={c} {row}"] = {
+                **{name: t.float().cpu() for name, t in zip(names, kern())},
+                **{f"plain {name}": t.float().cpu() for name, t in zip(names, plain())}}
+        del ops, y
+    return out
+
+
+def _outputs(ac, dev):
+    """What the default mode's --dump saves: the flash kernels' outputs for
+    every (d_k, d_v) the checkout builds at (B 4, L 200, H 2), and those of
+    _block_outputs, _mlp_outputs and _bf16_outputs."""
+    results = {}
+    for d_k, d_v in _pairs(ac):
+        q, k, v, do = _operands(4, 200, 2, d_k, d_v, d_k * 1000 + d_v, dev)
+        for mask_center in (False, True):
+            o, lse = ac.flash_forward(q, k, v, mask_center, 2)
+            grads = ac.flash_backward(q, k, v, o, lse, do, mask_center, 2)
+            results[f"{d_k}x{d_v} mask_center={mask_center}"] = dict(
+                zip(("out", "lse", "dq", "dk", "dv"), (t.cpu() for t in (o, lse, *grads))))
+    results.update(_block_outputs(dev))
+    results.update(_mlp_outputs(dev))
+    results.update(_bf16_outputs(ac, dev))
+    return results
+
+
+def main(checkout, label, dump=None, steps=False, vq=False, stages=False, bf16=False, bf16_mlp=False):
     sys.path.insert(0, checkout)
     import torch
 
@@ -367,6 +510,11 @@ def main(checkout, label, dump=None, steps=False, vq=False, stages=False, bf16=F
     if vq:
         vq_main(label, dev, time_ms, steps, stages)
         return
+    if bf16_mlp:
+        bf16_mlp_main(label, dev, time_ms)
+        if dump:
+            torch.save({**_outputs(ac, dev), **_bf16_mlp_outputs(dev)}, dump)
+        return
     if bf16:
         bf16_main(ac, label, dev, time_ms)
         if stages:
@@ -390,18 +538,7 @@ def main(checkout, label, dump=None, steps=False, vq=False, stages=False, bf16=F
     for kernel in (ac.KERNEL, ac.BWD_KERNEL, "attn_block_fwd", "mlp_fwd", "mlp_bwd"):
         print(f"{kernel} ptxas {label}: " + " | ".join(_ptxas(ac, kernel)), flush=True)
     if dump:
-        results = {}
-        for d_k, d_v in _pairs(ac):
-            q, k, v, do = _operands(4, 200, 2, d_k, d_v, d_k * 1000 + d_v, dev)
-            for mask_center in (False, True):
-                o, lse = ac.flash_forward(q, k, v, mask_center, 2)
-                grads = ac.flash_backward(q, k, v, o, lse, do, mask_center, 2)
-                results[f"{d_k}x{d_v} mask_center={mask_center}"] = dict(
-                    zip(("out", "lse", "dq", "dk", "dv"), (t.cpu() for t in (o, lse, *grads))))
-        results.update(_block_outputs(dev))
-        results.update(_mlp_outputs(dev))
-        results.update(_bf16_outputs(ac, dev))
-        torch.save(results, dump)
+        torch.save(_outputs(ac, dev), dump)
     if steps:
         print(f"train steps {label}: " + "; ".join(
             f"{name} {ms:.3f} ms" for name, ms in step_times(dev, time_ms)), flush=True)
@@ -810,10 +947,10 @@ def _within_gates(entry):
 
 
 def _within_bf16_gates(entry):
-    """'name e of m, ...: ok' of a dump's bf16 flash outputs against their
-    plain versions at the bf16 gates (e the largest error, m max(1, the
-    plain's largest magnitude); lse over its finite entries, -inf on the
-    same rows)."""
+    """'name e of m, ...: ok' of a dump's bf16 flash or MLP outputs against
+    their plain versions at the bf16 gates (e the largest error, m max(1,
+    the plain's largest magnitude); lse over its finite entries, -inf on
+    the same rows; the MLP's f32 parameter sums at BF16_MLP_SUM_RTOL)."""
     import torch
 
     parts, ok = [], True
@@ -823,7 +960,9 @@ def _within_bf16_gates(entry):
         ok &= torch.equal(torch.isfinite(got), finite)
         err = float((got - want)[finite].abs().max()) if finite.any() else 0.0
         scale = max(1.0, float(want[finite].abs().max()) if finite.any() else 0.0)
-        ok &= err <= (BF16_LSE_RTOL if name == "lse" else BF16_TOL) * scale
+        tol = (BF16_LSE_RTOL if name == "lse" else BF16_MLP_SUM_RTOL
+               if name in MLP_GRADS and name != "dx" else BF16_TOL)
+        ok &= err <= tol * scale
         parts.append(f"{name} {err:.3e} of {scale:.3e}")
     return ", ".join(parts) + (" (within the gates)" if ok else " (OUTSIDE THE GATES)")
 
@@ -863,5 +1002,7 @@ if __name__ == "__main__":
         parser.add_argument("--vq", action="store_true")
         parser.add_argument("--stages", action="store_true")
         parser.add_argument("--bf16", action="store_true")
+        parser.add_argument("--bf16-mlp", action="store_true")
         args = parser.parse_args()
-        main(args.checkout, args.label, args.dump, args.steps, args.vq, args.stages, args.bf16)
+        main(args.checkout, args.label, args.dump, args.steps, args.vq, args.stages, args.bf16,
+             args.bf16_mlp)
