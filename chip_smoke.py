@@ -72,6 +72,18 @@ steps with eval and a checkpoint at batch 64 at C = 64 (2 heads), C = 512
 with 8 heads and with 4, each with its launches (bf16 kernels only, no
 plain version called) and its step time; one bf16 step on each opt-in MLP
 route; 3 Adam steps against the CPU's bf16 Trainer at C = 64 and C = 512.
+Then the last three paths under ``compute_dtype=torch.bfloat16``
+(``bf16_slice_phases``): PixelSNAIL at its reproduce() config, batch 128,
+through the flash kernels' bf16 mode at (d_k, d_v) = (4, 32); VQ-VAE at
+its reproduce() config, batch 128, on the fused route (``PGT_FUSED_VQ=1``,
+the vq kernel's bf16 rows, held bit for bit to the f32 kernel on the rows
+widened to f32) and the unfused one; ImageGPT with the fused block
+(``PGT_FUSED_ATTN=1``, its bf16 entries; the backward's recompute held bit
+for bit to the forward's projection) at C = 64 / 2 heads, C = 512 / 8 and
+/ 4 heads, batch 64: each new kernel mode against its plain version and
+timed beside it, its bound and a bf16 library yardstick; a bf16 Trainer
+epoch of each with its launches, step time and a profiled step; 3 Adam
+steps against the CPU's bf16 Trainer.
 The line before the last is the per-kernel JSON summary;
 the last line is ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero before that line; without a CUDA device it fails at once.
@@ -192,6 +204,10 @@ BF16_TIMED_STEPS = 5
 # rounding noise), within 3 steps of 4 lr: Adam's step exceeds lr where
 # the noise's size changes from step to step.
 BF16_LOSS_RTOL = 1e-2
+# The bf16 fused block's lse against its plain version's, as a share of the
+# largest |lse|: the two round q and k to bf16 from f32 sums taken in other
+# orders, so an element may land one bf16 step apart and move the scores.
+BF16_BLOCK_LSE_RTOL = 1e-3
 BF16_UPDATE_RL2 = 0.35
 BF16_KEY_BIAS_ATOL = 3 * 4 * 5e-3
 # Bounds: NVIDIA's H100 SXM data sheet, at its 700 W limit.
@@ -521,7 +537,8 @@ def vq_against_plain(x, cb):
     """The VQ kernel against its plain version on (x, cb): (rows whose code
     differs, near-tie rows, max |quantized error| where the codes agree,
     counts equal, sums error, max |sum|). Fails unless every differing row
-    is a near-tie holding one of its two best codes exactly, counts sum to
+    is a near-tie holding one of its two best codes exactly (rounded to x's
+    type, as the kernel writes its rows), counts sum to
     M and, where no row differs, counts are exact and sums within
     VQ_SUMS_RTOL."""
     from pytorch_generative_tpu_torch.ops import vq_cuda
@@ -533,7 +550,7 @@ def vq_against_plain(x, cb):
     top2 = scores.topk(2, dim=1)
     near = (top2.values[:, 0] - top2.values[:, 1]) <= VQ_NEAR_TIE * float(scores.abs().max())
     differ = (q != pq).any(dim=1)
-    best = [cb[top2.indices[differ, j]] for j in (0, 1)]
+    best = [cb[top2.indices[differ, j]].to(q.dtype) for j in (0, 1)]  # rows in x's type
     check(not bool((differ & ~near).any()), "the VQ kernel picks another code on a clear row")
     check(bool(((q[differ] == best[0]).all(1) | (q[differ] == best[1]).all(1)).all()),
           "a near-tie row holds neither of its two best codes")
@@ -1901,13 +1918,16 @@ def bf16_mlp_work(r, c, f):
 
 
 class PlainCalls:
-    """Counts the calls of the flash, LayerNorm and MLP plain versions while
-    it is entered (the wrappers look them up by module attribute)."""
+    """Counts the calls of the given modules' plain versions (flash,
+    LayerNorm, MLP, VQ, fused block) while it is entered (the wrappers look
+    them up by module attribute)."""
 
     NAMES = {"attention_cuda": ("flash_forward_plain", "flash_backward_plain"),
              "ln_cuda": ("layernorm_forward_plain", "layernorm_backward_plain"),
              "mlp_cuda": ("ln_mlp_forward_plain", "ln_mlp_backward_plain",
-                          "ln_mlp_backward_recompute_plain")}
+                          "ln_mlp_backward_recompute_plain"),
+             "vq_cuda": ("vq_quantize_plain",),
+             "attn_block_cuda": ("attention_block_plain", "project_plain")}
 
     def __init__(self, modules):
         self.modules = {m.__name__.rsplit(".", 1)[1]: m for m in modules}
@@ -1915,9 +1935,8 @@ class PlainCalls:
 
     def __enter__(self):
         self.saved = []
-        for key, names in self.NAMES.items():
-            mod = self.modules[key]
-            for name in names:
+        for key, mod in self.modules.items():
+            for name in self.NAMES[key]:
                 real = getattr(mod, name)
                 self.saved.append((mod, name, real))
 
@@ -1933,17 +1952,54 @@ class PlainCalls:
             setattr(mod, name, real)
 
 
-def bf16_update_errors(model, cpu_model, init, c):
-    """{name: relative L2 of the card's update against the CPU's} and the
-    key bias' largest difference (its first c entries)."""
-    out, key_bias = {}, 0.0
-    for (name, p), (_, pc) in zip(model.named_parameters(), cpu_model.named_parameters()):
-        got, ref, start = p.detach().cpu().double(), pc.detach().double(), init[name]
-        if name.endswith("attn.kv_proj.bias"):
-            key_bias = max(key_bias, float((got[:c] - ref[:c]).abs().max()))
-            got, ref, start = got[c:], ref[c:], start[c:]
-        out[name] = float((got - ref).norm() / (ref - start).norm())
-    return out, key_bias
+def bf16_against_cpu(label, make, loss_fn, lr, batches, dev, key_bias=None, buffers=()):
+    """3 Adam steps of the bf16 Trainer on the card and on the CPU (the
+    plain versions) from the same weights (``make(device)``) and batches:
+    losses within BF16_LOSS_RTOL; each parameter's update and each named
+    buffer's change within BF16_UPDATE_RL2 relative L2 of the CPU's; the
+    first n entries of every bias whose name ends like key_bias = (suffix,
+    n), whose exact gradient is 0, within BF16_KEY_BIAS_ATOL x lr / 5e-3."""
+    from pytorch_generative_tpu_torch import optim, trainer
+
+    model, cpu_model = make(dev), make("cpu")
+    cpu_model.load_state_dict({k_: v_.cpu() for k_, v_ in model.state_dict().items()})
+    init = {k_: v_.detach().cpu().double().clone() for k_, v_ in
+            [*model.named_parameters(),
+             *((n_, b_) for n_, b_ in model.named_buffers() if n_ in buffers)]}
+    losses = {}
+    for where, net in ((dev, model), ("cpu", cpu_model)):
+        t = trainer.Trainer(net, loss_fn, optim.adam_multiplicative(lr, 0.999977), [], [],
+                            log_dir=tempfile.mkdtemp(prefix="chip_smoke_bf16_traj_"),
+                            use_tensorboard=False, device=where, compute_dtype=torch.bfloat16)
+        losses[str(where)] = [float(t.train_one_step(xb_, None)[0]["loss"]) for xb_ in batches]
+        shutil.rmtree(t.log_dir, ignore_errors=True)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses[str(dev)], losses["cpu"]))
+    card = {**dict(model.named_parameters()), **dict(model.named_buffers())}
+    ref = {**dict(cpu_model.named_parameters()), **dict(cpu_model.named_buffers())}
+    updates, key_err = {}, 0.0
+    for name, start in init.items():
+        got, want = card[name].detach().cpu().double(), ref[name].detach().double()
+        if key_bias and name.endswith(key_bias[0]):
+            n = key_bias[1]
+            key_err = max(key_err, float((got[:n] - want[:n]).abs().max()))
+            got, want, start = got[n:], want[n:], start[n:]
+        updates[name] = float((got - want).norm() / (want - start).norm().clamp(min=1e-30))
+    worst = max(updates, key=updates.get)
+    key_tol = BF16_KEY_BIAS_ATOL * lr / 5e-3
+    print(f"phase bf16 trajectory {label} batch {len(batches[0])}: losses card "
+          f"{losses[str(dev)]} cpu {losses['cpu']} max rel err {loss_err:.3e} (tol "
+          f"{BF16_LOSS_RTOL}); update relative L2 largest {updates[worst]:.3e} ({worst}), "
+          f"median {sorted(updates.values())[len(updates) // 2]:.3e} (tol {BF16_UPDATE_RL2})"
+          + "".join(f"; {n_.rsplit('.', 1)[-1]} {updates[n_]:.3e}" for n_ in buffers)
+          + (f"; key bias max abs diff {key_err:.3e} (tol {key_tol:.3g})" if key_bias else ""),
+          flush=True)
+    if buffers:  # a code that one side picks and the other not moves its row far
+        sizes = [dict(m_.named_buffers())[buffers[0]].detach().cpu() for m_ in (model, cpu_model)]
+        print(f"phase bf16 trajectory {label}: codes whose EMA cluster size differs card vs "
+              f"CPU {int((sizes[0] != sizes[1]).sum())} of {sizes[0].numel()}", flush=True)
+    check(loss_err <= BF16_LOSS_RTOL, f"bf16 losses disagree with the CPU ({label})")
+    check(updates[worst] <= BF16_UPDATE_RL2 and key_err <= key_tol,
+          f"bf16 updates disagree with the CPU ({label})")
 
 
 def bf16_phases(dev, gen, smi, reset_counts, read_counts):
@@ -2235,32 +2291,11 @@ def bf16_phases(dev, gen, smi, reset_counts, read_counts):
     # CPU (the plain versions), same weights and batches.
     for label, cfg, batch in (("C=64 H=2", image_gpt.REPRODUCE_CONFIG, TRAJ_BATCH),
                               ("C=512 H=8", large, 2)):
-        model = ImageGPT(**cfg, generator=torch.Generator().manual_seed(SEED + 3), device=dev)
-        cpu_model = ImageGPT(**cfg, device="cpu")
-        cpu_model.load_state_dict({k_: v_.cpu() for k_, v_ in model.state_dict().items()})
-        init = {k_: v_.detach().cpu().double().clone() for k_, v_ in model.named_parameters()}
-        batches = [(torch.rand((batch, h, w, 1), generator=gen) < 0.13).float().numpy()
-                   for _ in range(3)]
-        losses = {}
-        for where, net in ((dev, model), ("cpu", cpu_model)):
-            t = trainer.Trainer(net, image_gpt.reproduce_loss,
-                                optim.adam_multiplicative(5e-3, 0.999977), [], [],
-                                log_dir=tempfile.mkdtemp(prefix="chip_smoke_bf16_traj_"),
-                                use_tensorboard=False, device=where, compute_dtype=torch.bfloat16)
-            losses[str(where)] = [float(t.train_one_step(xb_, None)[0]["loss"]) for xb_ in batches]
-            shutil.rmtree(t.log_dir, ignore_errors=True)
-        loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses[str(dev)], losses["cpu"]))
-        updates, key_bias = bf16_update_errors(model, cpu_model, init, cfg["n_embedding_channels"])
-        worst = max(updates, key=updates.get)
-        print(f"phase bf16 trajectory {label} batch {batch}: losses card {losses[str(dev)]} cpu "
-              f"{losses['cpu']} max rel err {loss_err:.3e} (tol {BF16_LOSS_RTOL}); update "
-              f"relative L2 largest {updates[worst]:.3e} ({worst}), median "
-              f"{sorted(updates.values())[len(updates) // 2]:.3e} (tol {BF16_UPDATE_RL2}); key "
-              f"bias max abs diff {key_bias:.3e} (tol {BF16_KEY_BIAS_ATOL:.3g})", flush=True)
-        check(loss_err <= BF16_LOSS_RTOL, f"bf16 losses disagree with the CPU ({label})")
-        check(updates[worst] <= BF16_UPDATE_RL2 and key_bias <= BF16_KEY_BIAS_ATOL,
-              f"bf16 updates disagree with the CPU ({label})")
-        del model, cpu_model
+        bf16_against_cpu(label, lambda where, cfg=cfg: ImageGPT(
+            **cfg, generator=torch.Generator().manual_seed(SEED + 3), device=where),
+            image_gpt.reproduce_loss, 5e-3,
+            [(torch.rand((batch, h, w, 1), generator=gen) < 0.13).float().numpy()
+             for _ in range(3)], dev, key_bias=("attn.kv_proj.bias", cfg["n_embedding_channels"]))
 
     def entry(name, source, replaces, err, tt, bound_, instances=None):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2298,6 +2333,372 @@ def bf16_phases(dev, gen, smi, reset_counts, read_counts):
               (mlp_cuda.BF16_PIPE_KERNEL, "gemm_wgmma_bf16.cuh",
                "pytorch_generative_tpu/ops/mlp_pallas.py:187")))]
     return {"counts": counts_all, "kernels": kernels, "step_ms": step_ms}
+
+
+def bf16_slice_phases(dev, gen, smi, reset_counts, read_counts):
+    """The last three paths under Trainer(compute_dtype=torch.bfloat16), at
+    full width: (P1) PixelSNAIL at its reproduce() config, batch 128, whose
+    attention runs the flash kernels' bf16 mode at (d_k, d_v) = (4, 32)
+    (the SIMT passes); (P2) VQ-VAE at its reproduce() config, batch 128, on
+    the fused route (PGT_FUSED_VQ=1, the vq kernel's bf16 rows) and the
+    unfused one; (P3) ImageGPT with the fused attention block
+    (PGT_FUSED_ATTN=1, its bf16 entries) at C = 64 with 2 heads, C = 512
+    with 8 and with 4, batch 64. For each: the new kernel mode against its
+    plain version (the VQ's bit for bit against the f32 kernel on the rows
+    widened to f32; the block's recompute bit for bit against its
+    forward's projection), timed beside its plain version, its bound and a
+    library yardstick; one Trainer epoch of BF16_TRAIN_STEPS steps with
+    eval, its launches (no plain version called) and step time, a profiled
+    step; 3 Adam steps against the CPU's bf16 Trainer. Returns the runs'
+    launch counts and the per-kernel JSON entries."""
+    from pytorch_generative_tpu_torch import datasets, optim, trainer
+    from pytorch_generative_tpu_torch.models import ImageGPT, PixelSNAIL, VectorQuantizedVAE
+    from pytorch_generative_tpu_torch.models.autoregressive import image_gpt, pixel_snail
+    from pytorch_generative_tpu_torch.models.vae import vq_vae
+    from pytorch_generative_tpu_torch.ops import (
+        attention_cuda,
+        attn_block_cuda,
+        ln_cuda,
+        mlp_cuda,
+        vq_cuda,
+    )
+
+    bf = torch.bfloat16
+    src = "pytorch_generative_tpu_torch/csrc/"
+    counts_all, kernels = [], []
+
+    def epoch(label, net, loss_fn, lr, loaders, want, mods, others=()):
+        """One bf16 Trainer epoch with eval, no plain version of ``mods``
+        called: the launches of ``want`` exactly, those of ``others``
+        (another module's bf16 kernels on the path) at least once, no other
+        kernel; returns (trainer, counts)."""
+        log_dir = tempfile.mkdtemp(prefix="chip_smoke_slice_")
+        t = trainer.Trainer(net, loss_fn, optim.adam_multiplicative(lr, 0.999977), *loaders,
+                            log_dir=log_dir, sample_epochs=None, use_tensorboard=False,
+                            device=dev, compute_dtype=bf)
+        reset_counts()
+        with PlainCalls(mods) as plain:
+            t.interleaved_train_and_eval(1)
+            torch.cuda.synchronize()
+        counts = read_counts()
+        counts_all.append(counts)
+        losses, _ = read_losses(log_dir)
+        shutil.rmtree(log_dir, ignore_errors=True)
+        print(f"phase bf16 train {label}: steps {t._step}, losses "
+              f"{[round(losses[k_], 4) for k_ in sorted(losses)]}; plain calls {plain.calls}; "
+              "launches " + ", ".join(f"{k_}={v_}" for k_, v_ in counts.items() if v_), flush=True)
+        check(t._step == BF16_TRAIN_STEPS and all(math.isfinite(v_) for v_ in losses.values()),
+              f"the bf16 Trainer epoch failed ({label})")
+        check(plain.calls == 0, f"a plain version served the bf16 path ({label})")
+        got = {k_: v_ for k_, v_ in counts.items() if v_ and k_ not in others}
+        check(got == want and all(counts[k_] > 0 for k_ in others),
+              f"bf16 {label} launches {counts}, expected {want} and {others}")
+        return t, counts
+
+    # ---- P1: PixelSNAIL. ----
+    scfg = pixel_snail.REPRODUCE_CONFIG
+    h, w, _ = scfg["in_shape"]
+    l = h * w
+    s_dk, s_dv = scfg["attention_key_channels"], scfg["attention_value_channels"]
+    nb = scfg["n_pixel_snail_blocks"]
+    # Phase S1: the SIMT bf16 flash passes at (B 128, L 784, H 1, 4, 32,
+    # mask_center) against their plain versions, k and v column views of
+    # one (B, L, 36) kv tensor; two calls give equal bits.
+    q = torch.randn((SNAIL_BATCH, l, s_dk), generator=gen).to(dev, bf)
+    kv = torch.randn((SNAIL_BATCH, l, s_dk + s_dv), generator=gen).to(dev, bf)
+    dout = torch.randn((SNAIL_BATCH, l, s_dv), generator=gen).to(dev, bf)
+    k, v = kv[..., :s_dk], kv[..., s_dk:]
+    out, lse = attention_cuda.flash_forward(q, k, v, True, 1)
+    grads = attention_cuda.flash_backward(q, k, v, out, lse, dout, True, 1)
+    check_flash_deterministic(q, k, v, dout, True, 1, out, lse, grads,
+                              f"bf16 PixelSNAIL (d_k={s_dk}, d_v={s_dv})")
+    ref_out, ref_lse = attention_cuda.flash_forward_plain(q, k, v, True, 1)
+    ref_grads = attention_cuda.flash_backward_plain(q, k, v, out, lse, dout, True, 1)
+    fin = torch.isfinite(ref_lse)
+    e_out, e_lse = rel_err(out.float(), ref_out.float()), rel_err(lse[fin], ref_lse[fin])
+    e_grads = [rel_err(g.float(), r.float()) for g, r in zip(grads, ref_grads)]
+    row0 = (bool((out[:, 0] == 0).all()) and bool(torch.isneginf(lse[:, :, 0]).all())
+            and bool((grads[0][:, 0] == 0).all()))
+    print(f"phase bf16 flash PixelSNAIL (B={SNAIL_BATCH}, L={l}, H=1, d_k={s_dk}, d_v={s_dv}, "
+          f"mask_center): max_abs_err (max |plain|) out={e_out[0]:.3e} ({e_out[1]:.3e}) "
+          f"lse={e_lse[0]:.3e} ({e_lse[1]:.3e}); " + " ".join(
+              f"{n}={e[0]:.3e} ({e[1]:.3e})" for n, e in zip(("dq", "dk", "dv"), e_grads))
+          + f" (tol {BF16_TOL:.4g} x max |plain|, lse {BF16_LSE_RTOL}); row 0 out 0, lse -inf, "
+          f"dq 0: {row0}", flush=True)
+    check(row0, "row 0 under mask_center is not out 0, lse -inf, dq 0 in bf16")
+    check(e_out[0] <= BF16_TOL * max(1.0, e_out[1])
+          and e_lse[0] <= BF16_LSE_RTOL * max(1.0, e_lse[1]),
+          "the bf16 flash forward disagrees with its plain version at (4, 32)")
+    check(all(e[0] <= BF16_TOL * max(1.0, e[1]) for e in e_grads),
+          "the bf16 flash backward disagrees with its plain version at (4, 32)")
+    st = flash_times(q, k, v, dout, 1, mask_center=True)
+    # The bound at the bf16 operands' rate (989 TFLOP/s) and bytes; the
+    # route's own, f32 arithmetic on the CUDA cores, beside it.
+    works = {"fwd": (flash_work(SNAIL_BATCH, l, 1, s_dk, s_dv, True),
+                     2 * SNAIL_BATCH * l * (2 * s_dk + 2 * s_dv) + 4 * SNAIL_BATCH * l),
+             "bwd": (flash_work(SNAIL_BATCH, l, 1, s_dk, s_dv, True, backward=True),
+                     2 * SNAIL_BATCH * l * (4 * s_dk + 4 * s_dv) + 4 * SNAIL_BATCH * l)}
+    sb = {k_: (bound(*w_, BF16_FLOPS), bound(*w_)) for k_, w_ in works.items()}
+    print(f"phase bf16 times flash PixelSNAIL [{smi}]: " + "; ".join(
+        f"flash_{k_}_bf16 (4, 32) kernel {st[k_]:.4f}/{st[k_ + '2']:.4f} ms, plain "
+        f"{st[k_ + '_plain']:.4f} ms, "
+        + ("bf16 masked SDPA" if k_ == "fwd" else "bf16 masked SDPA autograd.grad")
+        + f" {st[k_ + '_lib']:.4f} ms, bf16 bound {b_[0][0]:.4f} ms ({b_[0][1]}), f32 bound "
+        f"{b_[1][0]:.4f} ms ({b_[1][1]}, the route's CUDA cores)" for k_, b_ in sb.items()),
+        flush=True)
+    del q, kv, dout, k, v, out, lse, grads, ref_out, ref_lse, ref_grads
+    # Phase S2: a bf16 Trainer epoch at batch 128 (BF16_TRAIN_STEPS steps
+    # and one eval batch): bf16 flash launches only (4, 32: the SIMT mode).
+    loaders = datasets.get_synthetic_mnist_loaders(
+        SNAIL_BATCH, n_train=BF16_TRAIN_STEPS * SNAIL_BATCH, n_test=SNAIL_BATCH, image_size=h,
+        seed=0)
+    snail = PixelSNAIL(**scfg, generator=torch.Generator().manual_seed(SEED), device=dev)
+    t, counts = epoch("PixelSNAIL", snail, pixel_snail.reproduce_loss, 1e-3, loaders,
+                      {attention_cuda.BF16_KERNEL: (BF16_TRAIN_STEPS + 1) * nb,
+                       attention_cuda.BF16_BWD_KERNEL: BF16_TRAIN_STEPS * nb}, (attention_cuda,))
+    snail_launches = (counts[attention_cuda.BF16_KERNEL], counts[attention_cuda.BF16_BWD_KERNEL])
+    counts_all.pop()  # the SIMT launches are the 4x32 entries' own, not flash_*_bf16's
+    xb = next(iter(loaders[0]))[0]
+    snail_ms = time_ms(lambda: t.train_one_step(xb, None), BF16_TIMED_STEPS, 1)
+    print(f"phase bf16 step PixelSNAIL batch {SNAIL_BATCH} [{smi}]: {snail_ms:.2f} ms a step, "
+          f"{SNAIL_BATCH * 1000 / snail_ms:.1f} samples/s", flush=True)
+    profile_steps(lambda: t.train_one_step(xb, None), 2, snail_ms,
+                  f"bf16 train step batch {SNAIL_BATCH}", (SNAIL_BATCH, "samples"),
+                  "profile bf16 step PixelSNAIL", smi,
+                  ("flash_bwd", "flash_fwd", "xmma", "cudnn", "elementwise", "reduce_kernel"),
+                  host=True)
+    del t, snail
+    bf16_against_cpu("PixelSNAIL", lambda where: PixelSNAIL(
+        **scfg, generator=torch.Generator().manual_seed(SEED + 7), device=where),
+        pixel_snail.reproduce_loss, 1e-3,
+        [(torch.rand((TRAJ_BATCH, h, w, 1), generator=gen) < 0.13).float().numpy()
+         for _ in range(3)], dev, key_bias=("attention.kv_proj.bias", s_dk))
+    for name, lib, line in ((attention_cuda.BF16_KERNEL, "fwd", 100),
+                            (attention_cuda.BF16_BWD_KERNEL, "bwd", 205)):
+        b_, b32 = sb[lib]
+        kernels.append({
+            "name": f"{name} 4x32", "route": "cuda",
+            "source": src + ("flash_fwd.cuh" if lib == "fwd" else "flash_bwd.cu"),
+            "replaces": f"pytorch_generative_tpu/ops/attention_pallas.py:{line}",
+            "launches": snail_launches[lib == "bwd"],
+            "max_abs_err": e_out[0] if lib == "fwd" else max(e[0] for e in e_grads),
+            "ms": st[lib], "plain_ms": st[f"{lib}_plain"], "bound_ms": b_[0],
+            "bound_by": b_[1], "library_ms": st[f"{lib}_lib"], "bound_f32_ms": b32[0],
+            "instances": ["4x32", "4x8"]})
+
+    # ---- P2: VQ-VAE. ----
+    vcfg = vq_vae.REPRODUCE_CONFIG
+    vh, vw, vc = vcfg["in_shape"]
+    m, kk, d = VQ_BATCH * (vh // 4) * (vw // 4), vcfg["n_embeddings"], vcfg["embedding_dim"]
+    # Phase Q1: the vq kernel's bf16 rows at a ragged M and (M 8192, K 512,
+    # D 64), timed at the latter: codes, counts and sums bit for bit the f32 kernel's on the
+    # rows widened to f32, the quantized rows its rows rounded to bf16; and
+    # against the plain version as vq_against_plain holds the f32 entry.
+    vq_err = 0.0
+    for rows_ in (m - 1, m):
+        x = torch.randn((rows_, d), generator=gen).to(dev, bf)
+        cb = (torch.rand((kk, d), generator=gen) * 2 - 1).to(dev) * 0.5
+        qb, cnt, sm = vq_cuda.vq_quantize_fused(x, cb)
+        qf, cntf, smf = vq_cuda.vq_quantize_fused(x.float(), cb)
+        torch.cuda.synchronize()
+        bits = (torch.equal(qb, qf.to(bf)) and torch.equal(cnt, cntf) and torch.equal(sm, smf))
+        n_differ, n_near, q_err, counts_equal, s_err, s_max = vq_against_plain(x, cb)
+        vq_err = max(vq_err, q_err, s_err)
+        print(f"phase bf16 vq M={rows_} K={kk} D={d}: against the f32 kernel on x.float(): "
+              f"codes, counts and sums equal bits and quantized = its rows in bf16: {bits}; "
+              f"against the plain version: rows differing {n_differ} (near-tie rows {n_near}), "
+              f"quantized max_abs_err {q_err:.3e}, counts equal {counts_equal}, sums "
+              f"max_abs_err {s_err:.3e} (max |plain| {s_max:.3e})", flush=True)
+        check(bits, "the bf16 vq mode is not the f32 kernel's bits on the widened rows")
+    vq_t = {"kernel": time_ms(lambda: vq_cuda.vq_quantize_fused(x, cb), 50, 3),
+            "graph": graph_ms(lambda: vq_cuda.vq_quantize_fused(x, cb)),
+            "plain": time_ms(lambda: vq_cuda.vq_quantize_plain(x, cb), 10, 2),
+            "library": time_ms(lambda: vq_composition(x.float(), cb), 20, 2)}
+    # A bf16 row is exact in TF32, so the function needs two TF32 products
+    # (x by the codebook's two parts); the route's three beside it.
+    vq_bytes = 2 * 2 * m * d + 4 * (2 * kk * d + kk)
+    vq_b = bound(2 * 2 * m * kk * d, vq_bytes, 3 * TF32X3_FLOPS)
+    vq_b3 = bound(2 * m * kk * d, vq_bytes, TF32X3_FLOPS)
+    print(f"phase bf16 times vq (M={m}, K={kk}, D={d}) [{smi}]: kernel {vq_t['kernel']:.4f} ms "
+          f"eager, {vq_t['graph']:.4f} ms in a CUDA graph, plain {vq_t['plain']:.4f} ms, "
+          f"composition on x.float() (addmm, argmax, index_select, bincount, index_add_) "
+          f"{vq_t['library']:.4f} ms, bound with two TF32 products {vq_b[0]:.4f} ms ({vq_b[1]}), "
+          f"with the route's three {vq_b3[0]:.4f} ms ({vq_b3[1]})", flush=True)
+    del x, cb, qb, qf
+    # Phase Q2: a bf16 Trainer epoch at batch 128 on each route; the fused
+    # one (PGT_FUSED_VQ=1, read when the quantizer is built) launches the
+    # bf16 entry once a step and once for the eval batch.
+    batches = [(np.random.default_rng(1 + i).random((VQ_BATCH, vh, vw, vc)).astype(np.float32),
+                None) for i in range(BF16_TRAIN_STEPS)]
+    vq_launches = 0
+    vae_ms = {}
+    for route, env in (("fused", "1"), ("unfused", "0")):
+        os.environ["PGT_FUSED_VQ"] = env
+        net = VectorQuantizedVAE(**vcfg, generator=torch.Generator().manual_seed(SEED),
+                                 device=dev)
+        ema0 = net.quantizer.vq.ema_cluster_size.clone()
+        want = {vq_cuda.BF16_KERNEL: BF16_TRAIN_STEPS + 1} if route == "fused" else {}
+        t, counts = epoch(f"VQ-VAE {route}", net, vq_vae.reproduce_loss, 2e-4,
+                          (batches, batches[:1]), want, (vq_cuda,))
+        vq_launches += counts[vq_cuda.BF16_KERNEL]
+        check(net.quantizer.vq.ema_cluster_size.dtype == torch.float32
+              and not torch.equal(net.quantizer.vq.ema_cluster_size, ema0),
+              f"the f32 EMA buffers did not move ({route})")
+        vae_ms[route] = time_ms(lambda: t.train_one_step(batches[0][0], None),
+                                BF16_TIMED_STEPS, 1)
+        print(f"phase bf16 step VQ-VAE {route} batch {VQ_BATCH} [{smi}]: {vae_ms[route]:.2f} ms "
+              f"a step, {VQ_BATCH * 1000 / vae_ms[route]:.1f} samples/s", flush=True)
+        if route == "fused":
+            profile_steps(lambda: t.train_one_step(batches[0][0], None), 2, vae_ms[route],
+                          f"bf16 train step batch {VQ_BATCH}", (VQ_BATCH, "samples"),
+                          "profile bf16 step VQ-VAE fused", smi,
+                          ("vq_", "xmma", "cudnn", "elementwise", "reduce_kernel"), host=True)
+        del t, net
+        bf16_against_cpu(f"VQ-VAE {route}", lambda where: VectorQuantizedVAE(
+            **vcfg, generator=torch.Generator().manual_seed(SEED + 8), device=where),
+            vq_vae.reproduce_loss, 2e-4,
+            [np.random.default_rng(20 + i).random((2, vh, vw, vc)).astype(np.float32)
+             for i in range(3)], dev, buffers=("quantizer.vq.ema_cluster_size",
+                                          "quantizer.vq.ema_embedding_avg",
+                                          "quantizer.vq.ema_embedding"))
+    del os.environ["PGT_FUSED_VQ"]
+    kernels.append({"name": vq_cuda.BF16_KERNEL, "route": "cuda", "source": src + "vq.cu",
+                    "replaces": "pytorch_generative_tpu/ops/vq_pallas.py:27",
+                    "launches": vq_launches, "max_abs_err": vq_err, "ms": vq_t["kernel"],
+                    "plain_ms": vq_t["plain"], "bound_ms": vq_b[0], "bound_by": vq_b[1],
+                    "library_ms": vq_t["library"], "graph_ms": vq_t["graph"],
+                    "bound_3xtf32_ms": vq_b3[0]})
+
+    # ---- P3: ImageGPT with the fused attention block. ----
+    os.environ["PGT_FUSED_ATTN"] = "1"
+    l = 28 * 28
+    large = image_gpt.LARGE_CONFIG
+    block_t, block_err, block_b = {}, 0.0, {}
+    # Phase B1: the bf16 block against its plain version at its three widths
+    # (B 64, L 784; and L 200 with mask_center), and two calls' bits. The
+    # forward's C entry runs the projection entry, the backward's
+    # recompute, on its own scratch: two recomputes give equal bits, and
+    # the forward's attention agrees with the plain attention on the
+    # recompute's q and kv at the flash kernels' lse gate, a thousand
+    # times tighter than the block's against project_plain's q and kv.
+    for c, n_heads in BLOCK_WIDTHS:
+        for b_, ll, mc in ((BATCH, l, False), (4, 200, True)):
+            ops = [t_.to(bf) for t_ in block_operands(b_, ll, c, gen, dev)]
+            y, attn, lse = attn_block_cuda.attention_block_forward(*ops, mc, n_heads)
+            again = attn_block_cuda.attention_block_forward(*ops, mc, n_heads)
+            pq, pkv = attn_block_cuda.project(*ops[:5])
+            pq2, pkv2 = attn_block_cuda.project(*ops[:5])
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip((y, attn, lse), again))
+            proj_bits = torch.equal(pq, pq2) and torch.equal(pkv, pkv2)
+            ry, ra, rl = attn_block_cuda.attention_block_plain(*ops, mc, n_heads)
+            fin = torch.isfinite(rl)
+            e = {"y": rel_err(y.float(), ry.float()), "attn": rel_err(attn.float(), ra.float()),
+                 "lse": rel_err(lse[fin], rl[fin])}
+            for name, got, ref in zip(("q", "kv"), (pq, pkv),
+                                      attn_block_cuda.project_plain(*ops[:5])):
+                e[name] = rel_err(got.float(), ref.float())
+            ea = ops[1].shape[-1]
+            sa, sl = attention_cuda._flash_forward_bf16_plain(
+                pq, pkv[..., :ea], pkv[..., ea:], mc, n_heads, q2=False)
+            e_on = {"attn": rel_err(attn.float(), sa.float()), "lse": rel_err(lse[fin], sl[fin])}
+            print(f"phase bf16 block C={c} H={n_heads} (B={b_}, L={ll}, mask_center={mc}): "
+                  "max_abs_err (max |plain|) " + ", ".join(
+                      f"{k_} {v_[0]:.3e} ({v_[1]:.3e})" for k_, v_ in e.items())
+                  + f" (tol {BF16_TOL:.4g} x max |plain|, lse {BF16_BLOCK_LSE_RTOL}); against "
+                  "the plain attention on the recompute's q and kv: " + ", ".join(
+                      f"{k_} {v_[0]:.3e} ({v_[1]:.3e})" for k_, v_ in e_on.items())
+                  + f" (lse {BF16_LSE_RTOL}); two recomputes give equal bits: {proj_bits}; two "
+                  f"calls give equal bits: {same}", flush=True)
+            check(proj_bits, "the bf16 block's recompute gave other bits in a second call")
+            check(same, "the bf16 block gave other bits in a second call")
+            check(all(v_[0] <= (BF16_BLOCK_LSE_RTOL if k_ == "lse" else BF16_TOL)
+                      * max(1.0, v_[1]) for k_, v_ in e.items()),
+                  f"the bf16 block disagrees with its plain version (C = {c}, {n_heads} heads)")
+            check(e_on["attn"][0] <= BF16_TOL * max(1.0, e_on["attn"][1])
+                  and e_on["lse"][0] <= BF16_LSE_RTOL * max(1.0, e_on["lse"][1]),
+                  "the bf16 block's attention disagrees with the plain attention on its "
+                  f"recompute's q and kv (C = {c}, {n_heads} heads)")
+            if mc:
+                check(bool((attn[:, 0] == 0).all()) and bool(torch.isneginf(lse[:, :, 0]).all()),
+                      "the bf16 block's row 0 under mask_center is not 0 with lse -inf")
+            block_err = max(block_err, e["y"][0], e["attn"][0])
+            if ll == l:
+                block_t[(c, n_heads)] = {
+                    "plain": time_ms(lambda: attn_block_cuda.attention_block_plain(
+                        *ops, mc, n_heads), 3, 1),
+                    "kernel": time_ms(lambda: attn_block_cuda.attention_block_forward(
+                        *ops, mc, n_heads), 10, 2),
+                    "library": time_ms(lambda: block_composition(*ops, n_heads), 10, 2),
+                    "project": time_ms(lambda: attn_block_cuda.project(*ops[:5]), 10, 2)}
+                flops, nbytes = block_work(b_, ll, c, c, c, n_heads, mc)
+                # bf16 operands: half of block_work's f32 bytes, lse still f32
+                block_b[(c, n_heads)] = bound(flops, nbytes // 2 + 2 * b_ * ll * n_heads,
+                                              BF16_FLOPS)
+                bt, bb_ = block_t[(c, n_heads)], block_b[(c, n_heads)]
+                print(f"phase bf16 times block C={c} H={n_heads} (B={b_}, L={ll}) [{smi}]: "
+                      f"kernel {bt['kernel']:.4f} ms, plain {bt['plain']:.4f} ms, bf16 addmm -> "
+                      f"causal SDPA -> addmm {bt['library']:.4f} ms, projection entry "
+                      f"{bt['project']:.4f} ms, bf16 bound {bb_[0]:.4f} ms ({bb_[1]}; "
+                      f"{flops / 1e9:.1f} GFLOP, {flops / bt['kernel'] / 1e9:.1f} TFLOP/s)",
+                      flush=True)
+            del ops, y, attn, lse, again, pq, pkv, pq2, pkv2, ry, ra, rl, sa, sl
+    # Phase B2: a bf16 Trainer epoch at batch 64 at each width with the
+    # gate on: one bf16 block launch a block and step (and eval), one
+    # projection recompute and one bf16 flash backward a block and step, no
+    # flash forward.
+    block_launches = {attn_block_cuda.BF16_KERNEL: 0, attn_block_cuda.BF16_PROJECT_KERNEL: 0}
+    loaders = datasets.get_synthetic_mnist_loaders(
+        BATCH, n_train=BF16_TRAIN_STEPS * BATCH, n_test=BATCH, image_size=28, seed=0)
+    mods = (attention_cuda, attn_block_cuda, ln_cuda, mlp_cuda)
+    step_ms = {}
+    for label, cfg in (("C=64 H=2", image_gpt.REPRODUCE_CONFIG), ("C=512 H=8", large),
+                       ("C=512 H=4", dict(large, n_attention_heads=4))):
+        nblk = cfg["n_transformer_blocks"]
+        net = ImageGPT(**cfg, generator=torch.Generator().manual_seed(SEED), device=dev)
+        want = {attn_block_cuda.BF16_KERNEL: (BF16_TRAIN_STEPS + 1) * nblk,
+                attn_block_cuda.BF16_PROJECT_KERNEL: BF16_TRAIN_STEPS * nblk,
+                attention_cuda.BF16_BWD_KERNEL: BF16_TRAIN_STEPS * nblk}
+        # C % 128 == 0: the blocks' fused LayerNorm and MLP (bf16) too.
+        others = ((ln_cuda.BF16_KERNEL, ln_cuda.BF16_BWD_KERNEL, mlp_cuda.BF16_KERNEL,
+                   mlp_cuda.BF16_BWD_KERNEL) if cfg["n_embedding_channels"] % 128 == 0 else ())
+        t, counts = epoch(f"gated {label}", net, image_gpt.reproduce_loss, 5e-3, loaders, want,
+                          mods, others)
+        for k_ in block_launches:
+            block_launches[k_] += counts[k_]
+        xb = next(iter(loaders[0]))[0]
+        step_ms[label] = time_ms(lambda: t.train_one_step(xb, None), BF16_TIMED_STEPS, 1)
+        print(f"phase bf16 step gated {label} batch {BATCH} [{smi}]: {step_ms[label]:.2f} ms a "
+              f"step, {BATCH * 1000 / step_ms[label]:.1f} samples/s", flush=True)
+        profile_steps(lambda: t.train_one_step(xb, None), 2, step_ms[label],
+                      f"bf16 gated train step batch {BATCH}", (BATCH, "samples"),
+                      f"profile bf16 gated step {label}", smi,
+                      ("flash_fwd_wgmma", "flash_bwd", "wgemm::", "ln_", "elementwise"),
+                      host=True)
+        del t, net
+    # Phase B3: 3 Adam steps of the gated bf16 Trainer against the CPU's.
+    for label, cfg, batch in (("gated C=64 H=2", image_gpt.REPRODUCE_CONFIG, TRAJ_BATCH),
+                              ("gated C=512 H=8", large, 2)):
+        bf16_against_cpu(label, lambda where, cfg=cfg: ImageGPT(
+            **cfg, generator=torch.Generator().manual_seed(SEED + 9), device=where),
+            image_gpt.reproduce_loss, 5e-3,
+            [(torch.rand((batch, 28, 28, 1), generator=gen) < 0.13).float().numpy()
+             for _ in range(3)], dev, key_bias=("attn.kv_proj.bias", cfg["n_embedding_channels"]))
+    del os.environ["PGT_FUSED_ATTN"]
+    bt, bb_ = block_t[(512, 8)], block_b[(512, 8)]
+    kernels.append({"name": attn_block_cuda.BF16_KERNEL, "route": "cuda",
+                    "source": src + "attn_block_fwd.cu",
+                    "replaces": "pytorch_generative_tpu/ops/attn_block_pallas.py:57",
+                    "launches": block_launches[attn_block_cuda.BF16_KERNEL],
+                    "max_abs_err": block_err, "ms": bt["kernel"], "plain_ms": bt["plain"],
+                    "bound_ms": bb_[0], "bound_by": bb_[1], "library_ms": bt["library"],
+                    "instances": [f"C{c}x{h_}" for c, h_ in block_t],
+                    "ms_by_width": {f"C{c}x{h_}": v_["kernel"] for (c, h_), v_ in block_t.items()},
+                    "recompute_launches": block_launches[attn_block_cuda.BF16_PROJECT_KERNEL],
+                    "recompute_ms": bt["project"]})
+    return {"counts": counts_all, "kernels": kernels,
+            "step_ms": {"PixelSNAIL": snail_ms, **{f"VQ-VAE {k_}": v_ for k_, v_ in vae_ms.items()},
+                        **{f"gated {k_}": v_ for k_, v_ in step_ms.items()}}}
 
 
 def main():
@@ -2476,6 +2877,8 @@ def main():
         decode_cuda.launches = decode_cuda.step_launches = 0
         snail_decode_cuda.launches = vq_cuda.launches = 0
         attn_block_cuda.launches = attn_block_cuda.project_launches = 0
+        attn_block_cuda.bf16_launches = attn_block_cuda.bf16_project_launches = 0
+        vq_cuda.bf16_launches = 0
         mlp_cuda.recompute_launches = mlp_cuda.pipe_launches = 0
 
     def read_counts():
@@ -2485,6 +2888,9 @@ def main():
                   vq_cuda.KERNEL: vq_cuda.launches,
                   attn_block_cuda.KERNEL: attn_block_cuda.launches,
                   attn_block_cuda.PROJECT_KERNEL: attn_block_cuda.project_launches,
+                  attn_block_cuda.BF16_KERNEL: attn_block_cuda.bf16_launches,
+                  attn_block_cuda.BF16_PROJECT_KERNEL: attn_block_cuda.bf16_project_launches,
+                  vq_cuda.BF16_KERNEL: vq_cuda.bf16_launches,
                   mlp_cuda.RECOMPUTE_KERNEL: mlp_cuda.recompute_launches,
                   mlp_cuda.PIPE_KERNEL: mlp_cuda.pipe_launches}
         for mod in pairs:
@@ -3017,9 +3423,14 @@ def main():
     # at C = 64 and C = 512 (bf16_phases). ----
     bf16 = bf16_phases(dev, gen, smi, reset_counts, read_counts)
 
+    # ---- The last three paths under compute_dtype=torch.bfloat16:
+    # PixelSNAIL, VQ-VAE on both routes, ImageGPT with the fused block
+    # (bf16_slice_phases). ----
+    slice_ = bf16_slice_phases(dev, gen, smi, reset_counts, read_counts)
+
     all_counts = (serve_counts, train_counts, big_serve_counts, big_train_counts,
                   *big_sample_counts, *route_counts, *snail["counts"], *wide["counts"],
-                  *vq["counts"], *gated["counts"], *bf16["counts"])
+                  *vq["counts"], *gated["counts"], *bf16["counts"], *slice_["counts"])
     # The flash kernels' (d_k, d_v) instances this run held against the
     # plain version; ms, plain_ms and library_ms are reproduce()'s d = 32,
     # bound_ms its 3xTF32 bound and bound_f32_ms the f32 one beside it.
@@ -3068,6 +3479,7 @@ def main():
         dict(vq["kernel"], launches=sum(cs[vq_cuda.KERNEL] for cs in all_counts)),
         *(dict(k_, launches=sum(cs[k_["name"]] for cs in all_counts)) for k_ in gated["kernels"]),
         *(dict(k_, launches=sum(cs[k_["name"]] for cs in all_counts)) for k_ in bf16["kernels"]),
+        *slice_["kernels"],
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

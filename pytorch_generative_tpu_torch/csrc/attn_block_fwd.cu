@@ -37,9 +37,25 @@
 // head: ~145 GFLOP at B = 64, L = 784, C = 512, 8 heads, ~0.88 ms at the
 // 3xTF32 rate (495 / 3 = 165 TFLOP/s), ~2.2 ms at f32's 67 on the CUDA cores.
 // Head widths d = 32, 64 and 128.
+//
+// attn_block_fwd_bf16 (and attn_block_project_bf16) take bf16 x, weights
+// and biases and write bf16 q, kv, attn and y (lse f32), in the same four
+// launches, at the TPU kernel's rounding points for a bf16 compute dtype
+// (attn_block_pallas.py:66-78, :95-113, :183-185): each product on the
+// wgmma GEMM of gemm_wgmma_bf16.cuh with f32 sums, its epilogue adding the
+// bias (bf16, widened) to the f32 sum and rounding once (mlp.cuh's
+// PreactStore without its GELU); the attention the bf16 flash forward of
+// flash_wgmma_bf16.cuh with kQ2 = false: q stays bf16(q), S = q K^T is
+// scaled in f32 (the flash kernel rounds q * scale * log2 e to bf16
+// instead), P rounded to bf16 for P V, attn = bf16(O / l), lse natural in
+// f32. Bound at the bf16 tensor-core rate: ~145 GFLOP at C = 512, ~0.147
+// ms at 989 TFLOP/s. Widths (C, E, C') multiples of 8 (the GEMM's 16-byte
+// TMA rows).
 
 #include "flash_fwd_mma.cuh"
+#include "flash_wgmma_bf16.cuh"
 #include "gemm_tf32x3.cuh"
+#include "mlp.cuh"
 
 // The projection stage alone: q = x wq + bq (R, E), kv = x wkv + bkv
 // (R, E + O), from x (R, C), wq (C, E), wkv (C, E + O); contiguous float32,
@@ -83,4 +99,57 @@ extern "C" int attn_block_fwd_f32(const float* x, const float* wq, const float* 
 #undef ATTN_BLOCK_CASE
   if (err != cudaSuccess) return err;
   return gemm3::gemm(attn, wo, bo, y, B * L, Cout, E, s);
+}
+
+// As attn_block_project_f32 for bf16 x, wq, bq, wkv, bkv, q and kv: each
+// sum in f32, the bias added to it, then rounded to bf16 once; C, E and O
+// multiples of 8, every operand 16-byte aligned.
+extern "C" int attn_block_project_bf16(const void* x, const void* wq, const void* bq,
+                                       const void* wkv, const void* bkv, void* q, void* kv,
+                                       int R, int C, int E, int O, void* stream) {
+  using T = bf16::T;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* xb = static_cast<const T*>(x);
+  cudaError_t err = mlp::product<false, false>(
+      xb, C, static_cast<const T*>(wq), E, R, E, C,
+      mlp::PreactStore<T>{static_cast<const T*>(bq), static_cast<T*>(q), nullptr, E}, s);
+  if (err != cudaSuccess) return err;
+  return mlp::product<false, false>(
+      xb, C, static_cast<const T*>(wkv), E + O, R, E + O, C,
+      mlp::PreactStore<T>{static_cast<const T*>(bkv), static_cast<T*>(kv), nullptr, E + O}, s);
+}
+
+// As attn_block_fwd_f32 for bf16 x, weights, biases, q, kv, attn and y
+// (lse f32): d one of 32, 64 and 128, C and Cout multiples of 8.
+extern "C" int attn_block_fwd_bf16(const void* x, const void* wq, const void* bq,
+                                   const void* wkv, const void* bkv, const void* wo,
+                                   const void* bo, void* q, void* kv, void* attn, float* lse,
+                                   void* y, int B, int L, int C, int H, int d, int Cout,
+                                   int mask_center, void* stream) {
+  using T = bf16::T;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int E = H * d;
+  cudaError_t err = static_cast<cudaError_t>(
+      attn_block_project_bf16(x, wq, bq, wkv, bkv, q, kv, B * L, C, E, E, stream));
+  if (err != cudaSuccess) return err;
+  const T* qb = static_cast<const T*>(q);
+  const T* kvb = static_cast<const T*>(kv);
+  T* ab = static_cast<T*>(attn);
+  const int64_t q_bs = static_cast<int64_t>(L) * E, kv_bs = 2 * q_bs;
+#define ATTN_BLOCK_BF16_CASE(D)                                                          \
+  case D:                                                                                \
+    err = fwg::launch_fwd<D, false>(qb, kvb, kvb + E, ab, lse, B, L, H, q_bs, E, kv_bs,  \
+                                    2 * E, kv_bs, 2 * E, mask_center, s);                \
+    break;
+  switch (d) {
+    ATTN_BLOCK_BF16_CASE(32)
+    ATTN_BLOCK_BF16_CASE(64)
+    ATTN_BLOCK_BF16_CASE(128)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef ATTN_BLOCK_BF16_CASE
+  if (err != cudaSuccess) return err;
+  return mlp::product<false, false>(
+      static_cast<const T*>(attn), E, static_cast<const T*>(wo), Cout, B * L, Cout, E,
+      mlp::PreactStore<T>{static_cast<const T*>(bo), static_cast<T*>(y), nullptr, Cout}, s);
 }

@@ -64,6 +64,12 @@
 // rows' lse and delta are staged beside it, by the producer's other three
 // warps, which then arrive on the stage's `ready` barrier.
 //
+// The fused attention block's forward (attn_block_fwd.cu) runs the forward
+// kernel with kQ2 = false, at that kernel's rounding points
+// (attn_block_pallas.py:95-113): q stays bf16(q), and S = q K^T is scaled
+// in f32 by scale * log2 e before the base-2 softmax, where the flash
+// kernel rounds q * scale * log2 e to bf16 first.
+//
 // Scheduling: the tiles of one (head, batch) are the grid's fastest index,
 // so the CTAs that read the same K and V (or q and dO) run together and
 // find them in L2; among them the heavy tiles start first (the forward and
@@ -258,8 +264,9 @@ struct Fwd {
 };
 
 // One CTA per (BM-row query tile, head, batch): grid (query tiles, H, B),
-// the last query tile first.
-template <int D, int NC>
+// the last query tile first. kQ2: q2 = bf16(q * scale_log2) in place of q
+// (the flash kernel), or q as it is and S scaled in f32 (the fused block).
+template <int D, int NC, bool kQ2>
 __global__ void __launch_bounds__(128 * (NC + 1), 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
@@ -316,9 +323,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
   // q2 = bf16(q * scale * log2 e), the group's rows, in place.
   wg::wait(q_full, 0);
-  scale_rows<BM, 64, D>(qs, 64 * grp, scale_log2, threadIdx.x % 128, 128);
-  wg::fence_async_shared();
-  wg::sync_threads(1 + grp, 128);
+  if constexpr (kQ2) {
+    scale_rows<BM, 64, D>(qs, 64 * grp, scale_log2, threadIdx.x % 128, 128);
+    wg::fence_async_shared();
+    wg::sync_threads(1 + grp, 128);
+  }
 
   float o[P][PC / 2];
   zero<D>(o);
@@ -375,6 +384,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       // Online softmax of tile j in base 2; a row masked so far keeps m =
       // -inf, p = 0.
       wg::hold(sc);
+      if constexpr (!kQ2) {  // S = (q K^T) scale, in base 2
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) sc[i] *= scale_log2;
+      }
       const int key0 = j * BN;
       if (key0 + BN - 1 + offset > rw) {  // the tile reaches the warp's diagonal
 #pragma unroll
@@ -824,7 +837,9 @@ inline cudaError_t allow_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int D>
+// kQ2 as for the kernel: true for the flash forward, false for the fused
+// block's attention.
+template <int D, bool kQ2 = true>
 cudaError_t launch_fwd(const bf16::T* q, const bf16::T* k, const bf16::T* v, bf16::T* out,
                        float* lse, int B, int L, int H, int64_t q_bs, int64_t q_rs,
                        int64_t k_bs, int64_t k_rs, int64_t v_bs, int64_t v_rs, int mask_center,
@@ -837,7 +852,7 @@ cudaError_t launch_fwd(const bf16::T* q, const bf16::T* k, const bf16::T* v, bf1
   if (!map_of<D>(&tq, q, B, L, H, q_bs, q_rs) || !map_of<D>(&tk, k, B, L, H, k_bs, k_rs) ||
       !map_of<D>(&tv, v, B, L, H, v_bs, v_rs))
     return cudaErrorInvalidValue;
-  auto kernel = flash_fwd_wgmma_kernel<D, NC>;
+  auto kernel = flash_fwd_wgmma_kernel<D, NC, kQ2>;
   cudaError_t err = allow_smem(kernel, F::kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((L + F::BM - 1) / F::BM, H, B);

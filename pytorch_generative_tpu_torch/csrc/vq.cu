@@ -52,6 +52,17 @@
 //      entries whatever the skew, and unused codes get zeros.
 // Every sum is taken in a fixed order: two calls give the same bits.
 //
+// vq_bf16 takes bf16 rows beside the f32 codebook (the VQ-VAE under a bf16
+// compute dtype, whose EMA codebook stays f32), as the TPU kernel does
+// (vq_pallas.py:30-31, :64-79): launch 1 widens each row to f32 as it
+// stages its x tile (16-byte loads of 8 values, so D is a multiple of 8)
+// and writes the quantized rows rounded to bf16 from the f32 codebook row;
+// the scores, counts and sums are the f32 route's. A bf16 value has 8
+// significant bits and TF32 11, so the 3xTF32 split of a row is exact
+// (big = x, small = 0): codes, counts and sums equal, bit for bit, those of
+// vq_f32 on the rows widened to f32, and the quantized rows that kernel's
+// rounded to bf16.
+//
 // What bounds it on an H100: the scores, 2 M K D operations (0.54 GFLOP at
 // M = 8192, K = 512, D = 64): 3.3 us at the 3xTF32 rate (495 / 3 = 165
 // TFLOP/s), 8 us at the CUDA cores' 67 TFLOP/s f32, against ~4.5 MB of x,
@@ -68,7 +79,10 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "flash_mma.cuh"
+#include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
 
 namespace {
@@ -128,10 +142,11 @@ __host__ __device__ constexpr size_t assign_smem(int dp) {
 // KS: k-slices (8 features each) of a chunk of D; the chunk is all of D
 // rounded up to 8 when D <= 64, else 64 features of D rounded up to 64, in
 // n_chunks chunks. dp = 8 KS n_chunks. An item is one chunk of one tile.
-template <int KS>
+// T: the rows' type (and the quantized rows'), float or bf16.
+template <int KS, class T>
 __global__ void __launch_bounds__(kThreads, 1)
-vq_assign_kernel(const float* __restrict__ x, const float* __restrict__ cb,
-                 float* __restrict__ quant, int8_t* __restrict__ tpos, int* __restrict__ tcount,
+vq_assign_kernel(const T* __restrict__ x, const float* __restrict__ cb,
+                 T* __restrict__ quant, int8_t* __restrict__ tpos, int* __restrict__ tcount,
                  float* __restrict__ tsum, int M, int K, int D, int n_chunks) {
   constexpr int kW = 8 * KS;  // features a chunk
   extern __shared__ __align__(16) float smem[];
@@ -238,13 +253,26 @@ vq_assign_kernel(const float* __restrict__ x, const float* __restrict__ cb,
     }
   };
 
-  // Item 0, then the x tile (zeros past M and past D) with item 1.
+  // Item 0, then the x tile (zeros past M and past D) with item 1; bf16
+  // rows are widened to f32 by the threads, 8 values a load (D % 8 == 0),
+  // and are in place at the barrier before transform(0).
   fetch(0);
   tf32::cp_async_commit();
-  for (int i = threadIdx.x; i < kRows * (dp / 4); i += kThreads) {
-    const int r = i / (dp / 4), c = (i % (dp / 4)) * 4;
-    const bool ok = m0 + r < M && c < D;
-    tf32::cp_async16(xs + r * sx + c, ok ? x + static_cast<int64_t>(m0 + r) * D + c : x, ok);
+  if constexpr (std::is_same<T, float>::value) {
+    for (int i = threadIdx.x; i < kRows * (dp / 4); i += kThreads) {
+      const int r = i / (dp / 4), c = (i % (dp / 4)) * 4;
+      const bool ok = m0 + r < M && c < D;
+      tf32::cp_async16(xs + r * sx + c, ok ? x + static_cast<int64_t>(m0 + r) * D + c : x, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kRows * (dp / 8); i += kThreads) {
+      const int r = i / (dp / 8), c = (i % (dp / 8)) * 8;
+      float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if (m0 + r < M && c < D)
+        bf16::unpack8(v, *reinterpret_cast<const uint4*>(x + static_cast<int64_t>(m0 + r) * D + c));
+      *reinterpret_cast<float4*>(xs + r * sx + c) = make_float4(v[0], v[1], v[2], v[3]);
+      *reinterpret_cast<float4*>(xs + r * sx + c + 4) = make_float4(v[4], v[5], v[6], v[7]);
+    }
   }
   fetch(1);
   tf32::cp_async_commit();
@@ -426,7 +454,14 @@ vq_assign_kernel(const float* __restrict__ x, const float* __restrict__ cb,
 #pragma unroll
   for (int u = 0; u < kQuant; ++u) {
     const int i = threadIdx.x + u * kThreads;
-    if (i < nv * nv4) reinterpret_cast<float4*>(quant + static_cast<int64_t>(m0) * D)[i] = qv[u];
+    if (i < nv * nv4) {
+      if constexpr (std::is_same<T, float>::value) {
+        reinterpret_cast<float4*>(quant + static_cast<int64_t>(m0) * D)[i] = qv[u];
+      } else {  // the f32 codebook row rounded to bf16 (nearest even)
+        reinterpret_cast<uint2*>(quant + static_cast<int64_t>(m0) * D)[i] =
+            make_uint2(bf16::pack(qv[u].x, qv[u].y), bf16::pack(qv[u].z, qv[u].w));
+      }
+    }
   }
 }
 
@@ -536,8 +571,8 @@ vq_gather_kernel(const int8_t* __restrict__ tpos, const int* __restrict__ tcount
 
 // Launch 1 at KS with its dynamic shared memory, the attribute raised once
 // per device to the most this instance takes (D = 256 for KS = 8).
-template <int KS>
-cudaError_t assign(const float* x, const float* cb, float* quant, int8_t* tpos, int* tcount,
+template <int KS, class T>
+cudaError_t assign(const T* x, const float* cb, T* quant, int8_t* tpos, int* tcount,
                    float* tsum, int M, int K, int D, int n_chunks, cudaStream_t s) {
   constexpr int kMaxDevices = 64;
   static bool ready[kMaxDevices];
@@ -546,38 +581,30 @@ cudaError_t assign(const float* x, const float* cb, float* quant, int8_t* tpos, 
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!ready[dev]) {
-    err = cudaFuncSetAttribute(vq_assign_kernel<KS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(vq_assign_kernel<KS, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(assign_smem(KS == 8 ? kMaxDim : 8 * KS)));
     if (err != cudaSuccess) return err;
     ready[dev] = true;
   }
-  vq_assign_kernel<KS><<<(M + kRows - 1) / kRows, kThreads, assign_smem(8 * KS * n_chunks), s>>>(
+  vq_assign_kernel<KS, T><<<(M + kRows - 1) / kRows, kThreads, assign_smem(8 * KS * n_chunks), s>>>(
       x, cb, quant, tpos, tcount, tsum, M, K, D, n_chunks);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// x (M, D), codebook (K, D): contiguous float32 starting on 16-byte
-// boundaries; D a multiple of 4 up to 256, M and K at least 1. Writes
-// quantized (M, D), counts (K,) and sums (K, D). Scratch, with B = ceil(M /
-// 64): tpos (B, K rounded up to 4) int8, tcount (B, 64) int32 and tsum (B,
-// 64, D) float32.
-extern "C" int vq_f32(const float* x, const float* codebook, float* quantized, float* counts,
-                      float* sums, int8_t* tpos, int* tcount, float* tsum, int M, int K, int D,
-                      void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M < 1 || K < 1 || D < 4 || D % 4 != 0 || D > kMaxDim)
-    return static_cast<int>(cudaErrorInvalidValue);
+// Both launches for rows of type T: launch 1 at the instance for D, then
+// launch 2 with programmatic dependent launch.
+template <class T>
+cudaError_t vq(const T* x, const float* codebook, T* quantized, float* counts, float* sums,
+               int8_t* tpos, int* tcount, float* tsum, int M, int K, int D, cudaStream_t s) {
   const int dp = D <= kChunk ? (D + 7) / 8 * 8 : (D + kChunk - 1) / kChunk * kChunk;
   const int ks = dp <= kChunk ? dp / 8 : 8, n_chunks = dp / (8 * ks);
-  using Assign = cudaError_t (*)(const float*, const float*, float*, int8_t*, int*, float*, int,
-                                 int, int, int, cudaStream_t);
-  static constexpr Assign kAssign[] = {assign<1>, assign<2>, assign<3>, assign<4>,
-                                       assign<5>, assign<6>, assign<7>, assign<8>};
+  using Assign = cudaError_t (*)(const T*, const float*, T*, int8_t*, int*, float*, int, int,
+                                 int, int, cudaStream_t);
+  static constexpr Assign kAssign[] = {assign<1, T>, assign<2, T>, assign<3, T>, assign<4, T>,
+                                       assign<5, T>, assign<6, T>, assign<7, T>, assign<8, T>};
   cudaError_t err =
       kAssign[ks - 1](x, codebook, quantized, tpos, tcount, tsum, M, K, D, n_chunks, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((K + kGatherCodes - 1) / kGatherCodes, 1, 1);
   cfg.blockDim = dim3(kGatherThreads, 1, 1);
@@ -590,5 +617,33 @@ extern "C" int vq_f32(const float* x, const float* codebook, float* quantized, f
   err = cudaLaunchKernelEx(&cfg, vq_gather_kernel, static_cast<const int8_t*>(tpos),
                            static_cast<const int*>(tcount), static_cast<const float*>(tsum),
                            counts, sums, K, D, (M + kRows - 1) / kRows);
-  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+}  // namespace
+
+// x (M, D), codebook (K, D): contiguous float32 starting on 16-byte
+// boundaries; D a multiple of 4 up to 256, M and K at least 1. Writes
+// quantized (M, D), counts (K,) and sums (K, D). Scratch, with B = ceil(M /
+// 64): tpos (B, K rounded up to 4) int8, tcount (B, 64) int32 and tsum (B,
+// 64, D) float32.
+extern "C" int vq_f32(const float* x, const float* codebook, float* quantized, float* counts,
+                      float* sums, int8_t* tpos, int* tcount, float* tsum, int M, int K, int D,
+                      void* stream) {
+  if (M < 1 || K < 1 || D < 4 || D % 4 != 0 || D > kMaxDim)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(vq(x, codebook, quantized, counts, sums, tpos, tcount, tsum, M, K, D,
+                             static_cast<cudaStream_t>(stream)));
+}
+
+// As vq_f32 for bf16 rows x and quantized (the codebook, counts and sums
+// f32): D a multiple of 8 up to 256.
+extern "C" int vq_bf16(const void* x, const float* codebook, void* quantized, float* counts,
+                       float* sums, int8_t* tpos, int* tcount, float* tsum, int M, int K, int D,
+                       void* stream) {
+  if (M < 1 || K < 1 || D < 8 || D % 8 != 0 || D > kMaxDim)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(vq(static_cast<const bf16::T*>(x), codebook,
+                             static_cast<bf16::T*>(quantized), counts, sums, tpos, tcount, tsum,
+                             M, K, D, static_cast<cudaStream_t>(stream)));
 }

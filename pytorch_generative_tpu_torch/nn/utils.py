@@ -34,6 +34,13 @@ class VectorQuantizer(nn.Module):
     from the batch's counts and sums, after computing the loss from the old
     codebook. Without EMA the codebook is the parameter ``embedding``.
 
+    Under a bf16 compute dtype the rows are bf16 beside the f32 EMA
+    codebook (or the bf16 copy of ``embedding``), as in the JAX module: the
+    search and the quantized rows in the promoted type, the quantized rows
+    then cast to the input's type, and the batch counts and sums in f32
+    from an f32 one-hot and the rows widened to f32 (a bf16 one-hot would
+    round any count above 256).
+
     ``use_fused`` picks the fused kernel (``ops/vq_cuda.py``, EMA mode only):
     ``None`` takes it for CUDA inputs when ``PGT_FUSED_VQ=1`` was set at
     construction, the JAX package's opt-in rule with "on the accelerator"
@@ -86,11 +93,6 @@ class VectorQuantizer(nn.Module):
 
     def forward(self, x):
         n, h, w, c = x.shape
-        if x.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                "VectorQuantizer under a bf16 compute dtype (bf16 rows beside the f32 "
-                "codebook) is not ported yet: ROADMAP.md queue B item 4 (B.8's modes, "
-                "with A.5)")
         if c != self.embedding_dim:
             raise ValueError(f"input channels {c} != embedding_dim {self.embedding_dim}")
         flat_x = x.reshape(-1, c)
@@ -100,13 +102,16 @@ class VectorQuantizer(nn.Module):
             quantized, counts, sums = vq_cuda.vq_quantize_fused(
                 flat_x.detach().contiguous(), codebook.detach())
         else:
+            dtype = torch.promote_types(flat_x.dtype, codebook.dtype)
             one_hot = F.one_hot(nearest_codebook(flat_x, codebook),
-                                self.n_embeddings).to(flat_x.dtype)
-            quantized = one_hot @ codebook
+                                self.n_embeddings).to(dtype)
+            quantized = one_hot @ codebook.to(dtype)
             if update:
-                with torch.no_grad():
-                    counts, sums = one_hot.sum(dim=0), one_hot.T @ flat_x
-        quantized = quantized.reshape(n, h, w, c)
+                with torch.no_grad():  # in the statistics' own type (float32)
+                    stat = self.ema_cluster_size.dtype
+                    one_hot = one_hot.to(stat)
+                    counts, sums = one_hot.sum(dim=0), one_hot.T @ flat_x.to(stat)
+        quantized = quantized.to(x.dtype).reshape(n, h, w, c)
 
         loss = torch.mean((x - quantized.detach()) ** 2)
         if update:

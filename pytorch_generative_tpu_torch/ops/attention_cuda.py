@@ -16,12 +16,13 @@ on both devices: its forward saves q, k, v, out and lse, as the JAX
 package's ``_vjp_fwd`` does, and its backward is the flash backward.
 
 bf16 operands (the Trainer's ``compute_dtype=torch.bfloat16``) take the
-kernels' bf16 mode, for d_k == d_v in ``BF16_HEAD_DIMS``: out, dq, dk and
-dv bf16, lse f32, rounded where the JAX kernel rounds for bf16 operands
-(the plain versions say where). On the card their operands start 16-byte
-aligned with strides that are multiples of 8 values. The other pairs,
-(4, 32) and (4, 8), raise a TypeError for bf16 on both devices: that mode
-is ROADMAP.md queue B item 1's.
+kernels' bf16 mode, for d_k == d_v in ``BF16_HEAD_DIMS`` and for the
+pairs of ``BF16_SIMT_PAIRS``: out, dq, dk and dv bf16, lse f32, rounded
+where the JAX kernel rounds for bf16 operands (the plain versions say
+where). On the card the d_k == d_v operands start 16-byte aligned with
+strides that are multiples of 8 values; (4, 32) and (4, 8) stay on the
+CUDA cores and take any view with unit feature stride, as in f32. Any
+other pair raises a TypeError for bf16 on both devices.
 """
 
 from __future__ import annotations
@@ -52,6 +53,9 @@ bwd_launches = 0
 BF16_KERNEL = "flash_fwd_bf16"
 BF16_BWD_KERNEL = "flash_bwd_bf16"
 BF16_HEAD_DIMS = (16, 32, 64, 128)
+# PixelSNAIL's pairs, whose bf16 mode is the SIMT passes' (same entries and
+# counters as the d_k == d_v instances).
+BF16_SIMT_PAIRS = ((4, 32), (4, 8))
 bf16_launches = 0
 bf16_bwd_launches = 0
 _LOG2E = 1.4426950408889634
@@ -79,14 +83,20 @@ def _q2(q):
     return _bf16(q * ((1.0 / q.shape[-1] ** 0.5) * _LOG2E))
 
 
-def _flash_forward_bf16_plain(q, k, v, mask_center, n_heads):
+def _flash_forward_bf16_plain(q, k, v, mask_center, n_heads, q2=True):
     """The bf16 kernel's plain version, in f32 with the JAX kernel's bf16
     rounding points: q2 = bf16(q * scale * log2(e)), S = q2 k^T, the softmax
     in base 2 on the row's max, P rounded to bf16 for P v while the row sums
-    take the f32 P, out rounded to bf16, lse f32."""
+    take the f32 P, out rounded to bf16, lse f32. With ``q2=False`` (the
+    fused attention block's rounding points) S = (q k^T) * scale * log2(e)
+    in f32 from q as it is."""
     q, k, v = (_unpack(t, n_heads).float() for t in (q, k, v))
     mask = causal_attention_mask(q.shape[-2], mask_center, device=q.device)
-    s = torch.einsum("nhqd,nhkd->nhqk", _q2(q), k).masked_fill(~mask, float("-inf"))
+    if q2:
+        s = torch.einsum("nhqd,nhkd->nhqk", _q2(q), k)
+    else:
+        s = torch.einsum("nhqd,nhkd->nhqk", q, k) * ((1.0 / q.shape[-1] ** 0.5) * _LOG2E)
+    s = s.masked_fill(~mask, float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp2(s - m)  # masked: exp2(-inf) == 0
@@ -198,11 +208,13 @@ def _check_operands(n_heads, **operands):
 def _check_bf16_pair(dtype, dims):
     """Raises a TypeError for bf16 operands at a (d_k, d_v) pair that the
     bf16 mode does not take, on either device."""
-    if dtype == torch.bfloat16 and (dims[0] != dims[1] or dims[0] not in BF16_HEAD_DIMS):
+    if dtype != torch.bfloat16 or dims in BF16_SIMT_PAIRS:
+        return
+    if dims[0] != dims[1] or dims[0] not in BF16_HEAD_DIMS:
         raise TypeError(
             f"(d_k, d_v) = {dims}: the flash kernels' bf16 mode takes d_k == d_v in "
-            f"{BF16_HEAD_DIMS}; bf16 at other widths is not ported yet: ROADMAP.md "
-            "queue B item 1")
+            f"{BF16_HEAD_DIMS} and {BF16_SIMT_PAIRS}; bf16 at other widths is not ported "
+            "yet: ROADMAP.md queue B item 1")
 
 
 def _strides(*tensors):

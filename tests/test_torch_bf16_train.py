@@ -182,31 +182,32 @@ def test_bf16_trainer_trajectory_matches_jax(tmp_path, monkeypatch, config):
 
 
 def test_bf16_unported_modes_raise_before_any_work(monkeypatch):
-    """Under bf16: the flash kernels' (4, 32) pair (PixelSNAIL), the fused
-    attention block (PGT_FUSED_ATTN=1) and the VQ quantizer raise, each
-    naming ROADMAP, before any kernel or plain version runs."""
+    """What bf16 still does not take raises before any work, naming ROADMAP:
+    the flash kernels at a (d_k, d_v) pair outside the bf16 mode ((8, 8);
+    PixelSNAIL's (4, 32) and (4, 8) are taken), ``PGT_FLASH_PRECISION=
+    default`` with f32 operands, and a compute dtype other than bf16
+    ("float16"), each before any kernel or plain version runs."""
     g = torch.Generator().manual_seed(0)
-    q, k = (torch.randn((1, 8, 4), generator=g).bfloat16() for _ in range(2))
-    v = torch.randn((1, 8, 32), generator=g).bfloat16()
+    q, k, v = (torch.randn((1, 8, 8), generator=g).bfloat16() for _ in range(3))
     calls = []
     monkeypatch.setattr(attention_cuda, "causal_attention_with_lse",
                         lambda *a: calls.append(a))
+    for fn in (attention_cuda._flash_forward_bf16_plain, attention_cuda._flash_backward_bf16_plain):
+        monkeypatch.setattr(attention_cuda, fn.__name__, lambda *a: calls.append(a))
     with pytest.raises(TypeError, match="ROADMAP.md queue B item 1"):
         attention_cuda.causal_attention_packed(q, k, v, True, 1)
     with pytest.raises(TypeError, match="ROADMAP.md queue B item 1"):
         attention_cuda.flash_backward(q, k, v, v, torch.zeros((1, 1, 8)), v, True, 1)
+    monkeypatch.setenv("PGT_FLASH_PRECISION", "default")
+    with pytest.raises(ValueError, match="ROADMAP.md queue B item 1"):
+        attention_cuda.causal_attention_packed(q.float(), k.float(), v.float(), True, 1)
+    monkeypatch.delenv("PGT_FLASH_PRECISION")
     assert not calls
 
     model = ImageGPT(**TINY, device="cpu")
-    t = trainer.Trainer(model, image_gpt.reproduce_loss, optim.adam(1e-3), [], [],
-                        use_tensorboard=False, compute_dtype="bfloat16", device="cpu")
-    monkeypatch.setenv("PGT_FUSED_ATTN", "1")
-    with pytest.raises(NotImplementedError, match="B.9"):
-        t.train_one_step(_images(2, 8, seed=1), None)
+    before = [p.clone() for p in model.parameters()]
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A.5"):
+        trainer.Trainer(model, image_gpt.reproduce_loss, optim.adam(1e-3), [], [],
+                        use_tensorboard=False, compute_dtype="float16", device="cpu")
     assert all(p.grad is None for p in model.parameters())
-
-    vq = VectorQuantizer(8, 4, generator=g)
-    before = [b.clone() for b in vq.buffers()]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue B item 4"):
-        vq(torch.randn((1, 2, 2, 4), generator=g).bfloat16())
-    assert all(torch.equal(a, b) for a, b in zip(before, vq.buffers()))
+    assert all(torch.equal(a, b) for a, b in zip(before, model.parameters()))

@@ -1610,9 +1610,11 @@ def test_bf16_gemm_plan_mirrors_the_kernel(dev):
 def test_bf16_wrappers_raise_before_launch(dev):
     """bf16 operands that a kernel does not take raise before any launch:
     strides or starts not on 8 values (16 bytes), C or F not a multiple of
-    8, mixed types, and the (4, 32) flash pair (PixelSNAIL's, ROADMAP queue
-    B item 1)."""
-    before = (attention_cuda.bf16_launches, ln_cuda.bf16_launches, mlp_cuda.bf16_launches)
+    8, mixed types, a flash pair the bf16 mode does not take ((8, 8),
+    ROADMAP queue B item 1; PixelSNAIL's (4, 32) is taken), VQ rows whose
+    D is not a multiple of 8 and a fused block whose width is not."""
+    before = (attention_cuda.bf16_launches, ln_cuda.bf16_launches, mlp_cuda.bf16_launches,
+              vq_cuda.bf16_launches, attn_block_cuda.bf16_launches)
     q = _bf16(_rand((2, 64, 132), 0, dev))
     k, v = q[..., :128], q[..., 4:132]  # row stride 132, v 8 bytes past a boundary
     with pytest.raises(ValueError, match="multiples of 8"):
@@ -1623,9 +1625,15 @@ def test_bf16_wrappers_raise_before_launch(dev):
         attention_cuda.flash_forward(k.contiguous(), k.contiguous().float(), k.contiguous(),
                                      False, 2)
     with pytest.raises(TypeError, match="ROADMAP.md queue B item 1"):
-        attention_cuda.flash_forward(_bf16(_rand((1, 64, 4), 1, dev)),
-                                     _bf16(_rand((1, 64, 4), 2, dev)),
-                                     _bf16(_rand((1, 64, 32), 3, dev)), True, 1)
+        attention_cuda.flash_forward(_bf16(_rand((1, 64, 8), 1, dev)),
+                                     _bf16(_rand((1, 64, 8), 2, dev)),
+                                     _bf16(_rand((1, 64, 8), 3, dev)), True, 1)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        vq_cuda.vq_quantize_fused(_bf16(_rand((64, 12), 7, dev)), _rand((16, 12), 8, dev))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        attn_block_cuda.attention_block_forward(
+            *(_bf16(_rand(shape, 9, dev)) for shape in ((1, 64, 36), (36, 32), (32,), (36, 64),
+                                                        (64,), (32, 36), (36,))), False, 1)
     x, gamma, beta, w1, b1, w2, b2 = (_bf16(t) for t in _mlp_inputs(64, 128, dev))
     with pytest.raises(ValueError, match="multiple of 8"):
         ln_cuda.ln_forward(_bf16(_rand((64, 132), 4, dev)), _bf16(_rand((132,), 5, dev)),
@@ -1638,8 +1646,8 @@ def test_bf16_wrappers_raise_before_launch(dev):
     with pytest.raises(TypeError):
         mlp_cuda.ln_mlp_forward(x, gamma, beta, w1.float(), b1, w2, b2, 1e-5)
     torch.cuda.synchronize()
-    assert (attention_cuda.bf16_launches, ln_cuda.bf16_launches,
-            mlp_cuda.bf16_launches) == before
+    assert (attention_cuda.bf16_launches, ln_cuda.bf16_launches, mlp_cuda.bf16_launches,
+            vq_cuda.bf16_launches, attn_block_cuda.bf16_launches) == before
 
 
 def test_large_config_bf16_train_step_runs_only_bf16_kernels(dev, tmp_path):
@@ -1669,3 +1677,170 @@ def test_large_config_bf16_train_step_runs_only_bf16_kernels(dev, tmp_path):
     assert counts == {k: want.get(k, 0) for k in counts}
     assert all(p.dtype == torch.float32 and p.grad.dtype == torch.float32
                for p in model.parameters())
+
+
+# The bf16 modes of PixelSNAIL's flash pairs (the SIMT passes), of the VQ
+# kernel and of the fused attention block.
+
+@pytest.mark.parametrize("mask_center", [False, True])
+@pytest.mark.parametrize("l", [784, 200, 1])
+@pytest.mark.parametrize("d_k,d_v", [(4, 32), (4, 8)])
+def test_flash_bf16_simt_pairs_match_plain(dev, d_k, d_v, l, mask_center):
+    """PixelSNAIL's pairs at B 128 (L 784; and ragged L), one head, k and v
+    column views of one (B, L, d_k + d_v) kv tensor (v 8 bytes into each
+    row): out, dq, dk, dv within 2 bf16 steps x scale, lse within 1e-6 x
+    scale of the plain versions; two calls give the same bits; under
+    mask_center row 0 gets out 0, lse -inf and dq 0."""
+    b = 128 if l == 784 else 3
+    q = _bf16(_rand((b, l, d_k), l, dev))
+    kv = _bf16(_rand((b, l, d_k + d_v), l + 1, dev))
+    dout = _bf16(_rand((b, l, d_v), l + 2, dev))
+    k, v = kv[..., :d_k], kv[..., d_k:]
+    before = (attention_cuda.bf16_launches, attention_cuda.bf16_bwd_launches,
+              attention_cuda.launches, attention_cuda.bwd_launches)
+    out, lse = attention_cuda.flash_forward(q, k, v, mask_center, 1)
+    grads = attention_cuda.flash_backward(q, k, v, out, lse, dout, mask_center, 1)
+    again = (*attention_cuda.flash_forward(q, k, v, mask_center, 1),
+             *attention_cuda.flash_backward(q, k, v, out, lse, dout, mask_center, 1))
+    torch.cuda.synchronize()
+    assert (attention_cuda.bf16_launches, attention_cuda.bf16_bwd_launches,
+            attention_cuda.launches, attention_cuda.bwd_launches) == (
+        before[0] + 2, before[1] + 2, before[2], before[3])
+    assert out.dtype == torch.bfloat16 and all(g.dtype == torch.bfloat16 for g in grads)
+    assert all(torch.equal(a, b_) for a, b_ in zip((out, lse, *grads), again))
+    ref_out, ref_lse = attention_cuda.flash_forward_plain(q, k, v, mask_center, 1)
+    _assert_bf16(out, ref_out, BF16_TOL, "out")
+    finite = torch.isfinite(ref_lse)
+    assert torch.equal(finite, torch.isfinite(lse))
+    if finite.any():  # L = 1 under mask_center has no key at all
+        _assert_bf16(lse[finite], ref_lse[finite], 1e-6, "lse")
+    ref = attention_cuda.flash_backward_plain(q, k, v, out, lse, dout, mask_center, 1)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
+        _assert_bf16(g, r, BF16_TOL, name)
+    if mask_center:
+        assert bool((out[:, 0] == 0).all()) and bool((grads[0][:, 0] == 0).all())
+        assert bool(torch.isneginf(lse[:, :, 0]).all())
+
+
+@pytest.mark.parametrize("m,k,d", [(8192, 512, 64), (8191, 512, 64), (300, 200, 256),
+                                   (1001, 2000, 8), (5, 1, 16)])
+def test_vq_bf16_kernel_equals_the_f32_kernel_on_widened_rows(dev, m, k, d):
+    """bf16 rows beside an f32 codebook: the bf16 entry's codes, counts and
+    sums equal, bit for bit, the f32 entry's on the rows widened to f32 (a
+    bf16 row's 3xTF32 split is exact), and its quantized rows are that
+    entry's rounded to bf16; the plain version agrees on every row."""
+    x = _bf16(_rand((m, d), m, dev))
+    cb = _rand((k, d), m + 1, dev)
+    before = (vq_cuda.launches, vq_cuda.bf16_launches)
+    qb, cb_counts, sb = vq_cuda.vq_quantize_fused(x, cb)
+    qf, cf, sf = vq_cuda.vq_quantize_fused(x.float(), cb)
+    torch.cuda.synchronize()
+    assert (vq_cuda.launches, vq_cuda.bf16_launches) == (before[0] + 1, before[1] + 1)
+    assert qb.dtype == torch.bfloat16 and cb_counts.dtype == sb.dtype == torch.float32
+    assert torch.equal(qb, qf.to(torch.bfloat16))
+    assert torch.equal(cb_counts, cf) and torch.equal(sb, sf)
+    pq, pc, _ = vq_cuda.vq_quantize_plain(x, cb)
+    assert torch.equal(qb, pq) and torch.equal(cb_counts, pc)
+
+
+# The bf16 block's lse against the plain version's, as a share of the
+# largest |lse|: the two round q and k to bf16 from f32 sums taken in other
+# orders, so an element may land one bf16 step apart and move the scores.
+BF16_BLOCK_LSE_RTOL = 1e-3
+
+
+@pytest.mark.parametrize("mask_center", [False, True])
+@pytest.mark.parametrize("l", [784, 200])
+@pytest.mark.parametrize("c,n_heads", BLOCK_WIDTHS)
+def test_attn_block_bf16_kernel_matches_plain(dev, c, n_heads, l, mask_center):
+    """The block's bf16 entry (B 4): y, attn, q and kv within 2 bf16 steps x
+    scale of the plain versions, lse within BF16_BLOCK_LSE_RTOL; the
+    projection entry (the backward's recompute, which the forward's C entry
+    runs on its own scratch) gives equal bits twice, and the forward's attn
+    and lse agree with the plain attention on its q and kv at the flash
+    kernels' gates (lse 1e-6); two calls give the same bits; under mask_center row 0
+    of attn is 0 with lse -inf."""
+    ops = [_bf16(t) for t in _block_inputs(4, l, c, dev, seed=l)]
+    before = (attn_block_cuda.bf16_launches, attn_block_cuda.bf16_project_launches,
+              attn_block_cuda.launches, attention_cuda.bf16_launches)
+    y, attn, lse = attn_block_cuda.attention_block_forward(*ops, mask_center, n_heads)
+    again = attn_block_cuda.attention_block_forward(*ops, mask_center, n_heads)
+    q, kv = attn_block_cuda.project(*ops[:5])
+    q2, kv2 = attn_block_cuda.project(*ops[:5])
+    torch.cuda.synchronize()
+    assert (attn_block_cuda.bf16_launches, attn_block_cuda.bf16_project_launches,
+            attn_block_cuda.launches, attention_cuda.bf16_launches) == (
+        before[0] + 2, before[1] + 2, before[2], before[3])
+    assert torch.equal(q, q2) and torch.equal(kv, kv2)
+    assert all(torch.equal(a, b_) for a, b_ in zip((y, attn, lse), again))
+    on_q, on_lse = attention_cuda._flash_forward_bf16_plain(
+        q, kv[..., :c], kv[..., c:], mask_center, n_heads, q2=False)
+    _assert_bf16(attn, on_q, BF16_TOL, "attn on the recompute's q and kv")
+    on_finite = torch.isfinite(on_lse)
+    _assert_bf16(lse[on_finite], on_lse[on_finite], 1e-6, "lse on the recompute's q and kv")
+    want = attn_block_cuda.attention_block_plain(*ops, mask_center, n_heads)
+    _assert_bf16(y, want[0], BF16_TOL, "y")
+    _assert_bf16(attn, want[1], BF16_TOL, "attn")
+    finite = torch.isfinite(want[2])
+    assert torch.equal(torch.isfinite(lse), finite)
+    _assert_bf16(lse[finite], want[2][finite], BF16_BLOCK_LSE_RTOL, "lse")
+    for name, got, ref in zip(("q", "kv"), (q, kv), attn_block_cuda.project_plain(*ops[:5])):
+        _assert_bf16(got, ref, BF16_TOL, name)
+    if mask_center:
+        assert bool((attn[:, 0] == 0).all()) and bool(torch.isneginf(lse[:, :, 0]).all())
+
+
+def _zero_counts(*mods):
+    for mod in mods:
+        for name in dir(mod):
+            if name.endswith("launches"):
+                setattr(mod, name, 0)
+
+
+def _counts(*mods):
+    return {f"{mod.__name__.rsplit('.', 1)[1]}.{name}": getattr(mod, name)
+            for mod in mods for name in dir(mod) if name.endswith("launches")}
+
+
+def test_bf16_steps_run_the_new_modes(dev, tmp_path, monkeypatch):
+    """One Trainer(compute_dtype=torch.bfloat16) step at batch 2 of each
+    path: PixelSNAIL (reproduce() widths, 2 blocks) through the flash
+    kernels' bf16 mode at (4, 32); the VQ-VAE with PGT_FUSED_VQ=1 through
+    the bf16 VQ entry (1 a step) and without it through none; ImageGPT
+    with PGT_FUSED_ATTN=1 through the bf16 block (1 a block), its
+    projection recompute and the bf16 flash backward. No f32 kernel of
+    these modules launches; losses are finite; parameters and gradients
+    stay float32."""
+    mods = (attention_cuda, attn_block_cuda, vq_cuda)
+    gen = lambda: torch.Generator().manual_seed(0)
+    img = (torch.rand((2, 28, 28, 1), generator=gen()) < 0.3).float().numpy()
+    cifar = torch.rand((2, 32, 32, 3), generator=gen()).numpy()
+
+    def step(model, loss_fn, x):
+        t = trainer.Trainer(model, loss_fn, optim.adam(1e-3), [], [], log_dir=str(tmp_path),
+                            use_tensorboard=False, device=dev, compute_dtype=torch.bfloat16)
+        _zero_counts(*mods)
+        metrics, _ = t.train_one_step(x, None)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(metrics["loss"]))
+        assert all(p.dtype == torch.float32 and p.grad.dtype == torch.float32
+                   for p in model.parameters())
+        counts = _counts(*mods)
+        return {k_: v_ for k_, v_ in counts.items() if v_}
+
+    from pytorch_generative_tpu_torch.models.autoregressive import pixel_snail
+    from pytorch_generative_tpu_torch.models.vae import vq_vae
+    snail = PixelSNAIL(**dict(pixel_snail.REPRODUCE_CONFIG, n_pixel_snail_blocks=2),
+                       generator=gen(), device=dev)
+    assert step(snail, pixel_snail.reproduce_loss, img) == {
+        "attention_cuda.bf16_launches": 2, "attention_cuda.bf16_bwd_launches": 2}
+    for env, want in (("1", {"vq_cuda.bf16_launches": 1}), ("0", {})):
+        monkeypatch.setenv("PGT_FUSED_VQ", env)
+        vae = VectorQuantizedVAE(**vq_vae.REPRODUCE_CONFIG, generator=gen(), device=dev)
+        assert step(vae, vq_vae.reproduce_loss, cifar) == want
+    monkeypatch.setenv("PGT_FUSED_ATTN", "1")
+    igpt = ImageGPT(**image_gpt.REPRODUCE_CONFIG, generator=gen(), device=dev)
+    n = image_gpt.REPRODUCE_CONFIG["n_transformer_blocks"]
+    assert step(igpt, image_gpt.reproduce_loss, img) == {
+        "attn_block_cuda.bf16_launches": n, "attn_block_cuda.bf16_project_launches": n,
+        "attention_cuda.bf16_bwd_launches": n}

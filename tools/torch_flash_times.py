@@ -250,8 +250,8 @@ FWG_STAMPS = (  # (text put before the anchor, anchor, text put after it)
     ("  const bool stamp = threadIdx.x == 128;\n  if (stamp) FWG_STAMP(0)\n",
      "  // q2 = bf16(q * scale * log2 e), the group's rows, in place.\n"
      "  wg::wait(q_full, 0);\n", "  if (stamp) FWG_STAMP(1)\n"),
-    ("", "  scale_rows<BM, 64, D>(qs, 64 * grp, scale_log2, threadIdx.x % 128, 128);\n"
-     "  wg::fence_async_shared();\n  wg::sync_threads(1 + grp, 128);\n",
+    ("", "    scale_rows<BM, 64, D>(qs, 64 * grp, scale_log2, threadIdx.x % 128, 128);\n"
+     "    wg::fence_async_shared();\n    wg::sync_threads(1 + grp, 128);\n  }\n",
      "  if (stamp) FWG_STAMP(2)\n"),
     ("", "    if (fresh) {  // S = q2 K_j^T\n      const int s = j % kStages;\n",
      "      if (stamp && j < 9) FWG_STAMP(3 + 4 * j)\n"),
