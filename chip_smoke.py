@@ -74,13 +74,17 @@ plain version called) and its step time; one bf16 step on each opt-in MLP
 route; 3 Adam steps against the CPU's bf16 Trainer at C = 64 and C = 512.
 Then the last three paths under ``compute_dtype=torch.bfloat16``
 (``bf16_slice_phases``): PixelSNAIL at its reproduce() config, batch 128,
-through the flash kernels' bf16 mode at (d_k, d_v) = (4, 32); VQ-VAE at
+through the flash kernels' bf16 mode at (d_k, d_v) = (4, 32) (the backward
+on bf16 ``mma.sync``, timed by pass); VQ-VAE at
 its reproduce() config, batch 128, on the fused route (``PGT_FUSED_VQ=1``,
 the vq kernel's bf16 rows, held bit for bit to the f32 kernel on the rows
 widened to f32) and the unfused one; ImageGPT with the fused block
 (``PGT_FUSED_ATTN=1``, its bf16 entries; the backward's recompute held bit
-for bit to the forward's projection) at C = 64 / 2 heads, C = 512 / 8 and
-/ 4 heads, batch 64: each new kernel mode against its plain version and
+for bit to the forward's projection; the forward's 3 launches and the
+recompute's 1 counted; its outputs, and the fused MLP's bf16 ones, held
+to SHA-256 digests recorded on an H100 before its products moved to the
+GEMM's tile-store epilogue) at C = 64 / 2 heads, C = 512 / 8 and / 4
+heads, batch 64: each new kernel mode against its plain version and
 timed beside it, its bound and a bf16 library yardstick; a bf16 Trainer
 epoch of each with its launches, step time and a profiled step; 3 Adam
 steps against the CPU's bf16 Trainer.
@@ -90,6 +94,7 @@ non-zero before that line; without a CUDA device it fails at once.
 """
 
 import concurrent.futures
+import hashlib
 import json
 import math
 import os
@@ -208,6 +213,19 @@ BF16_LOSS_RTOL = 1e-2
 # largest |lse|: the two round q and k to bf16 from f32 sums taken in other
 # orders, so an element may land one bf16 step apart and move the scores.
 BF16_BLOCK_LSE_RTOL = 1e-3
+# SHA-256 of the bf16 block's outputs (y, attn, lse, and the projection
+# entry's q and kv) and of the fused MLP's bf16 outputs at fixed inputs
+# (bf16_digest_outputs), as the kernels gave them on an H100 before the
+# block's products moved to the GEMM's tile-store epilogue; every sum kept
+# its order, so every bit stays (tests/test_torch_kernels.py holds the
+# same digests).
+BF16_DIGESTS = {
+    "block C64 H2 mask_center": "44d92ec3aa7122ec1139a8c81a05c060e53655d1f8317ffd1d3652fc4b64a11d",
+    "block C512 H8": "b755cfd87a012b4a6c6cda85e6a5b8497557e8daf3451c199c23147fb3d90135",
+    "block C512 H4 mask_center": "42ea6604d61d7a6d54c49f1a67236ce4219a38617ba2e0b2fb78896efe961960",
+    "mlp C512 forward": "6cf99f526ae3364a2d38d1227afbd2bf6b9f953b02eb33f761f28c460fc9a3d0",
+    "mlp C512 backward": "b7bb8ae69104a8e75e8d690eab83075747f2a1ff32469440badabf078c9c026c",
+}
 BF16_UPDATE_RL2 = 0.35
 BF16_KEY_BIAS_ATOL = 3 * 4 * 5e-3
 # Bounds: NVIDIA's H100 SXM data sheet, at its 700 W limit.
@@ -271,6 +289,35 @@ def graph_ms(fn, calls=20, replays=10):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / replays / calls
+
+
+def graph_kernels(fn):
+    """The kernel launches of one call of fn: the kernel nodes of a CUDA
+    graph captured from it (cudaGraphGetNodes and cudaGraphNodeGetType on
+    the captured cudaGraph_t). torch.profiler is not used for this: once a
+    process has profiled before, it may drop a share of the kernel
+    records."""
+    import ctypes
+
+    fn()  # warm: builds, allocator blocks
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn()
+    rt = ctypes.CDLL("libcudart.so.12")
+    graph = ctypes.c_void_p(g.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    check(rt.cudaGraphGetNodes(graph, None, ctypes.byref(count)) == 0, "cudaGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    check(rt.cudaGraphGetNodes(graph, nodes, ctypes.byref(count)) == 0, "cudaGraphGetNodes failed")
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(rt.cudaGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0,
+              "cudaGraphNodeGetType failed")
+        kinds.append(kind.value)
+    del g
+    return kinds.count(0)  # cudaGraphNodeTypeKernel
 
 
 def launch_split(fn, n=20):
@@ -1952,6 +1999,47 @@ class PlainCalls:
             setattr(mod, name, real)
 
 
+def bf16_digest_outputs(case, dev):
+    """The outputs BF16_DIGESTS holds for one case, made as
+    tests/test_torch_kernels.py makes them (torch.Generator seeds, randn on
+    the CPU, scaled on the card, rounded to bf16)."""
+    from pytorch_generative_tpu_torch.ops import attn_block_cuda, mlp_cuda
+
+    def rand(shape, seed):
+        return torch.randn(shape, generator=torch.Generator().manual_seed(seed)).to(dev)
+
+    bf = torch.bfloat16
+    if case.startswith("block"):
+        _, c, h, *mc = case.split()
+        c, n_heads = int(c[1:]), int(h[1:])
+        seed = c + n_heads
+        ops = [rand((2, 200, c), seed), rand((c, c), seed + 1) / c ** 0.5,
+               0.1 * rand((c,), seed + 2), rand((c, 2 * c), seed + 3) / c ** 0.5,
+               0.1 * rand((2 * c,), seed + 4), rand((c, c), seed + 5) / c ** 0.5,
+               0.1 * rand((c,), seed + 6)]
+        ops = [t.to(bf) for t in ops]
+        y, attn, lse = attn_block_cuda.attention_block_forward(*ops, bool(mc), n_heads)
+        return (y, attn, lse, *attn_block_cuda.project(*ops[:5]))
+    r, c, f = 4097, 512, 2048
+    x, gamma, beta, w1, b1, w2, b2 = (t.to(bf) for t in (
+        2.0 * rand((r, c), 5) + 0.5, 1.0 + 0.1 * rand((c,), 6), 0.1 * rand((c,), 7),
+        rand((c, f), 8) / c ** 0.5, 0.1 * rand((f,), 9), rand((f, c), 10) / f ** 0.5,
+        0.1 * rand((c,), 11)))
+    out, y = mlp_cuda.ln_mlp_forward(x, gamma, beta, w1, b1, w2, b2, 1e-5)
+    if case.endswith("forward"):
+        return out, y
+    return mlp_cuda.ln_mlp_backward(x, rand((r, c), 11).to(bf), y, gamma, beta, w1, b1, w2,
+                                    1e-5)
+
+
+def sha256_of(*tensors):
+    h = hashlib.sha256()
+    for t in tensors:
+        t = t.detach().cpu().contiguous()
+        h.update((t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy().tobytes())
+    return h.hexdigest()
+
+
 def bf16_against_cpu(label, make, loss_fn, lr, batches, dev, key_bias=None, buffers=()):
     """3 Adam steps of the bf16 Trainer on the card and on the CPU (the
     plain versions) from the same weights (``make(device)``) and batches:
@@ -2339,14 +2427,16 @@ def bf16_slice_phases(dev, gen, smi, reset_counts, read_counts):
     """The last three paths under Trainer(compute_dtype=torch.bfloat16), at
     full width: (P1) PixelSNAIL at its reproduce() config, batch 128, whose
     attention runs the flash kernels' bf16 mode at (d_k, d_v) = (4, 32)
-    (the SIMT passes); (P2) VQ-VAE at its reproduce() config, batch 128, on
-    the fused route (PGT_FUSED_VQ=1, the vq kernel's bf16 rows) and the
-    unfused one; (P3) ImageGPT with the fused attention block
-    (PGT_FUSED_ATTN=1, its bf16 entries) at C = 64 with 2 heads, C = 512
-    with 8 and with 4, batch 64. For each: the new kernel mode against its
-    plain version (the VQ's bit for bit against the f32 kernel on the rows
-    widened to f32; the block's recompute bit for bit against its
-    forward's projection), timed beside its plain version, its bound and a
+    (the forward's SIMT pass, the backward on bf16 mma.sync); (P2) VQ-VAE at
+    its reproduce() config, batch 128, on the fused route (PGT_FUSED_VQ=1,
+    the vq kernel's bf16 rows) and the unfused one; (P3) ImageGPT with the
+    fused attention block (PGT_FUSED_ATTN=1, its bf16 entries) at C = 64
+    with 2 heads, C = 512 with 8 and with 4, batch 64. For each: the new
+    kernel mode against its plain version (the VQ's bit for bit against
+    the f32 kernel on the rows widened to f32; the block's recompute bit
+    for bit against its forward's projection, its outputs and the MLP's
+    against BF16_DIGESTS, its launches a forward and a recompute counted),
+    timed beside its plain version, its bound and a
     library yardstick; one Trainer epoch of BF16_TRAIN_STEPS steps with
     eval, its launches (no plain version called) and step time, a profiled
     step; 3 Adam steps against the CPU's bf16 Trainer. Returns the runs'
@@ -2401,7 +2491,7 @@ def bf16_slice_phases(dev, gen, smi, reset_counts, read_counts):
     l = h * w
     s_dk, s_dv = scfg["attention_key_channels"], scfg["attention_value_channels"]
     nb = scfg["n_pixel_snail_blocks"]
-    # Phase S1: the SIMT bf16 flash passes at (B 128, L 784, H 1, 4, 32,
+    # Phase S1: the bf16 flash pair at (B 128, L 784, H 1, 4, 32,
     # mask_center) against their plain versions, k and v column views of
     # one (B, L, 36) kv tensor; two calls give equal bits.
     q = torch.randn((SNAIL_BATCH, l, s_dk), generator=gen).to(dev, bf)
@@ -2433,7 +2523,7 @@ def bf16_slice_phases(dev, gen, smi, reset_counts, read_counts):
           "the bf16 flash backward disagrees with its plain version at (4, 32)")
     st = flash_times(q, k, v, dout, 1, mask_center=True)
     # The bound at the bf16 operands' rate (989 TFLOP/s) and bytes; the
-    # route's own, f32 arithmetic on the CUDA cores, beside it.
+    # forward's route's own, f32 arithmetic on the CUDA cores, beside it.
     works = {"fwd": (flash_work(SNAIL_BATCH, l, 1, s_dk, s_dv, True),
                      2 * SNAIL_BATCH * l * (2 * s_dk + 2 * s_dv) + 4 * SNAIL_BATCH * l),
              "bwd": (flash_work(SNAIL_BATCH, l, 1, s_dk, s_dv, True, backward=True),
@@ -2443,12 +2533,13 @@ def bf16_slice_phases(dev, gen, smi, reset_counts, read_counts):
         f"flash_{k_}_bf16 (4, 32) kernel {st[k_]:.4f}/{st[k_ + '2']:.4f} ms, plain "
         f"{st[k_ + '_plain']:.4f} ms, "
         + ("bf16 masked SDPA" if k_ == "fwd" else "bf16 masked SDPA autograd.grad")
-        + f" {st[k_ + '_lib']:.4f} ms, bf16 bound {b_[0][0]:.4f} ms ({b_[0][1]}), f32 bound "
-        f"{b_[1][0]:.4f} ms ({b_[1][1]}, the route's CUDA cores)" for k_, b_ in sb.items()),
-        flush=True)
+        + f" {st[k_ + '_lib']:.4f} ms, bf16 bound {b_[0][0]:.4f} ms ({b_[0][1]})"
+        + (f", f32 bound {b_[1][0]:.4f} ms ({b_[1][1]}, the route's CUDA cores)"
+           if k_ == "fwd" else " (bf16 mma.sync)")
+        for k_, b_ in sb.items()), flush=True)
     del q, kv, dout, k, v, out, lse, grads, ref_out, ref_lse, ref_grads
     # Phase S2: a bf16 Trainer epoch at batch 128 (BF16_TRAIN_STEPS steps
-    # and one eval batch): bf16 flash launches only (4, 32: the SIMT mode).
+    # and one eval batch): bf16 flash launches only, at (4, 32).
     loaders = datasets.get_synthetic_mnist_loaders(
         SNAIL_BATCH, n_train=BF16_TRAIN_STEPS * SNAIL_BATCH, n_test=SNAIL_BATCH, image_size=h,
         seed=0)
@@ -2457,7 +2548,7 @@ def bf16_slice_phases(dev, gen, smi, reset_counts, read_counts):
                       {attention_cuda.BF16_KERNEL: (BF16_TRAIN_STEPS + 1) * nb,
                        attention_cuda.BF16_BWD_KERNEL: BF16_TRAIN_STEPS * nb}, (attention_cuda,))
     snail_launches = (counts[attention_cuda.BF16_KERNEL], counts[attention_cuda.BF16_BWD_KERNEL])
-    counts_all.pop()  # the SIMT launches are the 4x32 entries' own, not flash_*_bf16's
+    counts_all.pop()  # these launches are the 4x32 entries' own, not flash_*_bf16's
     xb = next(iter(loaders[0]))[0]
     snail_ms = time_ms(lambda: t.train_one_step(xb, None), BF16_TIMED_STEPS, 1)
     print(f"phase bf16 step PixelSNAIL batch {SNAIL_BATCH} [{smi}]: {snail_ms:.2f} ms a step, "
@@ -2465,7 +2556,7 @@ def bf16_slice_phases(dev, gen, smi, reset_counts, read_counts):
     profile_steps(lambda: t.train_one_step(xb, None), 2, snail_ms,
                   f"bf16 train step batch {SNAIL_BATCH}", (SNAIL_BATCH, "samples"),
                   "profile bf16 step PixelSNAIL", smi,
-                  ("flash_bwd", "flash_fwd", "xmma", "cudnn", "elementwise", "reduce_kernel"),
+                  ("smma::", "flash_fwd", "xmma", "cudnn", "elementwise", "reduce_kernel"),
                   host=True)
     del t, snail
     bf16_against_cpu("PixelSNAIL", lambda where: PixelSNAIL(
@@ -2478,12 +2569,13 @@ def bf16_slice_phases(dev, gen, smi, reset_counts, read_counts):
         b_, b32 = sb[lib]
         kernels.append({
             "name": f"{name} 4x32", "route": "cuda",
-            "source": src + ("flash_fwd.cuh" if lib == "fwd" else "flash_bwd.cu"),
+            "source": src + ("flash_fwd.cuh" if lib == "fwd" else "flash_bwd_mma_bf16.cuh"),
             "replaces": f"pytorch_generative_tpu/ops/attention_pallas.py:{line}",
             "launches": snail_launches[lib == "bwd"],
             "max_abs_err": e_out[0] if lib == "fwd" else max(e[0] for e in e_grads),
             "ms": st[lib], "plain_ms": st[f"{lib}_plain"], "bound_ms": b_[0],
-            "bound_by": b_[1], "library_ms": st[f"{lib}_lib"], "bound_f32_ms": b32[0],
+            "bound_by": b_[1], "library_ms": st[f"{lib}_lib"],
+            **({"bound_f32_ms": b32[0]} if lib == "fwd" else {}),
             "instances": ["4x32", "4x8"]})
 
     # ---- P2: VQ-VAE. ----
@@ -2581,6 +2673,14 @@ def bf16_slice_phases(dev, gen, smi, reset_counts, read_counts):
     # the forward's attention agrees with the plain attention on the
     # recompute's q and kv at the flash kernels' lse gate, a thousand
     # times tighter than the block's against project_plain's q and kv.
+    # The block's and the MLP's bf16 outputs at fixed inputs, bit for bit
+    # the digests recorded before the tile-store epilogue.
+    digests_ok = {case: sha256_of(*bf16_digest_outputs(case, dev)) == want
+                  for case, want in BF16_DIGESTS.items()}
+    print("phase bf16 block digests (bits of the block's y, attn, lse, q, kv and the MLP's "
+          "outputs against those recorded before the tile-store epilogue): " + ", ".join(
+              f"{k_} {'equal' if v_ else 'DIFFER'}" for k_, v_ in digests_ok.items()), flush=True)
+    check(all(digests_ok.values()), "the bf16 block's or MLP's outputs changed their bits")
     for c, n_heads in BLOCK_WIDTHS:
         for b_, ll, mc in ((BATCH, l, False), (4, 200, True)):
             ops = [t_.to(bf) for t_ in block_operands(b_, ll, c, gen, dev)]
@@ -2631,6 +2731,15 @@ def bf16_slice_phases(dev, gen, smi, reset_counts, read_counts):
                         *ops, mc, n_heads), 10, 2),
                     "library": time_ms(lambda: block_composition(*ops, n_heads), 10, 2),
                     "project": time_ms(lambda: attn_block_cuda.project(*ops[:5]), 10, 2)}
+                # 3 launches a forward (q and [k | v] in one), 1 a recompute.
+                n_fwd = graph_kernels(lambda: attn_block_cuda.attention_block_forward(
+                    *ops, mc, n_heads))
+                n_proj = graph_kernels(lambda: attn_block_cuda.project(*ops[:5]))
+                print(f"phase bf16 block launches C={c} H={n_heads}: {n_fwd} kernels a forward, "
+                      f"{n_proj} a recompute (kernel nodes of a captured call)", flush=True)
+                check((n_fwd, n_proj) == (3, 1),
+                      f"the bf16 block ran {n_fwd} launches a forward and {n_proj} a "
+                      "recompute, not 3 and 1")
                 flops, nbytes = block_work(b_, ll, c, c, c, n_heads, mc)
                 # bf16 operands: half of block_work's f32 bytes, lse still f32
                 block_b[(c, n_heads)] = bound(flops, nbytes // 2 + 2 * b_ * ll * n_heads,
@@ -2673,8 +2782,8 @@ def bf16_slice_phases(dev, gen, smi, reset_counts, read_counts):
         profile_steps(lambda: t.train_one_step(xb, None), 2, step_ms[label],
                       f"bf16 gated train step batch {BATCH}", (BATCH, "samples"),
                       f"profile bf16 gated step {label}", smi,
-                      ("flash_fwd_wgmma", "flash_bwd", "wgemm::", "ln_", "elementwise"),
-                      host=True)
+                      ("flash_fwd_wgmma", "flash_bwd", "wgemm::", "wgemm::tile_kernel", "ln_",
+                       "elementwise"), host=True)
         del t, net
     # Phase B3: 3 Adam steps of the gated bf16 Trainer against the CPU's.
     for label, cfg, batch in (("gated C=64 H=2", image_gpt.REPRODUCE_CONFIG, TRAJ_BATCH),

@@ -39,12 +39,15 @@
 // Head widths d = 32, 64 and 128.
 //
 // attn_block_fwd_bf16 (and attn_block_project_bf16) take bf16 x, weights
-// and biases and write bf16 q, kv, attn and y (lse f32), in the same four
-// launches, at the TPU kernel's rounding points for a bf16 compute dtype
-// (attn_block_pallas.py:66-78, :95-113, :183-185): each product on the
-// wgmma GEMM of gemm_wgmma_bf16.cuh with f32 sums, its epilogue adding the
-// bias (bf16, widened) to the f32 sum and rounding once (mlp.cuh's
-// PreactStore without its GELU); the attention the bf16 flash forward of
+// and biases and write bf16 q, kv, attn and y (lse f32), in three launches
+// (the recompute in one), at the TPU kernel's rounding points for a bf16
+// compute dtype (attn_block_pallas.py:66-78, :95-113, :183-185): each
+// product on the wgmma GEMM of gemm_wgmma_bf16.cuh with f32 sums and its
+// tile-store epilogue, which adds the bias (bf16, widened) to the f32 sum,
+// rounds once (mlp.cuh's PreactStore without its GELU, the same bits) and
+// stores the tile by TMA while the consumers go on to the next tile's
+// products; q and [k | v] are one launch that walks the n-tiles of both
+// (bias_products); the attention the bf16 flash forward of
 // flash_wgmma_bf16.cuh with kQ2 = false: q stays bf16(q), S = q K^T is
 // scaled in f32 (the flash kernel rounds q * scale * log2 e to bf16
 // instead), P rounded to bf16 for P V, attn = bf16(O / l), lse natural in
@@ -55,7 +58,7 @@
 #include "flash_fwd_mma.cuh"
 #include "flash_wgmma_bf16.cuh"
 #include "gemm_tf32x3.cuh"
-#include "mlp.cuh"
+#include "gemm_wgmma_bf16.cuh"
 
 // The projection stage alone: q = x wq + bq (R, E), kv = x wkv + bkv
 // (R, E + O), from x (R, C), wq (C, E), wkv (C, E + O); contiguous float32,
@@ -101,22 +104,20 @@ extern "C" int attn_block_fwd_f32(const float* x, const float* wq, const float* 
   return gemm3::gemm(attn, wo, bo, y, B * L, Cout, E, s);
 }
 
-// As attn_block_project_f32 for bf16 x, wq, bq, wkv, bkv, q and kv: each
-// sum in f32, the bias added to it, then rounded to bf16 once; C, E and O
-// multiples of 8, every operand 16-byte aligned.
+// As attn_block_project_f32 for bf16 x, wq, bq, wkv, bkv, q and kv, in one
+// launch over the n-tiles of q and then of kv: each sum in f32, the bias
+// added to it, then rounded to bf16 once; C, E and O multiples of 8, every
+// operand 16-byte aligned.
 extern "C" int attn_block_project_bf16(const void* x, const void* wq, const void* bq,
                                        const void* wkv, const void* bkv, void* q, void* kv,
                                        int R, int C, int E, int O, void* stream) {
   using T = bf16::T;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const T* xb = static_cast<const T*>(x);
-  cudaError_t err = mlp::product<false, false>(
-      xb, C, static_cast<const T*>(wq), E, R, E, C,
-      mlp::PreactStore<T>{static_cast<const T*>(bq), static_cast<T*>(q), nullptr, E}, s);
-  if (err != cudaSuccess) return err;
-  return mlp::product<false, false>(
-      xb, C, static_cast<const T*>(wkv), E + O, R, E + O, C,
-      mlp::PreactStore<T>{static_cast<const T*>(bkv), static_cast<T*>(kv), nullptr, E + O}, s);
+  const T* w[2] = {static_cast<const T*>(wq), static_cast<const T*>(wkv)};
+  const T* bias[2] = {static_cast<const T*>(bq), static_cast<const T*>(bkv)};
+  T* out[2] = {static_cast<T*>(q), static_cast<T*>(kv)};
+  const int n[2] = {E, E + O};
+  return wgemm::bias_products(static_cast<const T*>(x), R, C, 2, w, bias, out, n, nullptr,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // As attn_block_fwd_f32 for bf16 x, weights, biases, q, kv, attn and y
@@ -149,7 +150,9 @@ extern "C" int attn_block_fwd_bf16(const void* x, const void* wq, const void* bq
   }
 #undef ATTN_BLOCK_BF16_CASE
   if (err != cudaSuccess) return err;
-  return mlp::product<false, false>(
-      static_cast<const T*>(attn), E, static_cast<const T*>(wo), Cout, B * L, Cout, E,
-      mlp::PreactStore<T>{static_cast<const T*>(bo), static_cast<T*>(y), nullptr, Cout}, s);
+  const T* w[1] = {static_cast<const T*>(wo)};
+  const T* bias[1] = {static_cast<const T*>(bo)};
+  T* out[1] = {static_cast<T*>(y)};
+  const int n[1] = {Cout};
+  return wgemm::bias_products(ab, B * L, E, 1, w, bias, out, n, nullptr, s);
 }

@@ -57,22 +57,18 @@
 // points for bf16.
 //
 // (d_k, d_v) = (4, 32) and (4, 8) (PixelSNAIL) keep the SIMT passes below
-// (namespace simt), in f32 bit for bit, and in bf16 (flash_bwd_bf16): d_k =
-// 4 is under one mma's depth of 8 (f32) or 16 (bf16). They take 64-row
-// tiles, two threads a row, operand tiles staged through shared memory,
-// rows held in registers, any view with unit feature stride (the bf16 mode
-// reads one value at a time). The bf16 mode keeps the arithmetic in f32 and
-// rounds where the TPU kernel does for bf16 operands: q2 = bf16(q * scale *
-// log2 e) as it is staged (so the dk/dv pass stages k unscaled and q as
-// q2, and dk = dS^T q2 * ln 2), P and dS rounded to bf16 as they are
-// stored for the products, dq, dk and dv rounded at their stores.
+// (namespace simt) in f32, bit for bit: d_k = 4 is under the 3xTF32 route's
+// mma depth of 8. They take 64-row tiles, two threads a row, operand tiles
+// staged through shared memory, rows held in registers, any view with unit
+// feature stride. In bf16 (flash_bwd_bf16) those pairs run on bf16
+// mma.sync instead, d_k zero-padded to the m16n8k8 product's depth
+// (flash_bwd_mma_bf16.cuh).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
-#include <type_traits>
-
+#include "flash_bwd_mma_bf16.cuh"
 #include "flash_fwd.cuh"
 #include "flash_mma.cuh"
 #include "flash_wgmma_bf16.cuh"
@@ -88,34 +84,27 @@ constexpr int kPStride = kBlock + 2;    // p/ds rows: stride 2 mod 32 banks
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Copies rows [row0, row0 + kBlock) of one head (D features wide) of a
-// packed operand into a (kBlock, D + 1) shared f32 tile, times `mul` and,
-// with kRound, rounded to T's products' operand type, with the CTA's
-// kThreads threads; rows past L read as 0.
-template <int D, bool kRound = false, class T>
-__device__ void stage_tile(float* dst, const T* src, int64_t bs, int64_t rs,
+// packed operand into a (kBlock, D + 1) shared f32 tile, times `mul`, with
+// the CTA's kThreads threads; rows past L read as 0.
+template <int D>
+__device__ void stage_tile(float* dst, const float* src, int64_t bs, int64_t rs,
                            int b, int h, int row0, int L, float mul) {
   for (int idx = threadIdx.x; idx < kBlock * D; idx += kThreads) {
     const int rr = idx / D, cc = idx % D;
     const int row = row0 + rr;
-    const float x = row < L ? flash::to_f32(src[b * bs + row * rs + h * D + cc]) * mul : 0.f;
-    dst[rr * (D + 1) + cc] = kRound ? flash::operand<T>(x) : x;
+    dst[rr * (D + 1) + cc] = row < L ? src[b * bs + row * rs + h * D + cc] * mul : 0.f;
   }
-}
-
-template <class T>
-__host__ __device__ constexpr bool is_bf16() {
-  return std::is_same<T, bf16::T>::value;
 }
 
 // dq pass: one CTA per (q-tile, head, batch). Thread (r, half) owns query row
 // r, computes p and ds for the keys c = 2j + half of each k-tile, and sums
 // dq over the half of the features it owns.
-template <int DK, int DV, class T>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ out,
-                    const T* __restrict__ dout,
-                    const float* __restrict__ lse, T* __restrict__ dq,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ out,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse, float* __restrict__ dq,
                     float* __restrict__ delta, int L, int H, int64_t q_bs,
                     int64_t q_rs, int64_t k_bs, int64_t k_rs, int64_t v_bs,
                     int64_t v_rs, int64_t o_bs, int64_t o_rs, int64_t do_bs,
@@ -132,9 +121,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qrow = qt * kBlock + r;
   const bool row_ok = qrow < L;
 
-  // q (pre-scaled into the base-2 domain: q2 in bf16), dO and O through
-  // shared memory, then each row into registers; delta = dO . O for the row.
-  stage_tile<DK, true>(ks, q, q_bs, q_rs, b, h, qt * kBlock, L, scale_log2);
+  // q (pre-scaled into the base-2 domain), dO and O through shared memory,
+  // then each row into registers; delta = dO . O for the row.
+  stage_tile<DK>(ks, q, q_bs, q_rs, b, h, qt * kBlock, L, scale_log2);
   stage_tile<DV>(vs, dout, do_bs, do_rs, b, h, qt * kBlock, L, 1.f);
   stage_tile<DV>(dss, out, o_bs, o_rs, b, h, qt * kBlock, L, 1.f);
   __syncthreads();
@@ -174,7 +163,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int d = 0; d < DV; ++d) dp += dor[d] * vs[c * (DV + 1) + d];
       const bool ok = live && key < L && key + offset <= qrow;
       const float p = ok ? exp2f(s - lse2) : 0.f;
-      dss[r * kPStride + c] = flash::operand<T>(p * (dp - dlt));
+      dss[r * kPStride + c] = p * (dp - dlt);
     }
     __syncwarp();  // the row's two halves of ds live in this warp
 
@@ -186,23 +175,23 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (row_ok) {
-    T* dqp = dq + (static_cast<int64_t>(b) * L + qrow) * H * DK + h * DK + half * DH;
+    float* dqp = dq + (static_cast<int64_t>(b) * L + qrow) * H * DK + h * DK + half * DH;
 #pragma unroll
-    for (int d = 0; d < DH; ++d) flash::store(dqp + d, acc[d] * scale);
+    for (int d = 0; d < DH; ++d) dqp[d] = acc[d] * scale;
   }
 }
 
 // dk/dv pass: one CTA per (k-tile, head, batch). Thread (c, half) owns key c,
 // computes p and ds for the query rows r = 2j + half of each q-tile, and
 // sums dk and dv over the half of the features it owns.
-template <int DK, int DV, class T>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v,
-                      const T* __restrict__ dout,
+flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ dout,
                       const float* __restrict__ lse,
-                      const float* __restrict__ delta, T* __restrict__ dk,
-                      T* __restrict__ dv, int L, int H, int64_t q_bs,
+                      const float* __restrict__ delta, float* __restrict__ dk,
+                      float* __restrict__ dv, int L, int H, int64_t q_bs,
                       int64_t q_rs, int64_t k_bs, int64_t k_rs, int64_t v_bs,
                       int64_t v_rs, int64_t do_bs, int64_t do_rs, float scale,
                       float scale_log2, int offset) {
@@ -221,9 +210,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const bool key_ok = key < L;
   const int n_q_tiles = (L + kBlock - 1) / kBlock;
 
-  // k (f32: pre-scaled into the base-2 domain; bf16: as it is, q2 carries
-  // the scale) and v rows into registers.
-  stage_tile<DK>(qs, k, k_bs, k_rs, b, h, kt * kBlock, L, is_bf16<T>() ? 1.f : scale_log2);
+  // k (pre-scaled into the base-2 domain) and v rows into registers.
+  stage_tile<DK>(qs, k, k_bs, k_rs, b, h, kt * kBlock, L, scale_log2);
   stage_tile<DV>(dos, v, v_bs, v_rs, b, h, kt * kBlock, L, 1.f);
   __syncthreads();
   float k2[DK], vr[DV];
@@ -240,8 +228,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // q-tiles before this k-tile hold no row that sees its keys.
   for (int qt = kt; qt < n_q_tiles; ++qt) {
     __syncthreads();
-    stage_tile<DK, true>(qs, q, q_bs, q_rs, b, h, qt * kBlock, L,
-                         is_bf16<T>() ? scale_log2 : 1.f);
+    stage_tile<DK>(qs, q, q_bs, q_rs, b, h, qt * kBlock, L, 1.f);
     stage_tile<DV>(dos, dout, do_bs, do_rs, b, h, qt * kBlock, L, 1.f);
     if (threadIdx.x < kBlock) {
       const int row = qt * kBlock + threadIdx.x;
@@ -263,8 +250,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float l2 = lse_s[r];  // -inf past L and on fully-masked rows
       const bool ok = key_ok && !isinf(l2) && key + offset <= row;
       const float p = ok ? exp2f(s - l2) : 0.f;
-      ps[c * kPStride + r] = flash::operand<T>(p);
-      dss[c * kPStride + r] = flash::operand<T>(p * (dp - delta_s[r]));
+      ps[c * kPStride + r] = p;
+      dss[c * kPStride + r] = p * (dp - delta_s[r]);
     }
     __syncwarp();  // the key's two halves of p and ds live in this warp
 
@@ -280,21 +267,19 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (key_ok) {
     const int64_t row = static_cast<int64_t>(b) * L + key;
-    T* dkp = dk + row * H * DK + h * DK + half * KH;
-    T* dvp = dv + row * H * DV + h * DV + half * VH;
-    // dS^T q * scale (f32), dS^T q2 * ln 2 (bf16).
-    const float dk_mul = is_bf16<T>() ? flash::kLn2 : scale;
+    float* dkp = dk + row * H * DK + h * DK + half * KH;
+    float* dvp = dv + row * H * DV + h * DV + half * VH;
 #pragma unroll
-    for (int d = 0; d < KH; ++d) flash::store(dkp + d, dk_acc[d] * dk_mul);
+    for (int d = 0; d < KH; ++d) dkp[d] = dk_acc[d] * scale;
 #pragma unroll
-    for (int d = 0; d < VH; ++d) flash::store(dvp + d, dv_acc[d]);
+    for (int d = 0; d < VH; ++d) dvp[d] = dv_acc[d];
   }
 }
 
-template <int DK, int DV, class T>
-cudaError_t launch(const T* q, const T* k, const T* v,
-                   const T* out, const T* dout, const float* lse,
-                   T* dq, T* dk, T* dv, float* delta, int B, int L,
+template <int DK, int DV>
+cudaError_t launch(const float* q, const float* k, const float* v,
+                   const float* out, const float* dout, const float* lse,
+                   float* dq, float* dk, float* dv, float* delta, int B, int L,
                    int H, int64_t q_bs, int64_t q_rs, int64_t k_bs,
                    int64_t k_rs, int64_t v_bs, int64_t v_rs, int64_t o_bs,
                    int64_t o_rs, int64_t do_bs, int64_t do_rs, int mask_center,
@@ -304,27 +289,24 @@ cudaError_t launch(const T* q, const T* k, const T* v,
   const size_t smem_kv = sizeof(float) *
       (kBlock * (DK + 1) + kBlock * (DV + 1) + 2 * kBlock * kPStride + 2 * kBlock);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<DK, DV, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dq_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem_dq));
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_kernel<DK, DV, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dkdv_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem_kv));
   if (err != cudaSuccess) return err;
   const dim3 grid((L + kBlock - 1) / kBlock, H, B);
-  // bf16 takes scale and scale * log2(e) as the TPU kernel forms them (in
-  // double, rounded once: fwg::launch_bwd), f32 the f32 kernels' own.
-  const float scale = is_bf16<T>() ? static_cast<float>(1.0 / sqrt(static_cast<double>(DK)))
-                                   : 1.f / sqrtf(static_cast<float>(DK));
-  const float scale_log2 = is_bf16<T>() ? fwg::scale_log2_of(DK) : scale * kLog2e;
+  const float scale = 1.f / sqrtf(static_cast<float>(DK));
+  const float scale_log2 = scale * kLog2e;
   const int offset = mask_center ? 1 : 0;
   // Same stream: the dk/dv pass reads the delta that the dq pass stores.
-  flash_bwd_dq_kernel<DK, DV, T><<<grid, kThreads, smem_dq, stream>>>(
+  flash_bwd_dq_kernel<DK, DV><<<grid, kThreads, smem_dq, stream>>>(
       q, k, v, out, dout, lse, dq, delta, L, H, q_bs, q_rs, k_bs, k_rs, v_bs,
       v_rs, o_bs, o_rs, do_bs, do_rs, scale, scale_log2, offset);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dkdv_kernel<DK, DV, T><<<grid, kThreads, smem_kv, stream>>>(
+  flash_bwd_dkdv_kernel<DK, DV><<<grid, kThreads, smem_kv, stream>>>(
       q, k, v, dout, lse, delta, dk, dv, L, H, q_bs, q_rs, k_bs, k_rs, v_bs,
       v_rs, do_bs, do_rs, scale, scale_log2, offset);
   return cudaGetLastError();
@@ -744,9 +726,10 @@ extern "C" int flash_bwd_f32(const float* q, const float* k, const float* v,
 }
 
 // As flash_bwd_f32 for bf16 q, k, v, out, dout, dq, dk and dv (lse and
-// delta f32): (d_k, d_v) = (4, 32) or (4, 8), any such view; or d_k ==
-// d_v, one of 16, 32, 64, 128, each operand's start 16-byte aligned and its
-// (batch, row) strides multiples of 8 values.
+// delta f32): (d_k, d_v) = (4, 32) or (4, 8), any such view, on bf16
+// mma.sync (flash_bwd_mma_bf16.cuh); or d_k == d_v, one of 16, 32, 64,
+// 128, each operand's start 16-byte aligned and its (batch, row) strides
+// multiples of 8 values.
 extern "C" int flash_bwd_bf16(const void* q, const void* k, const void* v, const void* out,
                               const void* dout, const float* lse, void* dq, void* dk,
                               void* dv, float* delta, int B, int L, int H, int d_k, int d_v,
@@ -756,17 +739,16 @@ extern "C" int flash_bwd_bf16(const void* q, const void* k, const void* v, const
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using P = const bf16::T*;
   using W = bf16::T*;
-#define FLASH_BWD_SIMT_CASE(DK, DV)                                                      \
-  if (d_k == DK && d_v == DV)                                                            \
-    return simt::launch<DK, DV>(static_cast<P>(q), static_cast<P>(k), static_cast<P>(v), \
-                                static_cast<P>(out), static_cast<P>(dout), lse,          \
-                                static_cast<W>(dq), static_cast<W>(dk),                  \
-                                static_cast<W>(dv), delta, B, L, H, q_bs, q_rs, k_bs,    \
-                                k_rs, v_bs, v_rs, o_bs, o_rs, do_bs, do_rs,              \
-                                mask_center, s);
-  FLASH_BWD_SIMT_CASE(4, 32)
-  FLASH_BWD_SIMT_CASE(4, 8)
-#undef FLASH_BWD_SIMT_CASE
+#define FLASH_BWD_SMALL_CASE(DV)                                                          \
+  if (d_k == smma::kDK && d_v == DV)                                                      \
+    return smma::launch<DV>(static_cast<P>(q), static_cast<P>(k), static_cast<P>(v),       \
+                            static_cast<P>(out), static_cast<P>(dout), lse,                \
+                            static_cast<W>(dq), static_cast<W>(dk), static_cast<W>(dv),    \
+                            delta, B, L, H, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, o_bs, o_rs, \
+                            do_bs, do_rs, mask_center, fwg::scale_log2_of(smma::kDK), s);
+  FLASH_BWD_SMALL_CASE(32)
+  FLASH_BWD_SMALL_CASE(8)
+#undef FLASH_BWD_SMALL_CASE
 #define FLASH_BWD_BF16_CASE(D)                                                            \
   if (d_k == D && d_v == D)                                                               \
     return fwg::launch_bwd<D>(static_cast<P>(q), static_cast<P>(k), static_cast<P>(v),     \

@@ -2,7 +2,9 @@
 // operand K-contiguous or not, fed by TMA through an mbarrier ring, and a
 // functor as the epilogue: every product of the fused MLP's bf16 entries
 // (mlp.cuh), with the layouts, parts and epilogue contract of the 3xTF32
-// GEMM (gemm_tf32x3.cuh).
+// GEMM (gemm_tf32x3.cuh); or a tile-store epilogue (below): the fused
+// attention block's products (attn_block_fwd.cu) and the MLP's y = LN(x)
+// W1 + b1 with gelu(y).
 //
 //   out(m, n) = sum over k in the part of A(m, k) B(k, n),
 //   A(m, k) = a[m * lda + k]  (kAT false: K contiguous)
@@ -51,6 +53,23 @@
 // is summed by one consumer thread in k order: two calls give the same
 // bits, and a part's sum does not depend on the parts launched beside it.
 //
+// The tile-store epilogue (BiasTile: the products with a bias alone, or a
+// bias and an activation, at K = 512, where the functor epilogue below sat
+// on the tensor cores' critical path, ~200 TFLOP/s): each consumer thread
+// reads the bias of its 32 columns once per tile, before the tile's
+// products; after them it writes
+// bf16(sum + bias) of its 64 sums straight from the accumulator layout
+// into a 128-byte swizzled 64 x 64 block of shared memory (no bank
+// conflict), and one thread of the consumer stores the consumer's two
+// blocks by TMA (cp.async.bulk.tensor, a bulk group) and goes on: the
+// consumer's next products start at once, and it waits for the group to
+// have read the staging only at its next tile's epilogue. Such a launch
+// may also walk two outputs side by side, the n-tiles of the first then
+// those of the second, each with its own B and output maps and bias (the
+// attention block's q and [k | v] in one launch); or one output and its
+// activation (the MLP's y and gelu(y)), staged and stored one after the
+// other through the same blocks.
+//
 // Epilogue. A consumer's sums go through shared memory kPassCols columns
 // at a time and come back a row segment a warp, so that the epilogue's
 // reads and writes of a row are contiguous; a thread reads what the
@@ -64,13 +83,16 @@
 // Bounds: M, N, K >= 1, parts >= 1, k_split a positive multiple of kBK; N
 // a multiple of 8, and so the contiguous dimension of each operand (K for
 // a K-contiguous one, M where kAT), its leading dimension and the 16-byte
-// alignment of its start (TMA reads rows at 16-byte strides). Anything
-// else returns an error before any launch.
+// alignment of its start (TMA reads rows at 16-byte strides); for a tile
+// store the same of each output. Anything else returns an error before
+// any launch.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "mma_bf16.cuh"
 #include "wgmma.cuh"
@@ -105,22 +127,71 @@ constexpr int kEpilogueBytes = kConsumers * 64 * kStageLd * 4 + kConsumers * 4 *
 // 1024 of slack to align the ring, the ring, the epilogue's staging, the
 // barriers.
 constexpr int kSmem = 1024 + kStages * kStage + kEpilogueBytes + 8 * 2 * kStages;
+// The tile-store epilogue's staging instead: the bf16 tile, each
+// consumer's 64 rows as two 64 x 64 blocks of 128-byte swizzled rows (one
+// TMA store box each).
+constexpr int kOutBlock = 64 * 128;
+constexpr int kOutBytes = kBM * kBN * 2;
+constexpr int kSmemTile = 1024 + kStages * kStage + kOutBytes + 8 * 2 * kStages;
 
 static_assert(kBM == 2 * 64 && kBN == 2 * 64, "64-row and 64-column blocks of A and B");
 static_assert(kBK * 2 == 128, "a k-step is one 128-byte swizzled row");
 static_assert(kStageLd % 32 == 8, "rows g and g + 1 of a staged tile 8 banks apart");
+static_assert(kOutBytes == 2 * kConsumers * kOutBlock, "a consumer's two 64-column blocks");
 
-// One work item: a part of K and a tile of out.
-struct Work {
-  int part, m0, n0, kbeg, n_k;
+// The tensor maps of a tile-store launch (tile_kernel): A; B of the first
+// output's n-tiles and of the second's (b[1] unused with one output); each
+// output's, which the consumers store through.
+struct Maps {
+  CUtensorMap a;
+  CUtensorMap b[2];
+  CUtensorMap out[2];
 };
 
-__device__ __forceinline__ Work work_of(int w, int n_tiles, int per_part, int K, int k_split) {
+// No activation: a tile-store launch writes bf16(sum + bias) alone.
+struct NoAct {};
+
+// The tile-store epilogue: out[which](m, n) = bf16(v), v = sum +
+// bias[which][n], the f32 sum plus the widened bias rounded to nearest even
+// once (mlp.cuh's PreactStore without g, bit for bit); n[which] is the
+// output's width. With an activation Act (Act::apply(float)), the launch
+// walks one output and also writes bf16(Act::apply(v)) of the same tile
+// to the second output's map (PreactStore with g).
+template <class Act = NoAct>
+struct BiasTile {
+  const T* bias[2];
+  int n[2];
+};
+
+// Whether Epi is a tile-store epilogue, and its activation.
+template <class Epi>
+struct TileOf {
+  static constexpr bool kTile = false;
+  using Act = NoAct;
+};
+template <class A>
+struct TileOf<BiasTile<A>> {
+  static constexpr bool kTile = true;
+  using Act = A;
+};
+
+// One work item: a part of K and a tile of output `which` (n0 within it).
+struct Work {
+  int part, m0, n0, which, kbeg, n_k;
+};
+
+// Work item w: n-tiles fastest; with kTwo, the first n_tiles0 of each row
+// of tiles the first output's, the rest the second's.
+template <bool kTwo>
+__device__ __forceinline__ Work work_of(int w, int n_tiles, int n_tiles0, int per_part, int K,
+                                        int k_split) {
   Work x;
   x.part = w / per_part;
   const int r = w % per_part;
+  const int j = r % n_tiles;
   x.m0 = r / n_tiles * kBM;
-  x.n0 = r % n_tiles * kBN;
+  x.which = kTwo && j >= n_tiles0 ? 1 : 0;
+  x.n0 = (j - x.which * n_tiles0) * kBN;
   x.kbeg = x.part * k_split;
   const int kend = min(K, x.kbeg + k_split);
   x.n_k = kend > x.kbeg ? (kend - x.kbeg + kBK - 1) / kBK : 0;
@@ -150,19 +221,28 @@ __device__ __forceinline__ void fold(float (&acc)[64], float (&part)[64]) {
   for (int i = 0; i < 64; ++i) acc[i] += part[i];
 }
 
+// The kernel's body over the maps of A, of B for each output and, for the
+// tile-store epilogue (BiasTile), of each output (with an activation: the
+// activation's output); gemm_kernel (a functor epilogue, one output) and
+// tile_kernel launch it.
 template <bool kAT, bool kBT, class Epi>
-__global__ void __launch_bounds__(kThreads, 1)
-gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
-            int M, int N, int K, int k_split, int parts, Epi epi) {
+__device__ __forceinline__ void run(const CUtensorMap* ta, const CUtensorMap* tb0,
+                                    const CUtensorMap* tb1, const CUtensorMap* tout0,
+                                    const CUtensorMap* tout1, int M, int N, int n_tiles,
+                                    int n_tiles0, int K, int k_split, int parts, const Epi& epi) {
+  constexpr bool kTile = TileOf<Epi>::kTile;
+  using Act = typename TileOf<Epi>::Act;
+  constexpr bool kAct = !std::is_same<Act, NoAct>::value;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  float* ep_s = reinterpret_cast<float*>(ring + kStages * kStage);
+  unsigned char* out_s = ring + kStages * kStage;  // the tile store's staging
+  float* ep_s = reinterpret_cast<float*>(out_s);  // or the functor epilogue's
   float* col_s = ep_s + kConsumers * 64 * kStageLd;
-  uint64_t* full = reinterpret_cast<uint64_t*>(col_s + kConsumers * 4 * kPassCols);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      kTile ? out_s + kOutBytes : reinterpret_cast<unsigned char*>(col_s + kConsumers * 4 * kPassCols));
   uint64_t* empty = full + kStages;
 
-  const int n_tiles = (N + kBN - 1) / kBN;
   const int per_part = (M + kBM - 1) / kBM * n_tiles;
   const int n_work = parts * per_part;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -181,7 +261,8 @@ gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUte
     if (threadIdx.x == 0) {
       int it = 0;  // k-steps issued, over every work item
       for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
-        const Work x = work_of(w, n_tiles, per_part, K, k_split);
+        const Work x = work_of<kTile>(w, n_tiles, n_tiles0, per_part, K, k_split);
+        const CUtensorMap* tb = x.which ? tb1 : tb0;
         for (int kt = 0; kt < x.n_k; ++kt, ++it) {
           const int s = it % kStages;
           if (it >= kStages) wg::wait(&empty[s], ((it / kStages) & 1) ^ 1);
@@ -190,16 +271,16 @@ gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUte
           unsigned char* bs = as + kTileBytes;
           const int k0 = x.kbeg + kt * kBK;
           if (kAT) {
-            wg::load_2d(as, &ta, &full[s], x.m0, k0);
-            wg::load_2d(as + kBlockBytes, &ta, &full[s], x.m0 + 64, k0);
+            wg::load_2d(as, ta, &full[s], x.m0, k0);
+            wg::load_2d(as + kBlockBytes, ta, &full[s], x.m0 + 64, k0);
           } else {
-            wg::load_2d(as, &ta, &full[s], k0, x.m0);
+            wg::load_2d(as, ta, &full[s], k0, x.m0);
           }
           if (kBT) {
-            wg::load_2d(bs, &tb, &full[s], k0, x.n0);
+            wg::load_2d(bs, tb, &full[s], k0, x.n0);
           } else {
-            wg::load_2d(bs, &tb, &full[s], x.n0, k0);
-            wg::load_2d(bs + kBlockBytes, &tb, &full[s], x.n0 + 64, k0);
+            wg::load_2d(bs, tb, &full[s], x.n0, k0);
+            wg::load_2d(bs + kBlockBytes, tb, &full[s], x.n0 + 64, k0);
           }
         }
       }
@@ -213,10 +294,24 @@ gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUte
   float* stage_s = ep_s + c * 64 * kStageLd;
   float* sums_s = col_s + c * 4 * kPassCols;
 
+  // The thread of this consumer that issues and waits for its tile stores.
+  const bool issuer = threadIdx.x % 128 == 0;
   float acc[64], part[64];
   int it = 0;  // k-steps consumed, over every work item
   for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
-    const Work x = work_of(w, n_tiles, per_part, K, k_split);
+    const Work x = work_of<kTile>(w, n_tiles, n_tiles0, per_part, K, k_split);
+    // A tile store's bias, read once per tile: this thread's columns 8 j +
+    // 2 t and 8 j + 2 t + 1 of the tile, j = 0 ... 15, as stored.
+    uint32_t bias[kTile ? kBN / 8 : 1];
+    if constexpr (kTile) {
+      const T* bp = x.which ? epi.bias[1] : epi.bias[0];
+      const int nw = x.which ? epi.n[1] : epi.n[0];
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j) {
+        const int n = x.n0 + 8 * j + 2 * t;  // nw % 8 == 0: n + 1 is in range too
+        bias[j] = n < nw ? __ldg(reinterpret_cast<const unsigned int*>(bp + n)) : 0u;
+      }
+    }
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = 0.f;
     // kFold k-steps at a time: their products into the fresh part
@@ -249,72 +344,168 @@ gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUte
     }
     it += x.n_k;
 
-    // The epilogue, kPassCols columns at a time: acc[4 j + e] (row 16 wq +
-    // g + 8 (e / 2) of the group's 64, column 8 j + 2 t + e % 2) goes to
-    // shared memory and comes back with lane l of warp wq holding columns
-    // 2 p and 2 p + 1, p = l % 16, of rows 16 wq + 2 i + l / 16, i = 0 ...
-    // 7.
-    const int m_first = x.m0 + 64 * c;
-    constexpr int kJ = kPassCols / 8, kIters = 8;
-    const int p = lane % 16;
+    if constexpr (kTile) {
+      // bf16(v), v = sum + bias, into this consumer's two staging blocks,
+      // acc[4 j + e] (row r = 16 wq + g + 8 (e / 2), column 8 j + 2 t + e %
+      // 2) at block j / 8, row r, 16-byte chunk (j % 8) ^ (r % 8) (TMA's
+      // 128-byte swizzle; r % 8 == g), once the last stores have read
+      // them; then the TMA stores. With an activation, acc takes Act(v),
+      // which follows through the same blocks once the first stores have
+      // read them.
+      unsigned char* st = out_s + c * 2 * kOutBlock;
+      const int m = x.m0 + 64 * c;
+      const int nw = x.which ? epi.n[1] : epi.n[0];
 #pragma unroll
-    for (int pp = 0; pp < kBN / kPassCols; ++pp) {
+      for (int pass = 0; pass < (kAct ? 2 : 1); ++pass) {
+        if (issuer) wg::store_wait<0, true>();
+        wg::sync_threads(1 + c, 128);
 #pragma unroll
-      for (int jj = 0; jj < kJ; ++jj) {
-        const int j = pp * kJ + jj;
+        for (int j = 0; j < kBN / 8; ++j) {
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
-          *reinterpret_cast<float2*>(stage_s + (16 * wq + g + 8 * h) * kStageLd + 8 * jj + 2 * t) =
-              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-      }
-      wg::sync_threads(1 + c, 128);
-      const int n = x.n0 + kPassCols * pp + 2 * p;
-      using In = decltype(epi.load(0, 0));
-      In in[kIters];
-#pragma unroll
-      for (int i = 0; i < kIters; ++i) {
-        const int r = 16 * wq + 2 * i + lane / 16;
-        if (m_first + r < M && n < N) in[i] = epi.load(m_first + r, n);
-      }
-      float2 cs = make_float2(0.f, 0.f);
-#pragma unroll
-      for (int i = 0; i < kIters; ++i) {
-        const int r = 16 * wq + 2 * i + lane / 16;
-        if (m_first + r < M && n < N) {  // N % 8 == 0: n + 1 < N too
-          const float2 v = *reinterpret_cast<const float2*>(stage_s + r * kStageLd + 2 * p);
-          if constexpr (Epi::kColSums) {
-            const float2 d = epi(m_first + r, n, v, x.part, in[i]);
-            cs.x += d.x;
-            cs.y += d.y;
-          } else {
-            epi(m_first + r, n, v, x.part, in[i]);
+          for (int h = 0; h < 2; ++h) {
+            const int r = 16 * wq + g + 8 * h;
+            float& lo = acc[4 * j + 2 * h];
+            float& hi = acc[4 * j + 2 * h + 1];
+            if (pass == 0) {
+              lo += bf16::lo(bias[j]);
+              hi += bf16::hi(bias[j]);
+            }
+            *reinterpret_cast<uint32_t*>(st + (j / 8) * kOutBlock + r * 128 +
+                                         ((j % 8) ^ g) * 16 + 4 * t) = bf16::pack(lo, hi);
+            if constexpr (kAct) {
+              if (pass == 0) {
+                lo = Act::apply(lo);
+                hi = Act::apply(hi);
+              }
+            }
           }
         }
-      }
-      if constexpr (Epi::kColSums) {
-        cs.x += __shfl_xor_sync(0xffffffffu, cs.x, 16);
-        cs.y += __shfl_xor_sync(0xffffffffu, cs.y, 16);
-        if (lane < 16) *reinterpret_cast<float2*>(sums_s + wq * kPassCols + 2 * lane) = cs;
+        wg::fence_async_shared();  // the writes, before the async proxy reads them
         wg::sync_threads(1 + c, 128);
-        const int col = threadIdx.x % 128;
-        if (col < kPassCols && m_first < M && x.n0 + kPassCols * pp + col < N)
-          epi.col_sum(m_first / 64, x.n0 + kPassCols * pp + col,
-                      ((sums_s[col] + sums_s[kPassCols + col]) + sums_s[2 * kPassCols + col]) +
-                          sums_s[3 * kPassCols + col]);
+        if (issuer) {
+          const CUtensorMap* map = pass == 1 || x.which ? tout1 : tout0;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            if (m < M && x.n0 + 64 * h < nw)
+              wg::store_2d(map, st + h * kOutBlock, x.n0 + 64 * h, m);
+          }
+          wg::store_commit();
+        }
       }
-      wg::sync_threads(1 + c, 128);  // read before it is written again
+    } else {
+      // The epilogue, kPassCols columns at a time: acc[4 j + e] (row 16 wq +
+      // g + 8 (e / 2) of the group's 64, column 8 j + 2 t + e % 2) goes to
+      // shared memory and comes back with lane l of warp wq holding columns
+      // 2 p and 2 p + 1, p = l % 16, of rows 16 wq + 2 i + l / 16, i = 0 ...
+      // 7.
+      const int m_first = x.m0 + 64 * c;
+      constexpr int kJ = kPassCols / 8, kIters = 8;
+      const int p = lane % 16;
+#pragma unroll
+      for (int pp = 0; pp < kBN / kPassCols; ++pp) {
+#pragma unroll
+        for (int jj = 0; jj < kJ; ++jj) {
+          const int j = pp * kJ + jj;
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<float2*>(stage_s + (16 * wq + g + 8 * h) * kStageLd + 8 * jj + 2 * t) =
+                make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        }
+        wg::sync_threads(1 + c, 128);
+        const int n = x.n0 + kPassCols * pp + 2 * p;
+        using In = decltype(epi.load(0, 0));
+        In in[kIters];
+#pragma unroll
+        for (int i = 0; i < kIters; ++i) {
+          const int r = 16 * wq + 2 * i + lane / 16;
+          if (m_first + r < M && n < N) in[i] = epi.load(m_first + r, n);
+        }
+        float2 cs = make_float2(0.f, 0.f);
+#pragma unroll
+        for (int i = 0; i < kIters; ++i) {
+          const int r = 16 * wq + 2 * i + lane / 16;
+          if (m_first + r < M && n < N) {  // N % 8 == 0: n + 1 < N too
+            const float2 v = *reinterpret_cast<const float2*>(stage_s + r * kStageLd + 2 * p);
+            if constexpr (Epi::kColSums) {
+              const float2 d = epi(m_first + r, n, v, x.part, in[i]);
+              cs.x += d.x;
+              cs.y += d.y;
+            } else {
+              epi(m_first + r, n, v, x.part, in[i]);
+            }
+          }
+        }
+        if constexpr (Epi::kColSums) {
+          cs.x += __shfl_xor_sync(0xffffffffu, cs.x, 16);
+          cs.y += __shfl_xor_sync(0xffffffffu, cs.y, 16);
+          if (lane < 16) *reinterpret_cast<float2*>(sums_s + wq * kPassCols + 2 * lane) = cs;
+          wg::sync_threads(1 + c, 128);
+          const int col = threadIdx.x % 128;
+          if (col < kPassCols && m_first < M && x.n0 + kPassCols * pp + col < N)
+            epi.col_sum(m_first / 64, x.n0 + kPassCols * pp + col,
+                        ((sums_s[col] + sums_s[kPassCols + col]) + sums_s[2 * kPassCols + col]) +
+                            sums_s[3 * kPassCols + col]);
+        }
+        wg::sync_threads(1 + c, 128);  // read before it is written again
+      }
     }
   }
+  if constexpr (kTile) {
+    if (issuer) wg::store_wait<0, false>();
+  }
+}
+
+template <bool kAT, bool kBT, class Epi>
+__global__ void __launch_bounds__(kThreads, 1)
+gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+            int M, int N, int K, int k_split, int parts, Epi epi) {
+  const int n_tiles = (N + kBN - 1) / kBN;
+  run<kAT, kBT>(&ta, &tb, &tb, nullptr, nullptr, M, N, n_tiles, n_tiles, K, k_split, parts, epi);
+}
+
+// The tile-store epilogue's launch: A K-contiguous, B N-contiguous, K in
+// one part; n_tiles n-tiles, the first n_tiles0 of them the first output's.
+template <class Act>
+__global__ void __launch_bounds__(kThreads, 1)
+tile_kernel(const __grid_constant__ Maps maps, int M, int n_tiles, int n_tiles0, int K,
+            int k_split, BiasTile<Act> epi) {
+  run<false, false>(&maps.a, &maps.b[0], &maps.b[1], &maps.out[0], &maps.out[1], M, 0, n_tiles,
+                    n_tiles0, K, k_split, 1, epi);
 }
 
 inline bool aligned16(const void* p, int64_t ld) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 && ld % 8 == 0;
 }
 
+// The map of A (M x K) as run loads it.
+template <bool kAT>
+bool map_a(CUtensorMap* map, const T* a, int64_t lda, int M, int K) {
+  return kAT ? wg::encode_bf16_2d(map, a, M, K, lda, kBK) : wg::encode_bf16_2d(map, a, K, M, lda, kBM);
+}
+
+// The map of B (K x N) as run loads it.
+template <bool kBT>
+bool map_b(CUtensorMap* map, const T* b, int64_t ldb, int K, int N) {
+  return kBT ? wg::encode_bf16_2d(map, b, K, N, ldb, kBN) : wg::encode_bf16_2d(map, b, N, K, ldb, kBK);
+}
+
+// The grid of a launch of `work` items: one CTA an SM, at most one an
+// item; sets the kernel's shared memory. Returns 0 on an error.
+template <class Kernel>
+int persistent_grid(Kernel kernel, int smem, int64_t work, cudaError_t* err) {
+  *err = work > INT32_MAX ? cudaErrorInvalidValue : cudaSuccess;
+  if (*err == cudaSuccess)
+    *err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0, sms = 0;
+  if (*err == cudaSuccess) *err = cudaGetDevice(&dev);
+  if (*err == cudaSuccess) *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return *err == cudaSuccess ? static_cast<int>(work < sms ? work : sms) : 0;
+}
+
 // Launches the product over `parts` parts of K of k_split each (the last
-// may be shorter) on `stream`, one CTA an SM (at most one a work item);
-// returns the launch's error. The tensor maps are encoded here, each over
-// the operand's range in this launch.
+// may be shorter) on `stream`, its epilogue a functor; returns the
+// launch's error. The tensor maps are encoded here, each over the
+// operand's range in this launch.
 template <bool kAT, bool kBT, class Epi>
 cudaError_t gemm_parts(const T* a, int64_t lda, const T* b, int64_t ldb, int M, int N, int K,
                        int parts, int k_split, Epi epi, cudaStream_t stream) {
@@ -323,22 +514,59 @@ cudaError_t gemm_parts(const T* a, int64_t lda, const T* b, int64_t ldb, int M, 
       N % 8 != 0 || (kAT && M % 8 != 0) || (k_chunks && K % 8 != 0))
     return cudaErrorInvalidValue;
   if (!aligned16(a, lda) || !aligned16(b, ldb)) return cudaErrorMisalignedAddress;
-  const int64_t work = static_cast<int64_t>(parts) * ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
-  if (work > INT32_MAX) return cudaErrorInvalidValue;
   CUtensorMap ta, tb;
-  const bool mapped =
-      (kAT ? wg::encode_bf16_2d(&ta, a, M, K, lda, kBK) : wg::encode_bf16_2d(&ta, a, K, M, lda, kBM)) &&
-      (kBT ? wg::encode_bf16_2d(&tb, b, K, N, ldb, kBN) : wg::encode_bf16_2d(&tb, b, N, K, ldb, kBK));
-  if (!mapped) return cudaErrorInvalidValue;
+  if (!map_a<kAT>(&ta, a, lda, M, K) || !map_b<kBT>(&tb, b, ldb, K, N))
+    return cudaErrorInvalidValue;
   auto kernel = gemm_kernel<kAT, kBT, Epi>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  cudaError_t err;
+  const int grid = persistent_grid(
+      kernel, kSmem, static_cast<int64_t>(parts) * ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN),
+      &err);
   if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0;
-  err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  const int grid = static_cast<int>(work < sms ? work : sms);
   kernel<<<grid, kThreads, kSmem, stream>>>(ta, tb, M, N, K, k_split, parts, epi);
+  return cudaGetLastError();
+}
+
+// out[i] = bf16(v), v = a w[i] + bias[i] (M x n[i], row stride n[i]) for
+// the outputs i < count (1 or 2) in one launch, from a (M x K, K
+// contiguous) and w[i] (K x n[i], N contiguous), K in one part; the
+// tile-store epilogue. With an activation Act, count is 1 and act_out
+// (M x n[0]) gets bf16(Act::apply(v)). Returns the launch's error.
+template <class Act = NoAct>
+cudaError_t bias_products(const T* a, int M, int K, int count, const T* const* w,
+                          const T* const* bias, T* const* out, const int* n, T* act_out,
+                          cudaStream_t stream) {
+  constexpr bool kAct = !std::is_same<Act, NoAct>::value;
+  if (M <= 0 || K <= 0 || K % 8 != 0 || count < 1 || count > (kAct ? 1 : 2) ||
+      !aligned16(a, K))
+    return cudaErrorInvalidValue;
+  Maps maps = {};
+  BiasTile<Act> epi = {};
+  int tiles[2] = {0, 0};
+  if (!map_a<false>(&maps.a, a, K, M, K)) return cudaErrorInvalidValue;
+  if (kAct && (!aligned16(act_out, n[0]) ||
+               !wg::encode_bf16_2d(&maps.out[1], act_out, n[0], M, n[0], 64)))
+    return cudaErrorInvalidValue;
+  for (int i = 0; i < count; ++i) {
+    if (n[i] <= 0 || n[i] % 8 != 0) return cudaErrorInvalidValue;
+    if (!aligned16(w[i], n[i]) || !aligned16(out[i], n[i]) ||
+        reinterpret_cast<uintptr_t>(bias[i]) % 4 != 0)
+      return cudaErrorMisalignedAddress;
+    if (!map_b<false>(&maps.b[i], w[i], n[i], K, n[i]) ||
+        !wg::encode_bf16_2d(&maps.out[i], out[i], n[i], M, n[i], 64))
+      return cudaErrorInvalidValue;
+    epi.bias[i] = bias[i];
+    epi.n[i] = n[i];
+    tiles[i] = (n[i] + kBN - 1) / kBN;
+  }
+  const int k_split = (K + kBK - 1) / kBK * kBK;
+  cudaError_t err;
+  const int grid = persistent_grid(
+      tile_kernel<Act>, kSmemTile,
+      static_cast<int64_t>((M + kBM - 1) / kBM) * (tiles[0] + tiles[1]), &err);
+  if (err != cudaSuccess) return err;
+  tile_kernel<Act><<<grid, kThreads, kSmemTile, stream>>>(maps, M, tiles[0] + tiles[1], tiles[0],
+                                                           K, k_split, epi);
   return cudaGetLastError();
 }
 

@@ -209,14 +209,26 @@ constexpr int vec() {
   return 16 / static_cast<int>(sizeof(T));
 }
 
+// gelu as the bf16 GEMM's tile-store activation.
+struct Gelu {
+  static __device__ __forceinline__ float apply(float v) { return gelu(v); }
+};
+
 // xn = LN(x) (R, C), then y = xn W1 + b1 (R, F) and, unless g is null,
-// g = gelu(y).
+// g = gelu(y): in f32 on the 3xTF32 GEMM with PreactStore, in bf16 on the
+// wgmma GEMM's tile-store epilogue (PreactStore's bits: y and g rounded
+// from the same f32 y).
 template <class T>
 cudaError_t preact(const T* x, const T* gamma, const T* beta, const T* w1, const T* b1, T* xn,
                    T* y, T* g, int R, int C, int F, float eps, cudaStream_t s) {
   cudaError_t err = rows::layer_norm(x, gamma, beta, xn, R, C, eps, s);
   if (err != cudaSuccess) return err;
-  return product<false, false>(xn, C, w1, F, R, F, C, PreactStore<T>{b1, y, g, F}, s);
+  if constexpr (std::is_same<T, float>::value) {
+    return product<false, false>(xn, C, w1, F, R, F, C, PreactStore<T>{b1, y, g, F}, s);
+  } else {
+    if (g != nullptr) return wgemm::bias_products<Gelu>(xn, R, C, 1, &w1, &b1, &y, &F, g, s);
+    return wgemm::bias_products(xn, R, C, 1, &w1, &b1, &y, &F, nullptr, s);
+  }
 }
 
 // The forward: out = x + gelu(LN(x) W1 + b1) W2 + b2, y = LN(x) W1 + b1;

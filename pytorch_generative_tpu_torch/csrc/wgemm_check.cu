@@ -1,6 +1,7 @@
-// A test entry of the bf16 GEMM (gemm_wgmma_bf16.cuh) alone, in each of its
-// four layouts, for tests/test_torch_kernels.py; the port's paths reach the
-// GEMM through mlp_fwd.cu and mlp_bwd.cu only.
+// Test entries of the bf16 GEMM (gemm_wgmma_bf16.cuh) alone, in each of its
+// four layouts and with its tile-store epilogue over one or two outputs,
+// for tests/test_torch_kernels.py; the port's paths reach the GEMM through
+// mlp_fwd.cu, mlp_bwd.cu and attn_block_fwd.cu only.
 
 #include "gemm_wgmma_bf16.cuh"
 
@@ -36,5 +37,20 @@ extern "C" int wgemm_check(const void* a, int64_t lda, const void* b, int64_t ld
   return static_cast<int>(err);
 }
 
-// Shared-memory bytes of a CTA of the GEMM.
-extern "C" int wgemm_smem() { return wgemm::kSmem; }
+// out_i = bf16(a w_i + bias_i) (M x n_i) for i < count by the tile-store
+// epilogue in one launch (wgemm::bias_products); a (M x K).
+extern "C" int wgemm_bias_check(const void* a, int M, int K, int count, const void* w0,
+                                const void* bias0, void* out0, int n0, const void* w1,
+                                const void* bias1, void* out1, int n1, void* stream) {
+  using P = const bf16::T*;
+  const P w[2] = {static_cast<P>(w0), static_cast<P>(w1)};
+  const P bias[2] = {static_cast<P>(bias0), static_cast<P>(bias1)};
+  bf16::T* out[2] = {static_cast<bf16::T*>(out0), static_cast<bf16::T*>(out1)};
+  const int n[2] = {n0, n1};
+  return static_cast<int>(wgemm::bias_products(static_cast<P>(a), M, K, count, w, bias, out, n,
+                                               nullptr, static_cast<cudaStream_t>(stream)));
+}
+
+// Shared-memory bytes of a CTA of the GEMM: with a functor epilogue (tile
+// 0) or the tile-store one (tile 1).
+extern "C" int wgemm_smem(int tile) { return tile ? wgemm::kSmemTile : wgemm::kSmem; }

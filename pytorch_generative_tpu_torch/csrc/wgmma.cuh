@@ -2,8 +2,8 @@
 // flash_wgmma_bf16.cuh and the bf16 GEMM of gemm_wgmma_bf16.cuh are built
 // from: warpgroup products (wgmma.mma_async, bf16 operands, f32
 // accumulators), their shared-memory matrix descriptors, mbarriers, TMA
-// tile loads (cp.async.bulk.tensor) and the host side of the tensor maps
-// those loads read. Nothing else of those kernels is written in PTX. All
+// tile loads and stores (cp.async.bulk.tensor) and the host side of the
+// tensor maps those copies read. Nothing else of those kernels is written in PTX. All
 // of it needs sm_90a.
 //
 // A tile that TMA writes with a 32-, 64- or 128-byte swizzle (rows of 16,
@@ -101,6 +101,33 @@ __device__ __forceinline__ void load_2d(void* dst, const CUtensorMap* map, uint6
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem(bar)), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// Starts the copy of the shared-memory tile at src into the box at (c0, c1)
+// (innermost first) of the tensor that `map` describes, as a bulk group of
+// this thread; parts of the box past the tensor's extent are not written.
+__device__ __forceinline__ void store_2d(const CUtensorMap* map, const void* src, int c0,
+                                         int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Closes this thread's bulk stores issued since the last commit into a group.
+__device__ __forceinline__ void store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's store groups are still reading
+// their shared memory (kRead), or still writing at all.
+template <int N, bool kRead>
+__device__ __forceinline__ void store_wait() {
+  if constexpr (kRead)
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Register budgets of a warpgroup (setmaxnreg, every warp of it at once).

@@ -17,12 +17,14 @@ package's ``_vjp_fwd`` does, and its backward is the flash backward.
 
 bf16 operands (the Trainer's ``compute_dtype=torch.bfloat16``) take the
 kernels' bf16 mode, for d_k == d_v in ``BF16_HEAD_DIMS`` and for the
-pairs of ``BF16_SIMT_PAIRS``: out, dq, dk and dv bf16, lse f32, rounded
+pairs of ``BF16_SMALL_PAIRS``: out, dq, dk and dv bf16, lse f32, rounded
 where the JAX kernel rounds for bf16 operands (the plain versions say
 where). On the card the d_k == d_v operands start 16-byte aligned with
-strides that are multiples of 8 values; (4, 32) and (4, 8) stay on the
-CUDA cores and take any view with unit feature stride, as in f32. Any
-other pair raises a TypeError for bf16 on both devices.
+strides that are multiples of 8 values; (4, 32) and (4, 8) take any view
+with unit feature stride, as in f32: their forward on the CUDA cores (the
+SIMT pass), their backward on bf16 ``mma.sync``
+(``csrc/flash_bwd_mma_bf16.cuh``, d_k zero-padded to the product's
+depth). Any other pair raises a TypeError for bf16 on both devices.
 """
 
 from __future__ import annotations
@@ -53,9 +55,10 @@ bwd_launches = 0
 BF16_KERNEL = "flash_fwd_bf16"
 BF16_BWD_KERNEL = "flash_bwd_bf16"
 BF16_HEAD_DIMS = (16, 32, 64, 128)
-# PixelSNAIL's pairs, whose bf16 mode is the SIMT passes' (same entries and
-# counters as the d_k == d_v instances).
-BF16_SIMT_PAIRS = ((4, 32), (4, 8))
+# PixelSNAIL's pairs in bf16 (same entries and counters as the d_k == d_v
+# instances): the forward the SIMT pass's bf16 mode, the backward on bf16
+# mma.sync.
+BF16_SMALL_PAIRS = ((4, 32), (4, 8))
 bf16_launches = 0
 bf16_bwd_launches = 0
 _LOG2E = 1.4426950408889634
@@ -208,12 +211,12 @@ def _check_operands(n_heads, **operands):
 def _check_bf16_pair(dtype, dims):
     """Raises a TypeError for bf16 operands at a (d_k, d_v) pair that the
     bf16 mode does not take, on either device."""
-    if dtype != torch.bfloat16 or dims in BF16_SIMT_PAIRS:
+    if dtype != torch.bfloat16 or dims in BF16_SMALL_PAIRS:
         return
     if dims[0] != dims[1] or dims[0] not in BF16_HEAD_DIMS:
         raise TypeError(
             f"(d_k, d_v) = {dims}: the flash kernels' bf16 mode takes d_k == d_v in "
-            f"{BF16_HEAD_DIMS} and {BF16_SIMT_PAIRS}; bf16 at other widths is not ported "
+            f"{BF16_HEAD_DIMS} and {BF16_SMALL_PAIRS}; bf16 at other widths is not ported "
             "yet: ROADMAP.md queue B item 1")
 
 

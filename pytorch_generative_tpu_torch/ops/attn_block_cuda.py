@@ -20,8 +20,10 @@ are ``torch.matmul``, as the JAX package leaves them to XLA.
 bf16 operands (the Trainer's ``compute_dtype=torch.bfloat16``) take the
 kernel's bf16 entries (``attn_block_fwd_bf16``, ``attn_block_project_bf16``;
 counted in ``bf16_launches`` and ``bf16_project_launches``): the products on
-the wgmma GEMM, each f32 sum plus its bias rounded to bf16 once, and the
-attention at the JAX block's rounding points (q as it is, S scaled in f32;
+the wgmma GEMM's tile-store epilogue, each f32 sum plus its bias rounded
+to bf16 once and the tile stored by TMA, q and [k | v] in one launch (3
+launches a forward, 1 a recompute), and the attention at the JAX block's
+rounding points (q as it is, S scaled in f32;
 ``project_plain`` and ``attention_block_plain`` say where). On the card
 their widths are multiples of 8. The backward's flash call then runs the
 flash kernels' bf16 mode, as the JAX block calls ``_flash_backward``.
@@ -49,7 +51,9 @@ HEAD_DIMS = (32, 64, 128)
 # _project_cuda to `project_launches` (one per call: the two products).
 launches = 0
 project_launches = 0
-# The same for the bf16 entries.
+# The same for the bf16 entries (a forward call is 3 launches: q and
+# [k | v] in one product, the flash forward, the output projection; a
+# projection call 1).
 BF16_KERNEL = "attn_block_fwd_bf16"
 BF16_PROJECT_KERNEL = "attn_block_project_bf16"
 bf16_launches = 0

@@ -1,7 +1,7 @@
 """Mixed-precision training (``Trainer(compute_dtype=torch.bfloat16)``) of
 the three paths whose bf16 modes this file covers, against the JAX
 package's Trainer with ``compute_dtype=jnp.bfloat16``, on the CPU: a tiny
-PixelSNAIL (attention d_k 4 / d_v 8, the flash kernels' SIMT pair), a tiny
+PixelSNAIL (attention d_k 4 / d_v 8, the flash kernels' small pair), a tiny
 VQ-VAE (EMA quantizer on its unfused and its fused route, bf16 rows beside
 the f32 codebook) and a tiny ImageGPT with the fused attention block
 (``PGT_FUSED_ATTN=1`` on both sides).

@@ -3,13 +3,18 @@ only): shared memory and registers within the card's limits, TMA boxes the
 hardware takes, the persistent grid's walk over every (part, m-tile,
 n-tile) of each of the fused MLP's products exactly once with every k-step
 of each part, and the bf16 backward's row cut (``mlp_cuda.bf16_backward_plan``),
-beside the f32 cut, which keeps its values.
+beside the f32 cut, which keeps its values; the tile-store epilogue of the
+attention block's products: its staging beside the ring, its TMA store
+boxes, its swizzled writes (every element once, where the 128-byte
+swizzle puts it, no bank conflict), and the fused projection's walk over
+the n-tiles of q and then of [k | v], each (m-tile, n-tile) of each output
+once.
 
 The plan is restated here from ``csrc/gemm_wgmma_bf16.cuh``; the kernel
 lines it restates are listed in ``KERNEL_LINES``, and
 ``test_restated_lines_are_the_kernels`` fails once one of them changes. On
 the card, ``tests/test_torch_kernels.py`` holds ``SMEM`` to the kernel's
-own ``wgemm_smem`` entry (``csrc/wgemm_check.cu``).
+own ``wgemm_smem`` entry (``csrc/wgemm_check.cu``), and SMEM_TILE alike.
 """
 
 from pathlib import Path
@@ -37,6 +42,9 @@ TILE_BYTES = BM * K_STEP * 2          # a stage's A tile, and its B tile
 BLOCK_BYTES = K_STEP * 128            # a 64-column block of an MN-major tile
 EPILOGUE_BYTES = CONSUMERS * 64 * STAGE_LD * 4 + CONSUMERS * 4 * PASS_COLS * 4
 SMEM = 1024 + STAGES * 2 * TILE_BYTES + EPILOGUE_BYTES + 8 * 2 * STAGES
+OUT_BLOCK = 64 * 128                  # kOutBlock: a 64 x 64 bf16 block, 128-byte rows
+OUT_BYTES = BM * BN * 2               # kOutBytes: the bf16 tile
+SMEM_TILE = 1024 + STAGES * 2 * TILE_BYTES + OUT_BYTES + 8 * 2 * STAGES
 KERNEL_LINES = (
     "constexpr int kBM = 128, kBN = 128;  // a CTA's tile of out",
     "constexpr int kBK = 64;              // the k-step, in values",
@@ -49,9 +57,22 @@ KERNEL_LINES = (
     "constexpr int kStageLd = kPassCols + 8;",
     "constexpr int kEpilogueBytes = kConsumers * 64 * kStageLd * 4 + kConsumers * 4 * kPassCols * 4;",
     "constexpr int kSmem = 1024 + kStages * kStage + kEpilogueBytes + 8 * 2 * kStages;",
+    "constexpr int kOutBlock = 64 * 128;",
+    "constexpr int kOutBytes = kBM * kBN * 2;",
+    "constexpr int kSmemTile = 1024 + kStages * kStage + kOutBytes + 8 * 2 * kStages;",
+    "  x.which = kTwo && j >= n_tiles0 ? 1 : 0;",
+    "  x.n0 = (j - x.which * n_tiles0) * kBN;",
     "  x.n_k = kend > x.kbeg ? (kend - x.kbeg + kBK - 1) / kBK : 0;",
+    "            *reinterpret_cast<uint32_t*>(st + (j / 8) * kOutBlock + r * 128 +",
+    "                                         ((j % 8) ^ g) * 16 + 4 * t) = bf16::pack(lo, hi);",
+    "          const CUtensorMap* map = pass == 1 || x.which ? tout1 : tout0;",
+    "              wg::store_2d(map, st + h * kOutBlock, x.n0 + 64 * h, m);",
+    "        if (issuer) wg::store_wait<0, true>();",
+    "        !wg::encode_bf16_2d(&maps.out[i], out[i], n[i], M, n[i], 64))",
+    "  tile_kernel<Act><<<grid, kThreads, kSmemTile, stream>>>(maps, M, tiles[0] + tiles[1], tiles[0],",
     "  for (int w = blockIdx.x; w < n_work; w += gridDim.x) {",
-    "  const int grid = static_cast<int>(work < sms ? work : sms);",
+    "  return *err == cudaSuccess ? static_cast<int>(work < sms ? work : sms) : 0;",
+    "  run<kAT, kBT>(&ta, &tb, &tb, nullptr, nullptr, M, N, n_tiles, n_tiles, K, k_split, parts, epi);",
 )
 # The TMA boxes (inner values, rows) of each operand layout and how many a
 # stage loads: A K-contiguous (kAT false), A M-contiguous, B K-contiguous
@@ -91,6 +112,107 @@ def test_shared_memory_and_registers_fit():
     assert PRODUCER_REGS % 8 == 0 and CONSUMER_REGS % 8 == 0 and CONSUMER_REGS <= 255
     assert 2 * 64 < CONSUMER_REGS
     assert STAGES >= FOLD + 2
+
+
+def test_tile_store_staging_fits_beside_the_ring():
+    """The tile-store epilogue's bf16 tile takes the functor epilogue's
+    place: the ring, the tile and the barriers fit in a CTA's shared
+    memory with the ring's full depth; the tile is each consumer's two
+    64 x 64 blocks, each starting on a 1024-byte boundary (the 128-byte
+    swizzle's period) right after the ring."""
+    assert SMEM_TILE <= SMEM_LIMIT
+    assert OUT_BYTES == 2 * CONSUMERS * OUT_BLOCK and OUT_BLOCK % 1024 == 0
+    assert (STAGES * 2 * TILE_BYTES) % 1024 == 0
+    assert SMEM_LIMIT - SMEM_TILE < OUT_BLOCK  # no room for a second tile
+
+
+def test_tma_store_box_is_what_the_hardware_takes():
+    """A store box is 64 columns by 64 rows of bf16: at most 256 a side,
+    its inner side's bytes the 128-byte swizzle's span, its bytes one
+    staging block; a consumer's two boxes cover its 64 rows of the tile's
+    128 columns."""
+    inner, rows = 64, 64
+    assert inner <= 256 and rows <= 256 and inner * 2 == 128
+    assert inner * rows * 2 == OUT_BLOCK
+    assert 2 * inner == BN and rows == BM // CONSUMERS
+
+
+def _staging_address(wq, lane, j, h):
+    """(block, byte) of the pair that lane (g, t) of consumer warp wq
+    writes for acc[4 j + 2 h], acc[4 j + 2 h + 1]: row 16 wq + g + 8 h,
+    columns 8 j + 2 t, + 1; as the kernel computes it."""
+    g, t = lane // 4, lane % 4
+    r = 16 * wq + g + 8 * h
+    return j // 8, r * 128 + ((j % 8) ^ g) * 16 + 4 * t
+
+
+def test_swizzled_staging_writes_every_element_once_where_tma_reads_it():
+    """Each (row, column) of a consumer's 64 x 128 tile is written once, at
+    the byte where a TMA store of a 128-byte swizzled 64 x 64 box reads
+    element (row, column % 64) of block column // 64: 16-byte chunk
+    (column % 64) / 8 of row r moved to chunk ((column % 64) / 8) ^ (r %
+    8)."""
+    seen = {}
+    for wq in range(4):
+        for lane in range(32):
+            g, t = lane // 4, lane % 4
+            for j in range(BN // 8):
+                for h in range(2):
+                    r, col = 16 * wq + g + 8 * h, 8 * j + 2 * t
+                    where = _staging_address(wq, lane, j, h)
+                    assert where not in seen, where
+                    seen[where] = (r, col)
+                    c = col % 64
+                    assert where == (col // 64, r * 128 + ((c // 8) ^ (r % 8)) * 16 + (c % 8) * 2)
+    assert len(seen) == 64 * BN // 2
+
+
+def test_swizzled_staging_writes_have_no_bank_conflict():
+    """Each 4-byte store a warp issues (fixed j and h) touches 32
+    different banks."""
+    for wq in range(4):
+        for j in range(BN // 8):
+            for h in range(2):
+                banks = {_staging_address(wq, lane, j, h)[1] // 4 % 32 for lane in range(32)}
+                assert len(banks) == 32
+
+
+def _walk_outputs(m, widths):
+    """{(output, m0, n0)} of the tile-store launch's work items over one or
+    two outputs of the given widths (``work_of<true>`` with n_tiles0 = the
+    first output's n-tiles, ``bias_products``), each CTA taking items
+    blockIdx.x, + gridDim.x, ...; raises if an item is taken twice."""
+    tiles = [-(-n // BN) for n in widths]
+    n_tiles, n_tiles0 = sum(tiles), tiles[0]
+    n_work = -(-m // BM) * n_tiles
+    grid = min(n_work, SMS)
+    seen = set()
+    for cta in range(grid):
+        for w in range(cta, n_work, grid):
+            r = w % n_work
+            j = r % n_tiles
+            which = 0 if j < n_tiles0 else 1
+            key = (which, r // n_tiles * BM, (j - which * n_tiles0) * BN)
+            assert key not in seen, f"{key} taken twice"
+            seen.add(key)
+    return seen
+
+
+@pytest.mark.parametrize("c,heads", [(64, 2), (512, 8), (512, 4), (1024, 8)])
+@pytest.mark.parametrize("r", [400, 1031, 50176])
+def test_fused_projection_walk_covers_q_and_kv_once(r, c, heads):
+    """The block's q (E = C) and [k | v] (E + O = 2C) in one launch: every
+    (m-tile, n-tile) of each output once; the y product (one output, C'
+    = C) likewise; a tile's second 64-column box is stored only inside
+    the output's width (C = 64: q's one box)."""
+    for widths in ((c, 2 * c), (c,)):
+        seen = _walk_outputs(r, widths)
+        want = {(i, m0, n0) for i, n in enumerate(widths) for m0 in range(0, r, BM)
+                for n0 in range(0, n, BN)}
+        assert seen == want
+        boxes = {(i, n0 + 64 * h) for i, _, n0 in seen for h in range(2)
+                 if n0 + 64 * h < widths[i]}
+        assert boxes == {(i, c0) for i, n in enumerate(widths) for c0 in range(0, n, 64)}
 
 
 @pytest.mark.parametrize("layout", sorted(BOXES))

@@ -1596,15 +1596,68 @@ def test_bf16_gemm_refuses_what_it_does_not_take(dev):
 
 
 def test_bf16_gemm_plan_mirrors_the_kernel(dev):
-    """test_torch_gemm_plan.SMEM, which the CPU plan tests hold to the
-    card's limit, is what the kernel asks for."""
+    """test_torch_gemm_plan.SMEM and SMEM_TILE, which the CPU plan tests
+    hold to the card's limit, are what the kernel asks for with a functor
+    epilogue and with the tile-store one."""
     import ctypes
 
-    from test_torch_gemm_plan import SMEM
+    from test_torch_gemm_plan import SMEM, SMEM_TILE
 
     fn = mlp_cuda._build.load("wgemm_check").wgemm_smem
-    fn.argtypes, fn.restype = [], ctypes.c_int
-    assert fn() == SMEM
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    assert (fn(0), fn(1)) == (SMEM, SMEM_TILE)
+
+
+def _wgemm_bias(a, ws, biases, outs):
+    """The tile-store test entry: outs[i] = bf16(a ws[i] + biases[i]) for
+    one or two outputs in one launch; returns its error code."""
+    import ctypes
+
+    lib = mlp_cuda._build.load("wgemm_check")
+    fn = mlp_cuda._build.declare(lib.wgemm_bias_check, [ctypes.c_void_p, ctypes.c_int,
+                                                        ctypes.c_int, ctypes.c_int]
+                                 + ([ctypes.c_void_p] * 3 + [ctypes.c_int]) * 2
+                                 + [ctypes.c_void_p])
+    m, k = a.shape
+    args = []
+    for i in range(2):
+        if i < len(ws):
+            args += [ws[i].data_ptr(), biases[i].data_ptr(), outs[i].data_ptr(),
+                     ws[i].shape[1]]
+        else:
+            args += [None, None, None, 0]
+    err = fn(a.data_ptr(), m, k, len(ws), *args, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    return err
+
+
+@pytest.mark.parametrize("m,k,widths", [(400, 512, (64, 128)), (1031, 64, (512, 1024)),
+                                        (8, 8, (8,)), (257, 520, (136, 264)),
+                                        (6272, 512, (512,))])
+def test_bf16_gemm_tile_store_is_the_functor_epilogues_bits(dev, m, k, widths):
+    """The tile-store epilogue (bias_products: the attention block's
+    products, two outputs walked in one launch) writes bf16(f32 sum +
+    bias), bit for bit the functor epilogue's f32 sums of the same product
+    plus the bias, rounded once to nearest even; it writes nothing past an
+    output's last row (a guard row stays NaN); two calls give the same
+    bits."""
+    gen = torch.Generator().manual_seed(m + k)
+    a = torch.randn((m, k), generator=gen).to(dev, torch.bfloat16)
+    ws = [(torch.randn((k, n), generator=gen) / k ** 0.5).to(dev, torch.bfloat16)
+          for n in widths]
+    biases = [torch.randn((n,), generator=gen).to(dev, torch.bfloat16) for n in widths]
+    guarded = [torch.full((m + 1, n), float("nan"), device=dev, dtype=torch.bfloat16)
+               for n in widths]
+    assert _wgemm_bias(a, ws, biases, guarded) == 0
+    again = [torch.empty((m, n), device=dev, dtype=torch.bfloat16) for n in widths]
+    assert _wgemm_bias(a, ws, biases, again) == 0
+    k_split = -(-k // 64) * 64
+    for w, bias, out, out2 in zip(ws, biases, guarded, again):
+        err, sums = _wgemm(a, w, 0, 0, 1, k_split)
+        assert err == 0
+        want = (sums[0] + bias.float()).to(torch.bfloat16)
+        assert torch.equal(out[:m], want) and torch.equal(out2, want)
+        assert bool(out[m].isnan().all())
 
 
 def test_bf16_wrappers_raise_before_launch(dev):
@@ -1679,7 +1732,8 @@ def test_large_config_bf16_train_step_runs_only_bf16_kernels(dev, tmp_path):
                for p in model.parameters())
 
 
-# The bf16 modes of PixelSNAIL's flash pairs (the SIMT passes), of the VQ
+# The bf16 modes of PixelSNAIL's flash pairs (the forward's SIMT pass, the
+# backward on bf16 mma.sync), of the VQ
 # kernel and of the fused attention block.
 
 @pytest.mark.parametrize("mask_center", [False, True])
@@ -1743,6 +1797,28 @@ def test_vq_bf16_kernel_equals_the_f32_kernel_on_widened_rows(dev, m, k, d):
     assert torch.equal(qb, pq) and torch.equal(cb_counts, pc)
 
 
+@pytest.mark.parametrize("d_k,d_v", [(4, 32), (4, 8)])
+def test_flash_bf16_small_pairs_take_any_view(dev, d_k, d_v):
+    """The (4, 32) / (4, 8) bf16 backward reads an operand whose start or
+    strides are off 8 bytes 2 bytes a load, any other 8 bytes a load: on
+    views 2 bytes off every boundary (q, k and v column views at odd
+    offsets) it gives the bits it gives on contiguous copies of them."""
+    b, l = 3, 200
+    q = _bf16(_rand((b, l, d_k + 1), 5, dev))[..., 1:]
+    kv = _bf16(_rand((b, l, d_k + d_v + 1), 6, dev))
+    k, v = kv[..., 1:1 + d_k], kv[..., 1 + d_k:]
+    dout = _bf16(_rand((b, l, d_v), 7, dev))
+    dense = [t.contiguous() for t in (q, k, v)]
+    out, lse = attention_cuda.flash_forward(*dense, True, 1)
+    got = attention_cuda.flash_backward(q, k, v, out, lse, dout, True, 1)
+    want = attention_cuda.flash_backward(*dense, out, lse, dout, True, 1)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, want))
+    ref = attention_cuda.flash_backward_plain(*dense, out, lse, dout, True, 1)
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        _assert_bf16(g, r, BF16_TOL, name)
+
+
 # The bf16 block's lse against the plain version's, as a share of the
 # largest |lse|: the two round q and k to bf16 from f32 sums taken in other
 # orders, so an element may land one bf16 step apart and move the scores.
@@ -1788,6 +1864,94 @@ def test_attn_block_bf16_kernel_matches_plain(dev, c, n_heads, l, mask_center):
         _assert_bf16(got, ref, BF16_TOL, name)
     if mask_center:
         assert bool((attn[:, 0] == 0).all()) and bool(torch.isneginf(lse[:, :, 0]).all())
+
+
+# SHA-256 of the bf16 block's outputs and of the fused MLP's bf16 outputs at
+# fixed inputs, as the kernels gave them on an H100 before the block's
+# products moved to the GEMM's tile-store epilogue and q and [k | v] into
+# one launch: each output is still summed by one thread in k order, so
+# every bit stays. Block cases (C, heads, mask_center) at B 2, L 200 (400
+# rows: a ragged last 128-row tile; C 64's q half an n-tile): y, attn, lse
+# and the projection entry's q and kv. MLP at R 4,097, C 512: the
+# forward's out and y; the saved-y backward's seven gradients.
+BF16_DIGESTS = {
+    "block C64 H2 mask_center":
+        "44d92ec3aa7122ec1139a8c81a05c060e53655d1f8317ffd1d3652fc4b64a11d",
+    "block C512 H8":
+        "b755cfd87a012b4a6c6cda85e6a5b8497557e8daf3451c199c23147fb3d90135",
+    "block C512 H4 mask_center":
+        "42ea6604d61d7a6d54c49f1a67236ce4219a38617ba2e0b2fb78896efe961960",
+    "mlp C512 forward":
+        "6cf99f526ae3364a2d38d1227afbd2bf6b9f953b02eb33f761f28c460fc9a3d0",
+    "mlp C512 backward":
+        "b7bb8ae69104a8e75e8d690eab83075747f2a1ff32469440badabf078c9c026c",
+}
+
+
+def _digest(*tensors):
+    h = hashlib.sha256()
+    for t in tensors:
+        t = t.detach().cpu().contiguous()
+        h.update((t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _bf16_case_outputs(case, dev):
+    """The outputs BF16_DIGESTS holds for one case, from inputs made from
+    fixed seeds."""
+    if case.startswith("block"):
+        _, c, h, *mc = case.split()
+        c, n_heads = int(c[1:]), int(h[1:])
+        ops = [_bf16(t) for t in _block_inputs(2, 200, c, dev, seed=c + n_heads)]
+        y, attn, lse = attn_block_cuda.attention_block_forward(*ops, bool(mc), n_heads)
+        return (y, attn, lse, *attn_block_cuda.project(*ops[:5]))
+    r, c = 4097, 512
+    x, gamma, beta, w1, b1, w2, b2 = (_bf16(t) for t in _mlp_inputs(r, c, dev, seed=5))
+    out, y = mlp_cuda.ln_mlp_forward(x, gamma, beta, w1, b1, w2, b2, 1e-5)
+    if case.endswith("forward"):
+        return out, y
+    dout = _bf16(_rand((r, c), 11, dev))
+    return mlp_cuda.ln_mlp_backward(x, dout, y, gamma, beta, w1, b1, w2, 1e-5)
+
+
+def _graph_kernels(fn):
+    """The kernel launches of one call of fn: the kernel nodes of a CUDA
+    graph captured from it."""
+    import ctypes
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn()
+    rt = ctypes.CDLL("libcudart.so.12")
+    graph, count = ctypes.c_void_p(g.raw_cuda_graph()), ctypes.c_size_t(0)
+    assert rt.cudaGraphGetNodes(graph, None, ctypes.byref(count)) == 0
+    nodes = (ctypes.c_void_p * count.value)()
+    assert rt.cudaGraphGetNodes(graph, nodes, ctypes.byref(count)) == 0
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert rt.cudaGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0
+        kinds.append(kind.value)
+    return kinds.count(0)  # cudaGraphNodeTypeKernel
+
+
+@pytest.mark.parametrize("c,n_heads", BLOCK_WIDTHS)
+def test_bf16_block_is_three_launches_and_its_recompute_one(dev, c, n_heads):
+    """The bf16 block's forward launches 3 kernels (q and [k | v] in one
+    product, the attention, the output projection) and its projection
+    entry, the backward's recompute, 1."""
+    ops = [_bf16(t) for t in _block_inputs(2, 200, c, dev)]
+    assert _graph_kernels(lambda: attn_block_cuda.attention_block_forward(*ops, False,
+                                                                          n_heads)) == 3
+    assert _graph_kernels(lambda: attn_block_cuda.project(*ops[:5])) == 1
+
+
+@pytest.mark.parametrize("case", list(BF16_DIGESTS))
+def test_bf16_block_and_mlp_outputs_keep_their_bits(dev, case):
+    digest = _digest(*_bf16_case_outputs(case, dev))
+    assert digest == BF16_DIGESTS[case], f"{case}: {digest}"
 
 
 def _zero_counts(*mods):

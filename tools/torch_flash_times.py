@@ -6,6 +6,8 @@ checkouts can be compared in one run:
     python3 tools/torch_flash_times.py CHECKOUT LABEL --vq [--steps] [--stages]
     python3 tools/torch_flash_times.py CHECKOUT LABEL --bf16 [--dump FILE] [--stages]
     python3 tools/torch_flash_times.py CHECKOUT LABEL --bf16-mlp [--dump FILE]
+    python3 tools/torch_flash_times.py CHECKOUT LABEL --bf16-block
+    python3 tools/torch_flash_times.py CHECKOUT LABEL --bf16-snail
     python3 tools/torch_flash_times.py --compare FILE_A FILE_B
 
 CHECKOUT is the root of a checkout (its ``pytorch_generative_tpu_torch`` is
@@ -82,6 +84,22 @@ and 1024, which ``--compare`` holds at ``chip_smoke.py``'s bf16 gates
 (2^-7 of max(1, the largest magnitude) for out, y and dx,
 BF16_MLP_SUM_RTOL = 5e-4 for the f32 parameter sums), and ends with
 whether every f32 entry kept its bits.
+``--bf16-block`` times the fused attention block's bf16 mode (row "9
+bf16") at (B 64, L 784) for C 64 / 2 heads, C 512 / 8 and C 512 / 4: the
+forward and its projection entry (the backward's recompute), 20 calls
+after 3 warm-ups, beside the bf16 composition addmm -> causal SDPA ->
+addmm; the card's time of each kernel a forward and a projection call
+launch (torch.profiler over 20 calls), with the projection GEMM's TFLOP/s
+(2 B L C (2E + O) operations) and that of the forward's output
+projection (its GEMM time less the projection's, 2 B L E C'); the
+wrappers' host time a call; then the registers and spills of the
+checkout's bf16 GEMM instances in attn_block_fwd.
+``--bf16-snail`` times PixelSNAIL's bf16 flash pairs (rows "1 bf16 (4,
+32)" and "2 bf16 (4, 32)", and (4, 8)) at (B 128, L 784, H 1,
+mask_center), k and v column views of one kv tensor: forward and
+backward, 20 calls after 3, beside bf16 masked SDPA and autograd.grad
+through it; the card's time of each kernel a backward call launches; the
+registers and spills of the checkout's flash_bwd kernels.
 ``--vq`` times the fused vector-quantization kernel (row 8 of PERF.md,
 ``ops/vq_cuda.py``) instead, at the VQ-VAE reproduce() shape (M 8192 rows,
 K 512 codes, D 64) on three inputs: rows and codebook drawn from N(0, 1)
@@ -337,6 +355,128 @@ def bf16_stages(ac, dev):
     return lines
 
 
+def _host_us(fn, n=200):
+    """The host time a call of fn, in microseconds: n calls in a row, then
+    one synchronize."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - start) / n * 1e6
+
+
+def _kernel_ms(fn, n=20):
+    """{kernel: (ms a call, launches a call)} of each kernel fn launches,
+    the card's time from torch.profiler over n calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.replace("(anonymous namespace)::", "").split("(")[0][:90]:
+            (e.self_device_time_total / 1e3 / n, e.count / n) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)}
+
+
+def bf16_block_main(label, dev, time_ms):
+    """Row "9 bf16": the block's forward and recompute beside the bf16
+    composition, by kernel with the GEMMs' TFLOP/s, host time a call and
+    the GEMM instances' registers and spills."""
+    import torch
+    import torch.nn.functional as F
+
+    from pytorch_generative_tpu_torch.ops import _build, attn_block_cuda
+
+    bf = torch.bfloat16
+    b, l = 64, 784
+    for c, h in BLOCK_WIDTHS:
+        ops = [t.to(bf) for t in _block_operands(b, l, c, 0, dev)]
+        x, wq, bq, wkv, bkv, wo, bo = ops
+        fwd = lambda: attn_block_cuda.attention_block_forward(*ops, False, h)  # noqa: E731
+        proj = lambda: attn_block_cuda.project(*ops[:5])  # noqa: E731
+
+        def composition():
+            x2 = x.reshape(-1, c)
+            q = torch.addmm(bq, x2, wq).view(b, l, h, -1).transpose(1, 2)
+            kv = torch.addmm(bkv, x2, wkv).view(b, l, 2, h, -1)
+            att = F.scaled_dot_product_attention(q, kv[:, :, 0].transpose(1, 2),
+                                                 kv[:, :, 1].transpose(1, 2), is_causal=True)
+            return torch.addmm(bo, att.transpose(1, 2).reshape(b * l, c), wo)
+
+        times = {"forward": time_ms(fwd), "recompute": time_ms(proj),
+                 "bf16 composition": time_ms(composition)}
+        by_fwd, by_proj = _kernel_ms(fwd), _kernel_ms(proj)
+        gemm = lambda by: sum(ms for k_, (ms, _) in by.items() if "gemm" in k_)  # noqa: E731
+        proj_ms, fwd_gemm_ms = gemm(by_proj), gemm(by_fwd)
+        proj_flops, out_flops = 2 * b * l * c * 3 * c, 2 * b * l * c * c
+        rates = (f"projection GEMMs {proj_ms:.4f} ms a call, {proj_flops / proj_ms / 1e9:.1f} "
+                 f"TFLOP/s; output projection {fwd_gemm_ms - proj_ms:.4f} ms, "
+                 f"{out_flops / max(fwd_gemm_ms - proj_ms, 1e-9) / 1e9:.1f} TFLOP/s")
+        print(f"bf16 block times {label} (C {c}, H {h}, B {b}, L {l}) [{_card()}] ms: "
+              + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in times.items()) + f"; {rates}; "
+              "forward by kernel: " + ", ".join(
+                  f"{k_} {ms:.4f} ms ({n:g}x)" for k_, (ms, n) in by_fwd.items())
+              + "; recompute by kernel: " + ", ".join(
+                  f"{k_} {ms:.4f} ms ({n:g}x)" for k_, (ms, n) in by_proj.items()), flush=True)
+        del ops
+    ops = [t.to(bf) for t in _block_operands(1, 64, 512, 0, dev)]
+    print(f"bf16 block host time a call {label} (B 1, L 64, C 512, H 8): forward "
+          f"{_host_us(lambda: attn_block_cuda.attention_block_forward(*ops, False, 8)):.1f} "
+          f"us, recompute {_host_us(lambda: attn_block_cuda.project(*ops[:5])):.1f} us",
+          flush=True)
+    lines = [ln for ln in _ptxas(attn_block_cuda, "attn_block_fwd") if "wgemm" in ln]
+    log = _build.library_path("attn_block_fwd").with_suffix(".log").read_text()
+    c7514 = [ln.strip() for ln in log.splitlines() if "C7514" in ln]
+    print(f"attn_block_fwd bf16 GEMM ptxas {label}: " + " | ".join(lines) + " | "
+          + (" | ".join(c7514) if c7514 else "no C7514"), flush=True)
+
+
+def bf16_snail_main(ac, label, dev, time_ms):
+    """PixelSNAIL's bf16 flash pairs beside bf16 masked SDPA, the backward
+    by kernel, and the flash_bwd kernels' registers and spills."""
+    import torch
+    import torch.nn.functional as F
+
+    from pytorch_generative_tpu_torch.ops.masks import causal_attention_mask
+
+    b, l = 128, 784
+    mask = causal_attention_mask(l, True, device=dev)
+    for d_k, d_v in ((4, 32), (4, 8)):
+        q, k, v, do = (t.to(torch.bfloat16) for t in _operands(b, l, 1, d_k, d_v, 0, dev))
+        o, lse = ac.flash_forward(q, k, v, True, 1)
+        bwd = lambda: ac.flash_backward(q, k, v, o, lse, do, True, 1)  # noqa: E731
+        f = time_ms(lambda: ac.flash_forward(q, k, v, True, 1))
+        bw = time_ms(bwd)
+        q4, k4, v4 = (ac._unpack(t, 1).contiguous().requires_grad_() for t in (q, k, v))
+        do4 = ac._unpack(do, 1).contiguous()
+
+        def sdpa():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+
+        ref = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+        lib_f = time_ms(sdpa)
+        lib_b = time_ms(lambda: torch.autograd.grad(ref, (q4, k4, v4), do4, retain_graph=True))
+        print(f"bf16 snail flash times {label} (B {b}, L {l}, H 1, d_k {d_k}, d_v {d_v}, "
+              f"mask_center) [{_card()}]: fwd {f:.4f} ms bwd {bw:.4f} ms, bf16 masked SDPA fwd "
+              f"{lib_f:.4f} ms autograd.grad {lib_b:.4f} ms; bwd by kernel: " + ", ".join(
+                  f"{k_} {ms:.4f} ms ({n:g}x)" for k_, (ms, n) in _kernel_ms(bwd).items()),
+              flush=True)
+        del q, k, v, do, o, lse, q4, k4, v4, do4, ref
+    print(f"{ac.BWD_KERNEL} ptxas {label}: " + " | ".join(
+        ln for ln in _ptxas(ac, ac.BWD_KERNEL) if "mma" not in ln or "smma" in ln), flush=True)
+
+
 def _bf16_outputs(ac, dev):
     """The bf16 flash kernels' outputs and their plain versions at (B 4, L
     200, H 2) for BF16_DIMS, with and without mask_center."""
@@ -484,7 +624,8 @@ def _outputs(ac, dev):
     return results
 
 
-def main(checkout, label, dump=None, steps=False, vq=False, stages=False, bf16=False, bf16_mlp=False):
+def main(checkout, label, dump=None, steps=False, vq=False, stages=False, bf16=False,
+         bf16_mlp=False, bf16_block=False, bf16_snail=False):
     sys.path.insert(0, checkout)
     import torch
 
@@ -509,6 +650,12 @@ def main(checkout, label, dump=None, steps=False, vq=False, stages=False, bf16=F
 
     if vq:
         vq_main(label, dev, time_ms, steps, stages)
+        return
+    if bf16_block:
+        bf16_block_main(label, dev, time_ms)
+        return
+    if bf16_snail:
+        bf16_snail_main(ac, label, dev, time_ms)
         return
     if bf16_mlp:
         bf16_mlp_main(label, dev, time_ms)
@@ -1003,6 +1150,8 @@ if __name__ == "__main__":
         parser.add_argument("--stages", action="store_true")
         parser.add_argument("--bf16", action="store_true")
         parser.add_argument("--bf16-mlp", action="store_true")
+        parser.add_argument("--bf16-block", action="store_true")
+        parser.add_argument("--bf16-snail", action="store_true")
         args = parser.parse_args()
         main(args.checkout, args.label, args.dump, args.steps, args.vq, args.stages, args.bf16,
-             args.bf16_mlp)
+             args.bf16_mlp, args.bf16_block, args.bf16_snail)
