@@ -366,12 +366,13 @@ def bound(flops, nbytes, rate=F32_FLOPS):
 def flash_bounds(b, l, n_heads, d_k, d_v, mask_center, backward=False):
     """(route's bound, f32 bound, 3xTF32 bound) of a flash kernel, each
     (ms, what binds). The route's bound is the 3xTF32 one for the d_k ==
-    d_v instances, which run every product on the tensor cores, and the
-    f32 one for the others (d_k = 4 is under one mma's depth)."""
+    d_v instances and for every backward, which run every product on the
+    tensor cores, and the f32 one for the (4, 32) / (4, 8) forward (the
+    SIMT pass on the CUDA cores)."""
     flops = flash_work(b, l, n_heads, d_k, d_v, mask_center, backward)
     nbytes = flash_bytes(b, l, n_heads, d_k, d_v, backward)
     f32, tc = bound(flops, nbytes), bound(flops, nbytes, TF32X3_FLOPS)
-    return (tc if d_k == d_v else f32), f32, tc
+    return (tc if d_k == d_v or backward else f32), f32, tc
 
 
 def flash_bounds_text(b, l, n_heads, d_k, d_v, mask_center, backward=False):
@@ -379,7 +380,7 @@ def flash_bounds_text(b, l, n_heads, d_k, d_v, mask_center, backward=False):
     _, f32, tc = flash_bounds(b, l, n_heads, d_k, d_v, mask_center, backward)
     f32_text = f"f32 bound {f32[0]:.4f} ms ({f32[1]})"
     tc_text = f"3xTF32 bound {tc[0]:.4f} ms ({tc[1]})"
-    return f"{tc_text}, {f32_text}" if d_k == d_v else f"{f32_text}, {tc_text}"
+    return f"{tc_text}, {f32_text}" if d_k == d_v or backward else f"{f32_text}, {tc_text}"
 
 
 def check_flash_deterministic(q, k, v, dout, mask_center, n_heads, out, lse, grads, label):
@@ -834,7 +835,9 @@ def profile_steps(step, n_steps, step_ms, what, per_call, label, smi, focus, hos
     (user annotations dropped: Optimizer.step also carries a device range
     and would count its kernels twice), the device's idle share of the
     unprofiled call, the share of the kernels whose names hold one of
-    ``focus`` and, with ``host``, the PyTorch ops' self CPU time."""
+    ``focus`` and, with ``host``, the PyTorch ops' self CPU time. Returns
+    a function of names: the ms a call of the kernels whose names hold any
+    of them, and their share of the kernel time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -873,6 +876,12 @@ def profile_steps(step, n_steps, step_ms, what, per_call, label, smi, focus, hos
               f"{sum(r[1] for r in ops) / n_steps:.3f} ms/call; top: " + ", ".join(
                   f"{key} {ms / n_steps:.3f} ms/{count // n_steps}" for key, ms, count in ops[:8]),
               flush=True)
+
+    def share(*names):
+        ms = sum(r[1] for r in rows if any(n in r[0] for n in names)) / n_steps
+        return ms, 100 * ms / device_ms
+
+    return share
 
 
 def wide_phases(dev, gen, smi, reset_counts, read_counts):
@@ -1312,8 +1321,10 @@ def pixel_snail_phases(dev, gen, smi, reset_counts, read_counts):
     """PixelSNAIL at its reproduce() config: 28x28x1, C = 64, 8 blocks of 2
     residual blocks, one attention head with d_k 4, d_v 32 and mask_center,
     batch 128, adam_multiplicative(1e-3, 0.999977). Returns the flash
-    kernels' largest errors here, the launch counts of the runs of its main
-    path, and the snail_loop kernel's entry of the per-kernel summary."""
+    forward's largest error here, the launch counts of the runs of its main
+    path, and the per-kernel summary's entries of the snail_loop kernel and
+    of the f32 (4, 32) flash backward (3xTF32 mma.sync, with its launches
+    in the train run)."""
     from pytorch_generative_tpu_torch import datasets, optim, trainer
     from pytorch_generative_tpu_torch.models import PixelSNAIL
     from pytorch_generative_tpu_torch.models.autoregressive import pixel_snail
@@ -1350,6 +1361,8 @@ def pixel_snail_phases(dev, gen, smi, reset_counts, read_counts):
     check(bool((out[:, 0] == 0).all()) and bool(torch.isneginf(lse[:, :, 0]).all())
           and bool((grads[0][:, 0] == 0).all()),
           "row 0 under mask_center is not out 0, lse -inf, dq 0 at d_k 4, d_v 32")
+    check_flash_deterministic(q, k, v, dout, True, 1, out, lse, grads,
+                              f"PixelSNAIL (d_k={s_dk}, d_v={s_dv})")
     snail_flash_times = flash_times(q, k, v, dout, 1, mask_center=True)
     del q, kv, dout, k, v, out, lse, ref_out, ref_lse, grads
 
@@ -1542,10 +1555,13 @@ def pixel_snail_phases(dev, gen, smi, reset_counts, read_counts):
     s_step_ms = time_ms(s_step, 5, 2)
     # cuDNN's convolutions show as xmma GEMMs, FFTs, filter flips and
     # layout transforms; the rest is PyTorch's elementwise and reductions.
-    profile_steps(s_step, 2, s_step_ms, f"train step batch {SNAIL_BATCH}",
-                  (SNAIL_BATCH, "samples"), "step PixelSNAIL", smi,
-                  ("flash_bwd", "flash_fwd", "xmma", "fft", "flip_filter", "cudnn",
-                   "elementwise", "reduce_kernel"))
+    share = profile_steps(s_step, 2, s_step_ms, f"train step batch {SNAIL_BATCH}",
+                          (SNAIL_BATCH, "samples"), "step PixelSNAIL", smi,
+                          ("fsmall::dq_kernel", "fsmall::dkdv_kernel", "flash_fwd", "xmma", "fft",
+                           "flip_filter", "cudnn", "elementwise", "reduce_kernel"))
+    flash_ms, flash_pct = share("fsmall::", "flash_fwd")
+    print(f"phase step PixelSNAIL [{smi}]: the flash kernels (fsmall:: backward, SIMT forward) "
+          f"{flash_ms:.3f} ms a step, {flash_pct:.1f}% of kernel time", flush=True)
     del snail_trainer
     s_weights = sdc.stack_pixel_snail_weights(snail)
     s_weight_bytes = 4 * sum(t.numel() for t in s_weights.values())
@@ -1574,9 +1590,19 @@ def pixel_snail_phases(dev, gen, smi, reset_counts, read_counts):
                   (SNAIL_N[0], "images"), "profile sample PixelSNAIL", smi, ("snail_loop",),
                   host=True)
 
+    bwd_bounds = flash_bounds(SNAIL_BATCH, l, 1, s_dk, s_dv, True, backward=True)
     return {
-        "flash_err": e_out, "bwd_err": max(e_grads),
+        "flash_err": e_out,
         "counts": [snail_serve_counts, *snail_sample_counts, snail_train_counts],
+        "bwd_launches": snail_train_counts[attention_cuda.BWD_KERNEL],
+        "bwd_kernel": {"name": f"{attention_cuda.BWD_KERNEL} 4x32", "route": "cuda",
+                       "source": "pytorch_generative_tpu_torch/csrc/flash_bwd_mma_small.cuh",
+                       "replaces": "pytorch_generative_tpu/ops/attention_pallas.py:205",
+                       "launches": snail_train_counts[attention_cuda.BWD_KERNEL],
+                       "max_abs_err": max(e_grads), "ms": st["bwd"], "plain_ms": st["bwd_plain"],
+                       "bound_ms": bwd_bounds[0][0], "bound_by": bwd_bounds[0][1],
+                       "library_ms": st["bwd_lib"], "bound_f32_ms": bwd_bounds[1][0],
+                       "instances": ["4x32", "4x8"]},
         "kernel": {"name": sdc.KERNEL, "route": "cuda",
                    "source": "pytorch_generative_tpu_torch/csrc/snail_loop.cu",
                    "replaces": "pytorch_generative_tpu/ops/snail_decode_pallas.py:71",
@@ -2427,7 +2453,7 @@ def bf16_slice_phases(dev, gen, smi, reset_counts, read_counts):
     """The last three paths under Trainer(compute_dtype=torch.bfloat16), at
     full width: (P1) PixelSNAIL at its reproduce() config, batch 128, whose
     attention runs the flash kernels' bf16 mode at (d_k, d_v) = (4, 32)
-    (the forward's SIMT pass, the backward on bf16 mma.sync); (P2) VQ-VAE at
+    (forward and backward on bf16 mma.sync); (P2) VQ-VAE at
     its reproduce() config, batch 128, on the fused route (PGT_FUSED_VQ=1,
     the vq kernel's bf16 rows) and the unfused one; (P3) ImageGPT with the
     fused attention block (PGT_FUSED_ATTN=1, its bf16 entries) at C = 64
@@ -2522,20 +2548,18 @@ def bf16_slice_phases(dev, gen, smi, reset_counts, read_counts):
     check(all(e[0] <= BF16_TOL * max(1.0, e[1]) for e in e_grads),
           "the bf16 flash backward disagrees with its plain version at (4, 32)")
     st = flash_times(q, k, v, dout, 1, mask_center=True)
-    # The bound at the bf16 operands' rate (989 TFLOP/s) and bytes; the
-    # forward's route's own, f32 arithmetic on the CUDA cores, beside it.
+    # The bound at the bf16 operands' rate (989 TFLOP/s) and bytes: both
+    # run on bf16 mma.sync.
     works = {"fwd": (flash_work(SNAIL_BATCH, l, 1, s_dk, s_dv, True),
                      2 * SNAIL_BATCH * l * (2 * s_dk + 2 * s_dv) + 4 * SNAIL_BATCH * l),
              "bwd": (flash_work(SNAIL_BATCH, l, 1, s_dk, s_dv, True, backward=True),
                      2 * SNAIL_BATCH * l * (4 * s_dk + 4 * s_dv) + 4 * SNAIL_BATCH * l)}
-    sb = {k_: (bound(*w_, BF16_FLOPS), bound(*w_)) for k_, w_ in works.items()}
+    sb = {k_: bound(*w_, BF16_FLOPS) for k_, w_ in works.items()}
     print(f"phase bf16 times flash PixelSNAIL [{smi}]: " + "; ".join(
         f"flash_{k_}_bf16 (4, 32) kernel {st[k_]:.4f}/{st[k_ + '2']:.4f} ms, plain "
         f"{st[k_ + '_plain']:.4f} ms, "
         + ("bf16 masked SDPA" if k_ == "fwd" else "bf16 masked SDPA autograd.grad")
-        + f" {st[k_ + '_lib']:.4f} ms, bf16 bound {b_[0][0]:.4f} ms ({b_[0][1]})"
-        + (f", f32 bound {b_[1][0]:.4f} ms ({b_[1][1]}, the route's CUDA cores)"
-           if k_ == "fwd" else " (bf16 mma.sync)")
+        + f" {st[k_ + '_lib']:.4f} ms, bf16 bound {b_[0]:.4f} ms ({b_[1]}, bf16 mma.sync)"
         for k_, b_ in sb.items()), flush=True)
     del q, kv, dout, k, v, out, lse, grads, ref_out, ref_lse, ref_grads
     # Phase S2: a bf16 Trainer epoch at batch 128 (BF16_TRAIN_STEPS steps
@@ -2553,11 +2577,14 @@ def bf16_slice_phases(dev, gen, smi, reset_counts, read_counts):
     snail_ms = time_ms(lambda: t.train_one_step(xb, None), BF16_TIMED_STEPS, 1)
     print(f"phase bf16 step PixelSNAIL batch {SNAIL_BATCH} [{smi}]: {snail_ms:.2f} ms a step, "
           f"{SNAIL_BATCH * 1000 / snail_ms:.1f} samples/s", flush=True)
-    profile_steps(lambda: t.train_one_step(xb, None), 2, snail_ms,
-                  f"bf16 train step batch {SNAIL_BATCH}", (SNAIL_BATCH, "samples"),
-                  "profile bf16 step PixelSNAIL", smi,
-                  ("smma::", "flash_fwd", "xmma", "cudnn", "elementwise", "reduce_kernel"),
-                  host=True)
+    share = profile_steps(lambda: t.train_one_step(xb, None), 2, snail_ms,
+                          f"bf16 train step batch {SNAIL_BATCH}", (SNAIL_BATCH, "samples"),
+                          "profile bf16 step PixelSNAIL", smi,
+                          ("smma::fwd_kernel", "smma::dq_kernel", "smma::dkdv_kernel", "xmma",
+                           "cudnn", "elementwise", "reduce_kernel"), host=True)
+    flash_ms, flash_pct = share("smma::")
+    print(f"phase bf16 step PixelSNAIL [{smi}]: the flash kernels (smma::) {flash_ms:.3f} ms a "
+          f"step, {flash_pct:.1f}% of kernel time", flush=True)
     del t, snail
     bf16_against_cpu("PixelSNAIL", lambda where: PixelSNAIL(
         **scfg, generator=torch.Generator().manual_seed(SEED + 7), device=where),
@@ -2566,17 +2593,16 @@ def bf16_slice_phases(dev, gen, smi, reset_counts, read_counts):
          for _ in range(3)], dev, key_bias=("attention.kv_proj.bias", s_dk))
     for name, lib, line in ((attention_cuda.BF16_KERNEL, "fwd", 100),
                             (attention_cuda.BF16_BWD_KERNEL, "bwd", 205)):
-        b_, b32 = sb[lib]
+        b_ = sb[lib]
         kernels.append({
             "name": f"{name} 4x32", "route": "cuda",
-            "source": src + ("flash_fwd.cuh" if lib == "fwd" else "flash_bwd_mma_bf16.cuh"),
+            "source": src + ("flash_fwd_small_bf16.cuh" if lib == "fwd"
+                             else "flash_bwd_mma_bf16.cuh"),
             "replaces": f"pytorch_generative_tpu/ops/attention_pallas.py:{line}",
             "launches": snail_launches[lib == "bwd"],
             "max_abs_err": e_out[0] if lib == "fwd" else max(e[0] for e in e_grads),
             "ms": st[lib], "plain_ms": st[f"{lib}_plain"], "bound_ms": b_[0],
-            "bound_by": b_[1], "library_ms": st[f"{lib}_lib"],
-            **({"bound_f32_ms": b32[0]} if lib == "fwd" else {}),
-            "instances": ["4x32", "4x8"]})
+            "bound_by": b_[1], "library_ms": st[f"{lib}_lib"], "instances": ["4x32", "4x8"]})
 
     # ---- P2: VQ-VAE. ----
     vcfg = vq_vae.REPRODUCE_CONFIG
@@ -3519,7 +3545,6 @@ def main():
     # ---- PixelSNAIL (pixel_snail_phases). ----
     snail = pixel_snail_phases(dev, gen, smi, reset_counts, read_counts)
     flash_err = max(flash_err, snail["flash_err"])
-    bwd_err = max(bwd_err, snail["bwd_err"])
 
     # ---- VQ-VAE (vq_vae_phases). ----
     vq = vq_vae_phases(dev, gen, smi, reset_counts, read_counts)
@@ -3542,7 +3567,9 @@ def main():
                   *vq["counts"], *gated["counts"], *bf16["counts"], *slice_["counts"])
     # The flash kernels' (d_k, d_v) instances this run held against the
     # plain version; ms, plain_ms and library_ms are reproduce()'s d = 32,
-    # bound_ms its 3xTF32 bound and bound_f32_ms the f32 one beside it.
+    # bound_ms its 3xTF32 bound and bound_f32_ms the f32 one beside it. The
+    # (4, 32) backward (flash_bwd_mma_small.cuh) has an entry of its own,
+    # with PixelSNAIL's launches.
     instances = [f"{dk}x{dv}" for dk, dv in ((d, d), (db, db), (wide["d"], wide["d"]), (4, 32))]
     print(json.dumps({"kernels": [
         {"name": attention_cuda.KERNEL, "route": "cuda",
@@ -3555,10 +3582,12 @@ def main():
         {"name": attention_cuda.BWD_KERNEL, "route": "cuda",
          "source": "pytorch_generative_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "pytorch_generative_tpu/ops/attention_pallas.py:205",
-         "launches": sum(cs[attention_cuda.BWD_KERNEL] for cs in all_counts),
+         "launches": sum(cs[attention_cuda.BWD_KERNEL] for cs in all_counts)
+         - snail["bwd_launches"],
          "max_abs_err": bwd_err, "ms": times["bwd"], "plain_ms": times["bwd_plain"],
          "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1], "library_ms": times["bwd_lib"],
-         "bound_f32_ms": bwd_bound_f32[0], "instances": instances},
+         "bound_f32_ms": bwd_bound_f32[0], "instances": instances[:-1]},
+        snail["bwd_kernel"],
         {"name": decode_cuda.KERNEL, "route": "cuda",
          "source": "pytorch_generative_tpu_torch/csrc/sample_loop.cu",
          "replaces": "pytorch_generative_tpu/ops/decode_pallas.py:257",

@@ -21,48 +21,46 @@
 // flash_fwd_bf16 takes bf16 q, k, v and writes bf16 out and f32 lse, at
 // the TPU kernel's rounding points for bf16 operands: for d_k == d_v = 16,
 // 32, 64, 128 by warpgroup wgmma products fed by TMA (fwg::launch_fwd,
-// flash_wgmma_bf16.cuh), for (4, 32) and (4, 8) by the SIMT tile pass.
+// flash_wgmma_bf16.cuh), for (4, 32) and (4, 8) by bf16 mma.sync with d_k
+// zero-padded to the m16n8k8 product's depth (smma::launch_fwd,
+// flash_fwd_small_bf16.cuh), which takes any view with unit feature stride.
 //
 // (d_k, d_v) = (4, 32) and (4, 8) (PixelSNAIL) keep the SIMT tile pass of
-// flash_fwd.cuh in both types: d_k = 4 is under one mma's depth of 8 (f32)
-// or 16 (bf16), and the f32 instances beat their yardstick already. Their
-// bf16 mode reads each operand one value at a time, so it takes the same
-// views as the f32 one.
+// flash_fwd.cuh in f32, which reads each operand one value at a time and so
+// takes the same views.
 
 #include "flash_fwd.cuh"
 #include "flash_fwd_mma.cuh"
+#include "flash_fwd_small_bf16.cuh"
 #include "flash_wgmma_bf16.cuh"
 
 namespace {
 
-template <int DK, int DV, class T>
+template <int DK, int DV>
 __global__ void __launch_bounds__(flash::kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out,
                  float* __restrict__ lse, int L, int H,
                  int64_t q_bs, int64_t q_rs, int64_t k_bs, int64_t k_rs,
                  int64_t v_bs, int64_t v_rs, float scale_log2, int offset) {
   extern __shared__ float smem[];
-  flash::tile<DK, DV, T>(q, k, v, out, lse, L, H, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs,
+  flash::tile<DK, DV>(q, k, v, out, lse, L, H, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs,
                       scale_log2, offset, smem, blockIdx.x, blockIdx.y, blockIdx.z);
 }
 
-template <int DK, int DV, class T>
-cudaError_t launch(const T* q, const T* k, const T* v, T* out,
+template <int DK, int DV>
+cudaError_t launch(const float* q, const float* k, const float* v, float* out,
                    float* lse, int B, int L, int H, int64_t q_bs, int64_t q_rs,
                    int64_t k_bs, int64_t k_rs, int64_t v_bs, int64_t v_rs,
                    int mask_center, cudaStream_t stream) {
   const size_t smem = sizeof(float) * flash::tile_smem_floats<DK, DV>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<DK, DV, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((L + flash::kBlockQ - 1) / flash::kBlockQ, H, B);
-  // bf16 takes scale * log2(e) as the TPU kernel forms it (fwg::scale_log2_of).
-  const float scale_log2 = std::is_same<T, float>::value
-                               ? 1.4426950408889634f / sqrtf(static_cast<float>(DK))
-                               : fwg::scale_log2_of(DK);
-  flash_fwd_kernel<DK, DV, T><<<grid, flash::kThreads, smem, stream>>>(
+  const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(DK));
+  flash_fwd_kernel<DK, DV><<<grid, flash::kThreads, smem, stream>>>(
       q, k, v, out, lse, L, H, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, scale_log2,
       mask_center ? 1 : 0);
   return cudaGetLastError();
@@ -101,7 +99,7 @@ extern "C" int flash_fwd_f32(const float* q, const float* k, const float* v,
 }
 
 // As flash_fwd_f32 for bf16 q, k, v and out (lse f32): (d_k, d_v) = (4,
-// 32) or (4, 8), any such view; or d_k == d_v, one of 16, 32, 64, 128, each
+// 32) or (4, 8), any such view (bf16 mma.sync); or d_k == d_v, one of 16, 32, 64, 128, each
 // operand's start 16-byte aligned and its (batch, row) strides multiples of
 // 8 values.
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, void* out,
@@ -113,13 +111,13 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, void*
   const auto* kb = static_cast<const bf16::T*>(k);
   const auto* vb = static_cast<const bf16::T*>(v);
   auto* ob = static_cast<bf16::T*>(out);
-#define FLASH_FWD_SIMT_CASE(DK, DV)                                                   \
-  if (d_k == DK && d_v == DV)                                                         \
-    return launch<DK, DV>(qb, kb, vb, ob, lse, B, L, H, q_bs, q_rs, k_bs, k_rs, v_bs, \
-                          v_rs, mask_center, s);
-  FLASH_FWD_SIMT_CASE(4, 32)
-  FLASH_FWD_SIMT_CASE(4, 8)
-#undef FLASH_FWD_SIMT_CASE
+#define FLASH_FWD_SMALL_CASE(DV)                                                        \
+  if (d_k == smma::kDK && d_v == DV)                                                    \
+    return smma::launch_fwd<DV>(qb, kb, vb, ob, lse, B, L, H, q_bs, q_rs, k_bs, k_rs,    \
+                                v_bs, v_rs, mask_center, fwg::scale_log2_of(smma::kDK), s);
+  FLASH_FWD_SMALL_CASE(32)
+  FLASH_FWD_SMALL_CASE(8)
+#undef FLASH_FWD_SMALL_CASE
 #define FLASH_FWD_BF16_CASE(D)                                                      \
   if (d_k == D && d_v == D)                                                         \
     return fwg::launch_fwd<D>(qb, kb, vb, ob, lse, B, L, H, q_bs, q_rs, k_bs, k_rs, \

@@ -1,10 +1,11 @@
-// The causal flash-attention forward's SIMT tile pass over packed tensors,
-// for flash_fwd.cu's d_k != d_v instances, (4, 32) and (4, 8) (PixelSNAIL;
-// one CTA a (query tile, head, batch)), in f32 or bf16 (T). The d_k == d_v
+// The causal flash-attention forward's SIMT tile pass over packed f32
+// tensors, for flash_fwd_f32's d_k != d_v instances, (4, 32) and (4, 8)
+// (PixelSNAIL; one CTA a (query tile, head, batch)). The d_k == d_v
 // instances run on the tensor cores (flash_fwd_mma.cuh and, for bf16,
-// flash_wgmma_bf16.cuh).
+// flash_wgmma_bf16.cuh), as do the bf16 (4, 32) and (4, 8)
+// (flash_fwd_small_bf16.cuh).
 //
-// tile<DK, DV, T> runs query tile qt of head h of batch row b with kThreads
+// tile<DK, DV> runs query tile qt of head h of batch row b with kThreads
 // threads, two a query row: it stages the q tile through shared memory and
 // keeps each row, pre-scaled into the base-2 domain, in registers; then for
 // each key tile up to the diagonal it stages k and v through shared memory
@@ -12,25 +13,15 @@
 // softmax in base 2 with f32 statistics and adds p v into the row's
 // accumulators. Fully-masked rows (`offset` = 1, the mask_center shift, at
 // row 0) give exactly 0 with lse = -inf; lse is stored as a natural log,
-// (B, H, L). The ragged last tile (L % 64 != 0) is masked.
-//
-// bf16 operands (T = bf16::T) are read one value at a time, as f32, so any
-// view with unit feature stride is taken (PixelSNAIL's k and v are column
-// views of one kv tensor, v 8 bytes into each row); the arithmetic stays
-// f32, rounded where the TPU kernel rounds for bf16 operands
-// (attention_pallas.py:135-198): q2 = bf16(q * scale * log2 e) as it is
-// staged, P rounded to bf16 for P V while the row sums take the f32 P, out
-// rounded to bf16 at its store, lse f32.
+// (B, H, L). The ragged last tile (L % 64 != 0) is masked. Operands are
+// read one value at a time, so any view with unit feature stride is taken
+// (PixelSNAIL's k and v are column views of one kv tensor).
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
-
-#include <type_traits>
-
-#include "mma_bf16.cuh"
 
 namespace flash {
 
@@ -39,21 +30,6 @@ constexpr int kBlockK = 64;
 constexpr int kThreads = 2 * kBlockQ;  // two threads share one query row
 constexpr int kHalfK = kBlockK / 2;    // keys per thread per tile
 constexpr float kLn2 = 0.6931471805599453f;
-
-// A stored value as f32, and an f32 value stored (bf16: rounded to nearest
-// even).
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16::T x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(bf16::T* p, float x) { *p = __float2bfloat16_rn(x); }
-
-// x as an operand of T's products: itself for f32, rounded to bf16 for
-// bf16 (the TPU kernel's astype at its dots).
-template <class T>
-__device__ __forceinline__ float operand(float x) {
-  if constexpr (std::is_same<T, float>::value) return x;
-  else return bf16::round(x);
-}
 
 // Floats of dynamic shared memory that the tile pass takes.
 template <int DK, int DV>
@@ -64,10 +40,10 @@ constexpr int tile_smem_floats() {
 // q, k: rows of H * DK features, v and out: rows of H * DV, with the given
 // (batch, row) strides in elements, unit stride over features; out is
 // contiguous (B, L, H * DV).
-template <int DK, int DV, class T>
+template <int DK, int DV>
 __device__ __forceinline__ void tile(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ out, float* __restrict__ lse,
     int L, int H, int64_t q_bs, int64_t q_rs, int64_t k_bs, int64_t k_rs,
     int64_t v_bs, int64_t v_rs, float scale_log2, int offset, float* smem, int qt,
     int h, int b) {
@@ -86,7 +62,7 @@ __device__ __forceinline__ void tile(
     const int rr = idx / DK, cc = idx % DK;
     const int row = qt * kBlockQ + rr;
     ks[rr * (DK + 1) + cc] =
-        row < L ? operand<T>(to_f32(q[b * q_bs + row * q_rs + h * DK + cc]) * scale_log2) : 0.f;
+        row < L ? q[b * q_bs + row * q_rs + h * DK + cc] * scale_log2 : 0.f;
   }
   __syncthreads();
   float qreg[DK];
@@ -105,12 +81,12 @@ __device__ __forceinline__ void tile(
       const int rr = idx / DK, cc = idx % DK;
       const int key = kt * kBlockK + rr;
       ks[rr * (DK + 1) + cc] =
-          key < L ? to_f32(k[b * k_bs + key * k_rs + h * DK + cc]) : 0.f;
+          key < L ? k[b * k_bs + key * k_rs + h * DK + cc] : 0.f;
     }
     for (int idx = tid; idx < kBlockK * DV; idx += kThreads) {
       const int rr = idx / DV, cc = idx % DV;
       const int key = kt * kBlockK + rr;
-      vs[rr * DV + cc] = key < L ? to_f32(v[b * v_bs + key * v_rs + h * DV + cc]) : 0.f;
+      vs[rr * DV + cc] = key < L ? v[b * v_bs + key * v_rs + h * DV + cc] : 0.f;
     }
     __syncthreads();
 
@@ -136,7 +112,7 @@ __device__ __forceinline__ void tile(
     for (int j = 0; j < kHalfK; ++j) {
       const float p = exp2f(s[j] - m_safe);  // masked: exp2(-inf) == 0
       p_sum += p;
-      ps[r * (kBlockK + 1) + half * kHalfK + j] = operand<T>(p);
+      ps[r * (kBlockK + 1) + half * kHalfK + j] = p;
     }
     p_sum += __shfl_xor_sync(0xffffffffu, p_sum, 1);
     l = alpha * l + p_sum;
@@ -154,9 +130,9 @@ __device__ __forceinline__ void tile(
 
   if (row_ok) {
     const float denom = l == 0.f ? 1.f : l;
-    T* op = out + (static_cast<int64_t>(b) * L + qrow) * H * DV + h * DV + half * DH;
+    float* op = out + (static_cast<int64_t>(b) * L + qrow) * H * DV + h * DV + half * DH;
 #pragma unroll
-    for (int d = 0; d < DH; ++d) store(op + d, acc[d] / denom);
+    for (int d = 0; d < DH; ++d) op[d] = acc[d] / denom;
     if (half == 0) {
       lse[(static_cast<int64_t>(b) * H + h) * L + qrow] =
           l == 0.f ? -CUDART_INF_F : m * kLn2 + logf(fmaxf(l, 1e-38f));

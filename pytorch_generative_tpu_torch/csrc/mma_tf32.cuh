@@ -1,7 +1,8 @@
-// The few instructions that the tensor-core flash kernels (flash_mma.cuh)
-// are built from: TF32 rounding, the m16n8k8 TF32 product with f32
-// accumulators, ldmatrix, and 16-byte asynchronous copies into shared
-// memory. Nothing else of the kernels is written in PTX.
+// The few instructions that the tensor-core flash kernels (flash_mma.cuh,
+// flash_bwd_mma_small.cuh) are built from: TF32 rounding, the m16n8k8 and
+// m16n8k4 TF32 products with f32 accumulators, ldmatrix, and 16-byte and
+// 4-byte asynchronous copies into shared memory. Nothing else of the
+// kernels is written in PTX.
 
 #pragma once
 
@@ -34,6 +35,16 @@ __device__ __forceinline__ void mma(float (&d)[4], const float (&a)[4],
         "r"(__float_as_uint(b[0])), "r"(__float_as_uint(b[1])));
 }
 
+// d += a b, m16n8k4: a 16 x 4 (row major), b 4 x 8 (column major), d as in
+// mma (lane = 4 * g + t: a = {A[g][t], A[g+8][t]}, b = {B[t][g]}). Its depth
+// is PixelSNAIL's d_k = 4.
+__device__ __forceinline__ void mma_k4(float (&d)[4], const float (&a)[2], float b) {
+  asm("mma.sync.aligned.m16n8k4.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(__float_as_uint(a[0])), "r"(__float_as_uint(a[1])), "r"(__float_as_uint(b)));
+}
+
 // Four 8 x 4 blocks of 32-bit values from shared memory by one ldmatrix
 // (.x4, read as 8 x 8 blocks of 16-bit values): lane l gives the address of
 // row l % 8 of block l / 8 (16-byte aligned); r[i] = block i's row g,
@@ -60,6 +71,15 @@ __device__ __forceinline__ void cp_async16(float* smem, const float* gmem,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :
                : "r"(dst), "l"(gmem), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// As cp_async16 for 4 bytes (one f32), both addresses 4-byte aligned.
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem, bool valid) {
+  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :
+               : "r"(dst), "l"(gmem), "r"(valid ? 4 : 0)
                : "memory");
 }
 

@@ -10,8 +10,11 @@ The d_k == d_v instances run on the tensor cores (3xTF32,
 card each of their operands must start 16-byte aligned and have batch and
 row strides that are multiples of 4 elements (a contiguous tensor, or a
 column slice of one at a multiple of 4, passes); else the wrapper raises a
-ValueError. (4, 32) and (4, 8) run on the CUDA cores and take any view with
-unit feature stride. ``causal_attention_packed`` is one autograd Function
+ValueError. (4, 32) and (4, 8) take any view with unit feature stride: their
+forward runs on the CUDA cores, their backward on the tensor cores by
+3xTF32 ``mma.sync`` (``csrc/flash_bwd_mma_small.cuh``), 16-byte copies
+where an operand's start and strides allow, else 4-byte ones.
+``causal_attention_packed`` is one autograd Function
 on both devices: its forward saves q, k, v, out and lse, as the JAX
 package's ``_vjp_fwd`` does, and its backward is the flash backward.
 
@@ -21,10 +24,10 @@ pairs of ``BF16_SMALL_PAIRS``: out, dq, dk and dv bf16, lse f32, rounded
 where the JAX kernel rounds for bf16 operands (the plain versions say
 where). On the card the d_k == d_v operands start 16-byte aligned with
 strides that are multiples of 8 values; (4, 32) and (4, 8) take any view
-with unit feature stride, as in f32: their forward on the CUDA cores (the
-SIMT pass), their backward on bf16 ``mma.sync``
-(``csrc/flash_bwd_mma_bf16.cuh``, d_k zero-padded to the product's
-depth). Any other pair raises a TypeError for bf16 on both devices.
+with unit feature stride, as in f32: their forward and backward on bf16
+``mma.sync`` (``csrc/flash_fwd_small_bf16.cuh``,
+``csrc/flash_bwd_mma_bf16.cuh``, d_k zero-padded to the product's depth).
+Any other pair raises a TypeError for bf16 on both devices.
 """
 
 from __future__ import annotations
@@ -42,8 +45,8 @@ KERNEL = "flash_fwd"
 BWD_KERNEL = "flash_bwd"
 # The (d_k, d_v) head widths the kernels are built for: ImageGPT's d_k ==
 # d_v on the tensor cores (128: bench.py's C = 512 model with 4 heads),
-# PixelSNAIL's (4, 32) and (4, 8) for small tests on the CUDA cores. The
-# d_k == d_v instances also need aligned operands (module docstring).
+# PixelSNAIL's (4, 32) and its (4, 8) for small tests (module docstring).
+# The d_k == d_v instances also need aligned operands.
 HEAD_DIM_PAIRS = ((16, 16), (32, 32), (64, 64), (128, 128), (4, 32), (4, 8))
 
 # Kernel launches since the last reset; only _flash_forward_cuda adds to
@@ -56,8 +59,7 @@ BF16_KERNEL = "flash_fwd_bf16"
 BF16_BWD_KERNEL = "flash_bwd_bf16"
 BF16_HEAD_DIMS = (16, 32, 64, 128)
 # PixelSNAIL's pairs in bf16 (same entries and counters as the d_k == d_v
-# instances): the forward the SIMT pass's bf16 mode, the backward on bf16
-# mma.sync.
+# instances): forward and backward on bf16 mma.sync.
 BF16_SMALL_PAIRS = ((4, 32), (4, 8))
 bf16_launches = 0
 bf16_bwd_launches = 0

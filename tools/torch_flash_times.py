@@ -7,7 +7,7 @@ checkouts can be compared in one run:
     python3 tools/torch_flash_times.py CHECKOUT LABEL --bf16 [--dump FILE] [--stages]
     python3 tools/torch_flash_times.py CHECKOUT LABEL --bf16-mlp [--dump FILE]
     python3 tools/torch_flash_times.py CHECKOUT LABEL --bf16-block
-    python3 tools/torch_flash_times.py CHECKOUT LABEL --bf16-snail
+    python3 tools/torch_flash_times.py CHECKOUT LABEL --bf16-snail [--snail-variant NAME]
     python3 tools/torch_flash_times.py --compare FILE_A FILE_B
 
 CHECKOUT is the root of a checkout (its ``pytorch_generative_tpu_torch`` is
@@ -94,12 +94,18 @@ launch (torch.profiler over 20 calls), with the projection GEMM's TFLOP/s
 projection (its GEMM time less the projection's, 2 B L E C'); the
 wrappers' host time a call; then the registers and spills of the
 checkout's bf16 GEMM instances in attn_block_fwd.
-``--bf16-snail`` times PixelSNAIL's bf16 flash pairs (rows "1 bf16 (4,
-32)" and "2 bf16 (4, 32)", and (4, 8)) at (B 128, L 784, H 1,
-mask_center), k and v column views of one kv tensor: forward and
-backward, 20 calls after 3, beside bf16 masked SDPA and autograd.grad
-through it; the card's time of each kernel a backward call launches; the
-registers and spills of the checkout's flash_bwd kernels.
+``--bf16-snail`` times PixelSNAIL's flash pairs (rows "1 bf16 (4, 32)",
+"2 bf16 (4, 32)", 1 and 2 at (4, 32), and (4, 8)) at (B 128, L 784, H 1,
+mask_center), k and v column views of one kv tensor, in bf16 and in f32:
+forward and backward, 20 calls after 3, beside masked SDPA of the same
+type and autograd.grad through it; the card's time of each kernel a
+forward and a backward call launch; the registers and spills of the
+checkout's (4, 32) / (4, 8) kernels. ``--snail-variant NAME`` runs any
+mode on a copy of the checkout's port in a temporary directory with one
+of ``SNAIL_VARIANTS`` applied to ``csrc/flash_bwd_mma_small.cuh`` (raises
+if an anchor text changed): ``k8`` (S and S^T by m16n8k8, d_k
+zero-padded), ``g2`` (2-block sweeps), ``lb3`` (the dk/dv pass capped for
+3 CTAs an SM).
 ``--vq`` times the fused vector-quantization kernel (row 8 of PERF.md,
 ``ops/vq_cuda.py``) instead, at the VQ-VAE reproduce() shape (M 8192 rows,
 K 512 codes, D 64) on three inputs: rows and codebook drawn from N(0, 1)
@@ -441,9 +447,45 @@ def bf16_block_main(label, dev, time_ms):
           + (" | ".join(c7514) if c7514 else "no C7514"), flush=True)
 
 
-def bf16_snail_main(ac, label, dev, time_ms):
-    """PixelSNAIL's bf16 flash pairs beside bf16 masked SDPA, the backward
-    by kernel, and the flash_bwd kernels' registers and spills."""
+# Variants of the f32 (4, 32) / (4, 8) backward (csrc/flash_bwd_mma_small.cuh)
+# that --snail-variant builds in a copy of a checkout: each a list of (old,
+# new) text replacements, each old text found exactly once. "k8": S and S^T
+# by m16n8k8 with d_k zero-padded to 8 in place of m16n8k4; "g2": 2-block
+# sweeps in place of 4; "lb3": the dk/dv pass capped at 168 registers so
+# that 3 CTAs fit an SM.
+SNAIL_VARIANTS = {
+    "k8": [(f"  for (int n = 0; n < N; ++n) tf32::mma_k4(acc[n], {a}, {b}[n]);",
+            f"  for (int n = 0; n < N; ++n)\n"
+            f"    tf32::mma(acc[n], {{{a}[0], {a}[1], 0.f, 0.f}}, {{{b}[n], 0.f}});")
+           for a, b in (("a_small", "b_big"), ("a_big", "b_small"), ("a_big", "b_big"))],
+    "g2": [("constexpr int kGroup = 4;", "constexpr int kGroup = 2;")],
+    "lb3": [("__global__ void __launch_bounds__(kThreads)\ndkdv_kernel(",
+             "__global__ void __launch_bounds__(kThreads, 3)\ndkdv_kernel(")],
+}
+
+
+def snail_variant(checkout, name):
+    """A copy of checkout's port under a new temporary directory with
+    SNAIL_VARIANTS[name] applied to csrc/flash_bwd_mma_small.cuh (raises if
+    an anchor text is not there once); returns the copy's root."""
+    root = Path(tempfile.mkdtemp(prefix=f"snail_{name}_"))
+    pkg = root / "pytorch_generative_tpu_torch"
+    shutil.copytree(Path(checkout) / "pytorch_generative_tpu_torch", pkg,
+                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+    header = pkg / "csrc" / "flash_bwd_mma_small.cuh"
+    text = header.read_text()
+    for old, new in SNAIL_VARIANTS[name]:
+        if text.count(old) != 1:
+            raise RuntimeError(f"variant {name}: anchor not found once: {old!r}")
+        text = text.replace(old, new)
+    header.write_text(text)
+    return str(root)
+
+
+def snail_main(ac, label, dev, time_ms):
+    """PixelSNAIL's flash pairs in bf16 and in f32 beside masked SDPA of the
+    same type, each call by kernel, and the flash kernels' registers and
+    spills."""
     import torch
     import torch.nn.functional as F
 
@@ -451,30 +493,36 @@ def bf16_snail_main(ac, label, dev, time_ms):
 
     b, l = 128, 784
     mask = causal_attention_mask(l, True, device=dev)
-    for d_k, d_v in ((4, 32), (4, 8)):
-        q, k, v, do = (t.to(torch.bfloat16) for t in _operands(b, l, 1, d_k, d_v, 0, dev))
-        o, lse = ac.flash_forward(q, k, v, True, 1)
-        bwd = lambda: ac.flash_backward(q, k, v, o, lse, do, True, 1)  # noqa: E731
-        f = time_ms(lambda: ac.flash_forward(q, k, v, True, 1))
-        bw = time_ms(bwd)
-        q4, k4, v4 = (ac._unpack(t, 1).contiguous().requires_grad_() for t in (q, k, v))
-        do4 = ac._unpack(do, 1).contiguous()
+    for dt in (torch.bfloat16, torch.float32):
+        for d_k, d_v in ((4, 32), (4, 8)):
+            q, k, v, do = (t.to(dt) for t in _operands(b, l, 1, d_k, d_v, 0, dev))
+            o, lse = ac.flash_forward(q, k, v, True, 1)
+            fwd = lambda: ac.flash_forward(q, k, v, True, 1)  # noqa: E731
+            bwd = lambda: ac.flash_backward(q, k, v, o, lse, do, True, 1)  # noqa: E731
+            f, bw = time_ms(fwd), time_ms(bwd)
+            q4, k4, v4 = (ac._unpack(t, 1).contiguous().requires_grad_() for t in (q, k, v))
+            do4 = ac._unpack(do, 1).contiguous()
 
-        def sdpa():
-            with torch.no_grad():
-                return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+            def sdpa():
+                with torch.no_grad():
+                    return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
 
-        ref = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
-        lib_f = time_ms(sdpa)
-        lib_b = time_ms(lambda: torch.autograd.grad(ref, (q4, k4, v4), do4, retain_graph=True))
-        print(f"bf16 snail flash times {label} (B {b}, L {l}, H 1, d_k {d_k}, d_v {d_v}, "
-              f"mask_center) [{_card()}]: fwd {f:.4f} ms bwd {bw:.4f} ms, bf16 masked SDPA fwd "
-              f"{lib_f:.4f} ms autograd.grad {lib_b:.4f} ms; bwd by kernel: " + ", ".join(
-                  f"{k_} {ms:.4f} ms ({n:g}x)" for k_, (ms, n) in _kernel_ms(bwd).items()),
-              flush=True)
-        del q, k, v, do, o, lse, q4, k4, v4, do4, ref
-    print(f"{ac.BWD_KERNEL} ptxas {label}: " + " | ".join(
-        ln for ln in _ptxas(ac, ac.BWD_KERNEL) if "mma" not in ln or "smma" in ln), flush=True)
+            ref = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+            lib_f = time_ms(sdpa)
+            lib_b = time_ms(lambda: torch.autograd.grad(ref, (q4, k4, v4), do4,
+                                                        retain_graph=True))
+            by = lambda fn: ", ".join(  # noqa: E731
+                f"{k_} {ms:.4f} ms ({n:g}x)" for k_, (ms, n) in _kernel_ms(fn).items())
+            name = "bf16" if dt == torch.bfloat16 else "f32"
+            print(f"{name} snail flash times {label} (B {b}, L {l}, H 1, d_k {d_k}, d_v {d_v}, "
+                  f"mask_center) [{_card()}]: fwd {f:.4f} ms bwd {bw:.4f} ms, {name} masked "
+                  f"SDPA fwd {lib_f:.4f} ms autograd.grad {lib_b:.4f} ms; fwd by kernel: "
+                  f"{by(fwd)}; bwd by kernel: {by(bwd)}", flush=True)
+            del q, k, v, do, o, lse, q4, k4, v4, do4, ref
+    for kernel in (ac.KERNEL, ac.BWD_KERNEL):
+        print(f"{kernel} ptxas {label}: " + " | ".join(
+            ln for ln in _ptxas(ac, kernel) if "fsmall" in ln or "smma" in ln
+            or "flash_fwd_kernel" in ln), flush=True)
 
 
 def _bf16_outputs(ac, dev):
@@ -625,7 +673,9 @@ def _outputs(ac, dev):
 
 
 def main(checkout, label, dump=None, steps=False, vq=False, stages=False, bf16=False,
-         bf16_mlp=False, bf16_block=False, bf16_snail=False):
+         bf16_mlp=False, bf16_block=False, bf16_snail=False, snail_variant_name=None):
+    if snail_variant_name:
+        checkout = snail_variant(checkout, snail_variant_name)
     sys.path.insert(0, checkout)
     import torch
 
@@ -655,7 +705,7 @@ def main(checkout, label, dump=None, steps=False, vq=False, stages=False, bf16=F
         bf16_block_main(label, dev, time_ms)
         return
     if bf16_snail:
-        bf16_snail_main(ac, label, dev, time_ms)
+        snail_main(ac, label, dev, time_ms)
         return
     if bf16_mlp:
         bf16_mlp_main(label, dev, time_ms)
@@ -1152,6 +1202,7 @@ if __name__ == "__main__":
         parser.add_argument("--bf16-mlp", action="store_true")
         parser.add_argument("--bf16-block", action="store_true")
         parser.add_argument("--bf16-snail", action="store_true")
+        parser.add_argument("--snail-variant", choices=sorted(SNAIL_VARIANTS))
         args = parser.parse_args()
         main(args.checkout, args.label, args.dump, args.steps, args.vq, args.stages, args.bf16,
-             args.bf16_mlp, args.bf16_block, args.bf16_snail)
+             args.bf16_mlp, args.bf16_block, args.bf16_snail, args.snail_variant)
